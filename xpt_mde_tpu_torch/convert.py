@@ -1,0 +1,85 @@
+"""Flax variables -> the port's ``state_dict``.
+
+The JAX model's variables are ``{"params": ..., "batch_stats": ...}``,
+nested dicts of arrays whose paths name modules explicitly (``Conv_0``,
+``MBConv_k/Conv_i``, ``DepthDecoder_0/UpconvBlock_j/...``). The port's
+modules carry the same names, so each leaf maps by its path:
+
+- conv ``kernel`` HWIO -> ``weight`` OIHW (a depthwise [kh, kw, 1, C]
+  kernel becomes [C, 1, kh, kw] by the same transpose);
+- conv / BatchNorm ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``;
+- BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+- EfficientNet ``input_mean`` / ``input_var`` -> the buffers of that name.
+
+Conversion fails if a flax leaf has no torch counterpart or the wrong
+shape, or if a torch tensor is left unset. BatchNorm's
+``num_batches_tracked`` has no flax counterpart (the momentum is fixed)
+and is set to 0.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var",
+               "input_mean": "input_mean", "input_var": "input_var"}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _map_leaf(collection: str, path: tuple[str, ...],
+              value: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, name = path
+    names = {"params": _PARAM_NAMES, "batch_stats": _STAT_NAMES}.get(collection, {})
+    if name not in names:
+        raise KeyError(f"unmapped flax leaf {collection}/{'/'.join(path)}")
+    if name == "kernel":
+        if value.ndim != 4:
+            raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel, "
+                             f"got shape {value.shape}")
+        value = value.transpose(3, 2, 0, 1)
+    return ".".join(modules + [names[name]]), value
+
+
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Map flax ``variables`` onto ``model``'s state_dict keys and shapes."""
+    target = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        for path, leaf in _leaves(tree):
+            key, value = _map_leaf(collection, path, np.asarray(leaf))
+            where = f"{collection}/{'/'.join(path)}"
+            if key not in target:
+                raise KeyError(f"flax leaf {where} has no torch tensor {key!r}")
+            if key in out:
+                raise KeyError(f"two flax leaves map to {key!r} (second: {where})")
+            ref = target[key]
+            if tuple(value.shape) != tuple(ref.shape):
+                raise ValueError(f"{where}: shape {value.shape} does not fit "
+                                 f"{key} {tuple(ref.shape)}")
+            out[key] = torch.tensor(np.ascontiguousarray(value), dtype=ref.dtype)
+    for key, ref in target.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros_like(ref, device="cpu")
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"{len(missing)} torch tensors left unset, e.g. {missing[:5]}")
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module,
+                        variables: Mapping[str, Any]) -> torch.nn.Module:
+    """Load flax ``variables`` into ``model`` (in place) and return it."""
+    model.load_state_dict(flax_to_state_dict(variables, model), strict=True)
+    return model

@@ -1,0 +1,188 @@
+"""Loss orchestration for the rigid stage (port of part of
+``xpt_mde_tpu.losses.total``).
+
+Contracts kept:
+- every loss maps (features, predictions, augm_data) -> [batch];
+- multi-scale losses combine per-scale batch losses by a scale-weight
+  vector;
+- ``TotalLoss`` builds the shared data (source/target split, target
+  pyramid, synthesized views) once, then sums each loss over the GLOBAL
+  batch, divides by it and weights it by the recipe;
+- the factory drops losses whose required features the dataset lacks.
+
+Ported: ``L1``, ``SSIM`` and ``smoothe``. A recipe that keeps any other
+loss raises, naming it; nothing is dropped silently.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+
+from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
+from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
+from xpt_mde_tpu_torch.utils.image import multi_scale_like
+
+LossFn = Callable[[Mapping[str, Any], Mapping[str, Any], Mapping[str, Any]],
+                  torch.Tensor]
+
+
+def _merge_multi_scale(losses: Sequence[torch.Tensor],
+                       scale_weights: Sequence[float]) -> torch.Tensor:
+    """[scales][batch] -> [batch] via scale-weighted sum."""
+    stacked = torch.stack(list(losses), dim=0)
+    weights = torch.as_tensor(scale_weights, dtype=torch.float32,
+                              device=stacked.device)
+    return torch.tensordot(weights, stacked, dims=1)
+
+
+class PhotometricLossMultiScale:
+    """Per-scale photometric loss against the scaled target."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        target_ms = augm_data["target_ms" + self.sfx]
+        synth_ms = augm_data["synth_target_ms" + self.sfx]
+        losses = [self.photo(s, t) for s, t in zip(synth_ms, target_ms)]
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
+class SmoothenessLossMultiScale:
+    """Edge-aware disparity smoothness (NHWC, like the reference)."""
+
+    def __init__(self, scale_weights, key_suffix: str = "",
+                 image_gradient_factor: float = 4.0):
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+        self.grad_factor = image_gradient_factor
+
+    def __call__(self, features, predictions, augm_data):
+        disp_ms = predictions["disp_ms" + self.sfx]
+        target_ms = augm_data["target_ms" + self.sfx]
+        orig_width = target_ms[0].shape[2]
+        losses = []
+        for disp, image in zip(disp_ms, target_ms):
+            scale = orig_width / image.shape[2]
+            losses.append(self.smootheness_loss(disp, image) / scale)
+        return _merge_multi_scale(losses, self.scale_weights)
+
+    def smootheness_loss(self, disp, image):
+        def grad_x(img):
+            return img[:, :, :-1] - img[:, :, 1:]
+
+        def grad_y(img):
+            return img[:, :-1] - img[:, 1:]
+
+        disp_gx, disp_gy = grad_x(disp), grad_y(disp)
+        img_gx, img_gy = grad_x(image), grad_y(image)
+        wx = torch.exp(-torch.mean(torch.abs(img_gx * self.grad_factor), 3,
+                                   keepdim=True))
+        wy = torch.exp(-torch.mean(torch.abs(img_gy * self.grad_factor), 3,
+                                   keepdim=True))
+        sx = 0.5 * torch.mean(torch.abs(disp_gx * wx), dim=(1, 2, 3))
+        sy = 0.5 * torch.mean(torch.abs(disp_gy * wy), dim=(1, 2, 3))
+        return sx + sy
+
+
+class TotalLoss:
+    """Weighted sum of registered losses over shared augmented data."""
+
+    def __init__(self, loss_objects: Mapping[str, LossFn],
+                 loss_weights: Mapping[str, float], stereo: bool = False,
+                 batch_size: int | None = None):
+        self.loss_objects = dict(loss_objects)
+        self.loss_weights = dict(loss_weights)
+        self.stereo = stereo
+        self.batch_size = batch_size
+
+    def __call__(self, predictions, features):
+        """:return: (total loss scalar, dict of per-loss scalars)"""
+        if self.stereo and "image5d_R" in features:
+            raise NotImplementedError(
+                "stereo losses are not ported yet (ROADMAP: 'Stereo slice')")
+        augm_data = self.append_data(features, predictions)
+        global_batch = self.batch_size or features["image5d"].shape[0]
+        total = 0.0
+        loss_by_type = {}
+        for name, loss_obj in self.loss_objects.items():
+            loss_mean = torch.sum(loss_obj(features, predictions, augm_data)) \
+                / global_batch
+            total = total + loss_mean * self.loss_weights[name]
+            loss_by_type[name] = loss_mean
+        return total, loss_by_type
+
+    def append_data(self, features, predictions, suffix: str = ""):
+        """Source/target split, target pyramid and synthesized views."""
+        image5d = features["image5d" + suffix]
+        source = image5d[:, :-1]
+        target = image5d[:, -1]
+        augm = {"source" + suffix: source, "target" + suffix: target}
+        if ("depth_ms" + suffix in predictions) and ("pose" + suffix in predictions):
+            depth_ms = predictions["depth_ms" + suffix]
+            augm["target_ms" + suffix] = multi_scale_like(target, depth_ms)
+            augm["synth_target_ms" + suffix] = synthesize_multi_scale(
+                source, features["intrinsic" + suffix], depth_ms,
+                predictions["pose" + suffix])
+        return augm
+
+
+# ---------------------------------------------------------------------------
+# registry / factory
+
+LOSS_DEPENDENCIES = [
+    (["L1", "SSIM", "md2L1", "md2SSIM", "cmbL1", "cmbSSIM", "md2cmbL1",
+      "md2cmbSSIM", "moaL1", "moaSSIM", "smoothe", "flowL2", "flow_reg"],
+     ["image", "intrinsic"]),
+    (["L1_R", "SSIM_R", "md2L1_R", "md2SSIM_R", "cmbL1_R", "cmbSSIM_R",
+      "md2cmbL1_R", "md2cmbSSIM_R", "moaL1_R", "moaSSIM_R", "smoothe_R",
+      "flowL2_R"],
+     ["image_R", "intrinsic_R"]),
+    (["stereoL1", "stereoSSIM", "stereoPose",
+      "moaL1", "moaSSIM", "moaL1_R", "moaSSIM_R"],
+     ["image", "intrinsic", "image_R", "intrinsic_R", "stereo_T_LR"]),
+]
+
+
+def check_loss_dependency(loss_key: str, dataset_keys) -> bool:
+    """True if every feature ``loss_key`` needs is in the dataset."""
+    dataset_keys = {k.replace("image5d", "image") for k in dataset_keys}
+    for loss_names, data_names in LOSS_DEPENDENCIES:
+        if loss_key in loss_names:
+            for dep in data_names:
+                if dep not in dataset_keys:
+                    print(f"[check_loss_dependency] drop {loss_key}: "
+                          f"{dep} not in dataset")
+                    return False
+    return True
+
+
+def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
+                 scale_weights, stereo: bool = True,
+                 batch_size: int | None = None,
+                 image_gradient_factor: float = 4.0) -> TotalLoss:
+    """Build a TotalLoss from a recipe dict.
+
+    Losses with weight 0 or missing features are dropped, as in the JAX
+    factory. A kept loss that is not ported raises NotImplementedError.
+    """
+    pool: dict[str, LossFn] = {
+        "L1": PhotometricLossMultiScale("L1", scale_weights),
+        "SSIM": PhotometricLossMultiScale("SSIM", scale_weights),
+        "smoothe": SmoothenessLossMultiScale(scale_weights, "",
+                                             image_gradient_factor),
+    }
+    losses, weights = {}, {}
+    for name, weight in loss_weights.items():
+        if weight == 0.0 or not check_loss_dependency(name, dataset_keys):
+            continue
+        if name not in pool:
+            raise NotImplementedError(
+                f"loss {name!r} is not ported yet; ported: {sorted(pool)}")
+        losses[name] = pool[name]
+        weights[name] = weight
+    return TotalLoss(losses, weights, stereo, batch_size)

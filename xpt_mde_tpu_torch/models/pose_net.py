@@ -1,0 +1,41 @@
+"""PoseNetImproved (port of ``xpt_mde_tpu.models.pose_net``): the snippet
+[B, S, H, W, 3] stacked on channels -> 6 stride-2 levels and a 3-conv
+tail (one more stride-2 block at high resolution) -> 1x1 conv to
+numsrc*6 -> spatial mean -> [B, numsrc, 6] target->source twists."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from xpt_mde_tpu_torch.models.layers import Conv
+
+# (features, kernel, stride) of the conv stack, in flax's Conv_i order
+_IMPROVED = [(32, 5, 2), (32, 5, 2), (64, 3, 2), (128, 3, 2),
+             (256, 3, 2), (256, 3, 2), (256, 3, 1), (256, 3, 1)]
+_HIGH_RES = [(512, 3, 2), (512, 3, 1), (512, 3, 1)]
+
+
+class PoseNetImproved(nn.Module):
+    def __init__(self, snippet_len: int, high_res: bool = False):
+        super().__init__()
+        self.numsrc = snippet_len - 1
+        in_ch = snippet_len * 3
+        self._convs = []
+        for features, kernel, stride in _IMPROVED + (_HIGH_RES if high_res else []):
+            self._add_conv(Conv(in_ch, features, kernel, stride))
+            in_ch = features
+        self._add_conv(Conv(in_ch, self.numsrc * 6, 1, use_activation=False))
+
+    def _add_conv(self, conv: Conv) -> None:
+        self.add_module(f"Conv_{len(self._convs)}", conv)
+        self._convs.append(conv)
+
+    def forward(self, image5d: torch.Tensor):
+        b, s, h, w, c = image5d.shape
+        # channel index s*C + c, as restack_on_channels orders it
+        x = image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w)
+        for conv in self._convs:
+            x = conv(x)
+        poses = torch.mean(x.float(), dim=(2, 3))
+        return {"pose": poses.reshape(-1, self.numsrc, 6)}

@@ -1,0 +1,3 @@
+from xpt_mde_tpu_torch.training.train_step import (decode_image_features,
+                                                   make_eval_step,
+                                                   make_predict_step)

@@ -1,0 +1,58 @@
+"""Image helpers (port of ``xpt_mde_tpu.utils.image``).
+
+Resizes follow ``tf.image.resize``: half-pixel centres and no
+antialiasing. Bilinear is ``F.interpolate(align_corners=False,
+antialias=False)``; nearest is ``"nearest-exact"`` (half-pixel, as
+``jax.image.resize`` does it), not torch's ``"nearest"``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def resize_nchw(x: torch.Tensor, height: int, width: int,
+                method: str = "bilinear") -> torch.Tensor:
+    """Resize [N, C, H, W] to [N, C, height, width] (the conv modules'
+    layout). Bilinear interpolates in float32 whatever the input dtype."""
+    if x.shape[-2:] == (height, width):
+        return x
+    if method == "nearest":
+        return F.interpolate(x, size=(height, width), mode="nearest-exact")
+    if method != "bilinear":
+        raise ValueError(f"unknown resize method: {method!r}")
+    out = F.interpolate(x.float(), size=(height, width), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return out.to(x.dtype) if x.is_floating_point() else out
+
+
+def resize_image(image: torch.Tensor, height: int, width: int,
+                 method: str = "bilinear") -> torch.Tensor:
+    """Resize [..., H, W, C] to [..., height, width, C]."""
+    src_h, src_w, chans = image.shape[-3:]
+    if (src_h, src_w) == (height, width):
+        return image
+    lead = image.shape[:-3]
+    flat = image.reshape(-1, src_h, src_w, chans).permute(0, 3, 1, 2)
+    out = resize_nchw(flat, height, width, method).permute(0, 2, 3, 1)
+    return out.reshape(lead + (height, width, chans))
+
+
+def multi_scale_like(image: torch.Tensor, pyramid: Sequence[torch.Tensor],
+                     method: str = "bilinear") -> list[torch.Tensor]:
+    """Resize ``image`` to the (H, W) of every tensor in ``pyramid``."""
+    return [resize_image(image, p.shape[-3], p.shape[-2], method)
+            for p in pyramid]
+
+
+def safe_reciprocal(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Masked 1/x: values <= eps map to 0 (depth <-> disparity)."""
+    keep = x > eps
+    return keep.to(x.dtype) / torch.where(keep, x, torch.ones_like(x))
+
+
+def safe_reciprocal_ms(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    return [safe_reciprocal(x) for x in xs]
