@@ -19,6 +19,7 @@ import torch
 from xpt_mde_tpu_torch.ops.kernels import build
 from xpt_mde_tpu_torch.ops.kernels import warp as k1
 from xpt_mde_tpu_torch.ops.warp import bilinear_sample, bilinear_sample_plain
+from xpt_mde_tpu_torch.utils.precision import full_f32
 
 HEADLINE = [(128, 512), (64, 256), (32, 128), (16, 64)]
 
@@ -27,9 +28,8 @@ HEADLINE = [(128, 512), (64, 256), (32, 128), (16, 64)]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    with full_f32():
+        yield torch.device("cuda")
 
 
 def _case(batch, numsrc, height, width, seed, rows=2, device="cpu"):

@@ -135,18 +135,18 @@ def test_metrics_match_jax():
 def test_port_runs_with_jax_blocked():
     """The GPU machine has no JAX: import every module of the port and
     chip_smoke, then run the slice at a tiny size, with jax/flax/optax
-    made unimportable."""
+    and the JAX package itself made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax"):
+        for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
             sys.modules[name] = None
         import chip_smoke
         import xpt_mde_tpu_torch
         for info in pkgutil.walk_packages(xpt_mde_tpu_torch.__path__, "xpt_mde_tpu_torch."):
             importlib.import_module(info.name)
         import torch
-        from xpt_mde_tpu.config import SCALE_WEIGHT_T1
-        from xpt_mde_tpu.data import SyntheticDataset
+        from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
         from xpt_mde_tpu_torch.training import make_eval_step, make_predict_step
@@ -161,7 +161,8 @@ def test_port_runs_with_jax_blocked():
         metrics = make_eval_step(model, loss)(feats)
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
         assert tuple(preds["depth_ms"][0].shape) == (1, 32, 64, 1)
-        assert all(sys.modules.get(m) is None for m in ("jax", "flax", "optax"))
+        assert all(sys.modules.get(m) is None
+                   for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
         print("JAX-FREE OK")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))

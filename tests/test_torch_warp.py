@@ -84,8 +84,7 @@ def test_plain_warp_homogeneous_coords_and_cpu_routing():
     # CPU tensors: every entry point takes the plain version, K1 is not launched
     for got in (bilinear_sample_plain(*args),
                 bilinear_sample(*args, const_src=True),
-                bilinear_sample(*args),
-                k1.bilinear_sample_const_src(*args)):
+                bilinear_sample(*args)):
         np.testing.assert_allclose(got.numpy(), ref, **TOL)
     assert k1.K1.launches == before
 

@@ -2,9 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its module
 paths and public names so each counterpart is easy to find, and it
-imports ``torch`` only (never ``jax``, ``flax`` or ``optax``). From the
-JAX package it reuses only the framework-neutral ``xpt_mde_tpu.config``
-constants and ``xpt_mde_tpu.data.SyntheticDataset``.
+imports ``torch`` only (never ``jax``, ``flax``, ``optax`` or the JAX
+package). The constants and the numpy synthetic data it needs are
+copies (``config.py``, ``data/``), held equal to the reference's by the
+tests.
 
 Layout conventions (the JAX ones, so the parity tests compare like with
 like): snippets ``[B, S, H, W, C]``, pixel coordinates ``[B, N, 2, H*W]``,

@@ -1,0 +1,16 @@
+"""The constants of ``xpt_mde_tpu.config`` that the port's slice needs.
+
+Copied, not imported: the port imports nothing of the JAX package.
+``tests/test_torch_data.py`` holds every value here equal to the
+reference's.
+"""
+
+SNIPPET_LEN = 5
+NUM_SRC = SNIPPET_LEN - 1
+
+# per-scale loss weights, finest scale first
+SCALE_WEIGHT_T1 = tuple(w * 4.0 for w in (0.25, 0.25, 0.25, 0.25))
+SCALE_WEIGHT_T2 = tuple(w * 4.0 for w in (0.1, 0.2, 0.3, 0.4))
+
+# the rigid stage's nets (depth + camera of the reference's JOINT_NET)
+RIGID_NET = {"depth": "EfficientNetB5", "camera": "PoseNetImproved"}

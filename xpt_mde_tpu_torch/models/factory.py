@@ -19,7 +19,7 @@ from typing import Mapping
 import torch
 import torch.nn as nn
 
-from xpt_mde_tpu.config import SNIPPET_LEN
+from xpt_mde_tpu_torch.config import SNIPPET_LEN
 from xpt_mde_tpu_torch.models import depth_net as dn
 from xpt_mde_tpu_torch.models import pose_net as pn
 from xpt_mde_tpu_torch.models.backbones import backbone_factory

@@ -1,9 +1,11 @@
 """Pinhole camera geometry (port of ``xpt_mde_tpu.ops.camera``).
 
 Pixel coordinates are (u, v, 1) rows, ``[.., 3, H*W]``; depth is the
-target-frame z; poses map target -> source. All contractions run in full
-float32 with TF32 off: a TF32 matmul shifts reprojected pixels by a
-visible fraction of a pixel. The projection guard ``z + 1e-10`` is the
+target-frame z; poses map target -> source. The contractions are plain
+float32 matmuls and must not run in TF32, which shifts reprojected pixels
+by a visible fraction of a pixel: the steps run inside
+:func:`~xpt_mde_tpu_torch.utils.precision.full_f32`, and other callers
+enter it themselves. The projection guard ``z + 1e-10`` is the
 reference's.
 """
 
@@ -11,7 +13,6 @@ from __future__ import annotations
 
 import torch
 
-from xpt_mde_tpu_torch.utils.precision import matmul_f32
 
 _Z_EPS = 1e-10
 
@@ -53,7 +54,7 @@ def pixel2cam(pixel_coords: torch.Tensor, depth: torch.Tensor,
               intrinsic: torch.Tensor) -> torch.Tensor:
     """(u,v,1) [3, HW], depth [B,H,W,1], K [B,3,3] -> (x,y,z,1) [B,4,HW]."""
     batch = depth.shape[0]
-    cam = matmul_f32(invert_intrinsics(intrinsic), pixel_coords)
+    cam = torch.matmul(invert_intrinsics(intrinsic), pixel_coords)
     cam = cam * depth.reshape(batch, 1, -1)
     ones = torch.ones_like(cam[:, :1])
     return torch.cat([cam, ones], dim=1)
@@ -62,12 +63,12 @@ def pixel2cam(pixel_coords: torch.Tensor, depth: torch.Tensor,
 def transform_to_source(tgt_coords: torch.Tensor,
                         t2s_pose: torch.Tensor) -> torch.Tensor:
     """[B,4,HW] points, [B,N,4,4] poses -> [B,N,4,HW]."""
-    return matmul_f32(t2s_pose, tgt_coords[:, None])
+    return torch.matmul(t2s_pose, tgt_coords[:, None])
 
 
 def cam2pixel(cam_coords: torch.Tensor, intrinsic: torch.Tensor) -> torch.Tensor:
     """[B,N,4,HW] source-frame points -> (u,v,1) [B,N,3,HW]."""
-    pixels = matmul_f32(intrinsic[:, None], cam_coords[:, :, :3])
+    pixels = torch.matmul(intrinsic[:, None], cam_coords[:, :, :3])
     return pixels / (pixels[:, :, 2:3] + _Z_EPS)
 
 
@@ -87,9 +88,9 @@ def reproject_pixel_coords(depth: torch.Tensor, t2s_pose: torch.Tensor,
     kinv = invert_intrinsics(intrinsic)
     rot = t2s_pose[:, :, :3, :3]
     tr = t2s_pose[:, :, :3, 3:]
-    a_mat = matmul_f32(matmul_f32(intrinsic[:, None], rot), kinv[:, None])
-    b_vec = matmul_f32(intrinsic[:, None], tr)
+    a_mat = torch.matmul(torch.matmul(intrinsic[:, None], rot), kinv[:, None])
+    b_vec = torch.matmul(intrinsic[:, None], tr)
     xyd = grid * depth.reshape(batch, 1, 1, -1)
-    pixels = matmul_f32(a_mat, xyd) + b_vec
+    pixels = torch.matmul(a_mat, xyd) + b_vec
     pixels = pixels / (pixels[:, :, 2:3] + _Z_EPS)
     return pixels[:, :, :2]

@@ -15,7 +15,6 @@ import ctypes
 import torch
 
 from xpt_mde_tpu_torch.ops.kernels.build import load_library
-from xpt_mde_tpu_torch.ops.warp import bilinear_sample_plain
 
 SOURCE = "xpt_mde_tpu_torch/csrc/warp.cu"
 REPLACES = "xpt_mde_tpu/ops/pallas/warp.py:135"
@@ -86,12 +85,3 @@ class WarpKernel:
 
 
 K1 = WarpKernel()
-
-
-def bilinear_sample_const_src(image: torch.Tensor, pixel_coords: torch.Tensor,
-                              valid_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Warp of a source image that is never differentiated: K1 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if image.device.type == "cpu":
-        return bilinear_sample_plain(image, pixel_coords, valid_mask)
-    return K1(image, pixel_coords, valid_mask)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from xpt_mde_tpu_torch.ops.kernels.warp import K1
+
 
 def _neighbor_weights(image, pixel_coords, valid_mask):
     """(uf, vf, uc, vc as int64 [B,N,HW]) and the four bilinear weights
@@ -89,7 +91,5 @@ def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
         raise NotImplementedError(
             "the image-differentiable warp has no kernel on the card yet; "
             "view synthesis uses const_src=True (kernel K1)")
-    from xpt_mde_tpu_torch.ops.kernels.warp import bilinear_sample_const_src
     mask = None if valid_mask is None else valid_mask.contiguous()
-    return bilinear_sample_const_src(image.contiguous(),
-                                     pixel_coords.contiguous(), mask)
+    return K1(image.contiguous(), pixel_coords.contiguous(), mask)

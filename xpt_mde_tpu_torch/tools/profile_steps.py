@@ -1,0 +1,122 @@
+"""Where the time of the predict and eval steps goes on one CUDA card.
+
+Usage, from the repository root on a machine with a CUDA card:
+
+    python -m xpt_mde_tpu_torch.tools.profile_steps [--out FILE]
+
+It builds the rigid model (EfficientNetB5 + PoseNetImproved, seeded
+random weights, batch 8, 128x512) and the eval loss of ``chip_smoke.py``,
+then for each step (predict, eval):
+
+- times 5 steps on the host clock around ``torch.cuda.synchronize()``,
+  without the profiler (wall ms/step);
+- traces 5 more under ``torch.profiler`` and reports, per step, the
+  device busy time (the union of the kernels' intervals), the number of
+  kernels, the idle share ``1 - busy / wall`` against both walls, and the
+  20 operators and kernels by self device time.
+
+The first line of the output names the card and its power limit
+(``nvidia-smi``). ``--out`` also writes the report to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+
+RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
+BATCH, HEIGHT, WIDTH = 8, 128, 512
+STEPS = 5  # timed steps, and as many profiled
+TOP = 20  # operators and kernels listed per step
+
+
+def _device_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "nvidia-smi failed"
+
+
+def _wall_ms(step, batches) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / STEPS
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def profile_step(label: str, step, batches) -> list[str]:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for features in batches:  # warm-up: cuDNN autotuning, K1's build
+        step(features)
+    wall = _wall_ms(step, batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_prof = _wall_ms(step, batches)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1000 / STEPS
+    lines = [f"{label}: wall {wall:.3f} ms/step (no profiler), {wall_prof:.3f} ms/step "
+             f"(profiled); device busy (union of kernel intervals) {busy:.3f} ms/step; "
+             f"kernels/step {len(kernels) / STEPS:.0f}; idle share "
+             f"{1 - busy / wall:.3f} (no profiler), {1 - busy / wall_prof:.3f} (profiled)"]
+    averages = sorted(prof.key_averages(), key=lambda a: a.self_device_time_total,
+                      reverse=True)
+    for avg in averages[:TOP]:
+        lines.append(f"  {avg.self_device_time_total / 1000 / STEPS:9.4f} ms/step "
+                     f"{avg.count / STEPS:7.0f}/step  {avg.key[:110]}")
+    return lines
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=None, help="also write the report here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_steps: no CUDA device", file=sys.stderr)
+        return 1
+
+    from xpt_mde_tpu_torch.config import RIGID_NET, SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.losses import loss_factory
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.training import make_eval_step, make_predict_step
+
+    device = torch.device("cuda", 0)
+    dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
+                               num_batches=3, seed=0)
+    keys = dataset.config_keys()
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in dataset]
+    model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
+    total_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                              batch_size=BATCH)
+    report = [f"{_device_line()}; {RIGID_NET['depth']} + {RIGID_NET['camera']}, batch "
+              f"{BATCH}, {HEIGHT}x{WIDTH}, float32 (TF32 off), {STEPS} steps"]
+    for label, step in (("predict", make_predict_step(model)),
+                        ("eval", make_eval_step(model, total_loss))):
+        report += profile_step(label, step, batches)
+    text = "\n".join(report)
+    print(text, flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

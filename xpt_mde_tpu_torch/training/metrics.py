@@ -7,7 +7,6 @@ from __future__ import annotations
 import torch
 
 from xpt_mde_tpu_torch.utils import se3
-from xpt_mde_tpu_torch.utils.precision import matmul_f32
 
 
 def snippet_pose_from_first(poses: torch.Tensor) -> torch.Tensor:
@@ -17,7 +16,7 @@ def snippet_pose_from_first(poses: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(4, dtype=poses.dtype, device=poses.device).expand(batch, 1, 4, 4)
     poses_mat = torch.cat([poses[:, :2], eye, poses[:, 2:]], dim=1)
     origin_inv = se3.invert_matrix(poses_mat[:, 0:1])
-    return matmul_f32(origin_inv, poses_mat)
+    return torch.matmul(origin_inv, poses_mat)
 
 
 def trajectory_error(pose_pred_mat, pose_true_mat, abs_scale: bool) -> torch.Tensor:
@@ -38,7 +37,7 @@ def rotational_error(pose_pred_mat, pose_true_mat) -> torch.Tensor:
     """Geodesic rotation error in rad [B, snippet - 1]."""
     rot_pred = pose_pred_mat[:, :, :3, :3]
     rot_true = pose_true_mat[:, :, :3, :3]
-    rel = matmul_f32(rot_pred.transpose(-1, -2), rot_true)
+    rel = torch.matmul(rot_pred.transpose(-1, -2), rot_true)
     trace = torch.diagonal(rel, dim1=-2, dim2=-1).sum(-1)
     angle = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
     return angle[:, 1:]

@@ -4,8 +4,9 @@ cuDNN runs float32 convolutions in TF32 by default, and cuBLAS may do
 the same for matmuls when ``allow_tf32`` is set. TF32 keeps about three
 decimal digits: enough to move reprojected pixels visibly and to break
 the float32 parity with the JAX reference (which pins
-``Precision.HIGHEST`` in its geometry). Geometry and the float32 steps
-therefore run inside :func:`full_f32`.
+``Precision.HIGHEST`` in its geometry). This context owns the setting:
+the predict and eval steps run inside :func:`full_f32`, and code that
+calls the geometry or the convolutions directly enters it itself.
 """
 
 from __future__ import annotations
@@ -28,9 +29,3 @@ def full_f32():
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
-
-
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in full float32 (the JAX side's ``Precision.HIGHEST``)."""
-    with full_f32():
-        return torch.matmul(a, b)

@@ -4,15 +4,14 @@ Same conventions as the reference: a twist is ``(tx, ty, tz, u1, u2, u3)``
 with an axis-angle rotation vector, the rotation uses the
 *transposed-skew* Rodrigues formula ``R = I + K^T sin(th) +
 (K^T)^2 (1 - cos(th))``, and poses map target-frame points to a source
-frame. Batched over any leading dims; the small contractions run in full
-float32 (TF32 off).
+frame. Batched over any leading dims; callers keep TF32 off
+(:func:`~xpt_mde_tpu_torch.utils.precision.full_f32`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from xpt_mde_tpu_torch.utils.precision import matmul_f32
 
 _SMALL_ANGLE = 1e-8
 _SMALL_THETA = 1e-5
@@ -39,7 +38,7 @@ def twist_to_matrix(twist: torch.Tensor) -> torch.Tensor:
                      torch.stack([w2, -w1, z], dim=-1)], dim=-2)
     th = theta[..., None]
     eye = torch.eye(3, dtype=twist.dtype, device=twist.device).expand(k.shape)
-    rot = eye + k * torch.sin(th) + matmul_f32(k, k) * (1.0 - torch.cos(th))
+    rot = eye + k * torch.sin(th) + torch.matmul(k, k) * (1.0 - torch.cos(th))
     rot = torch.where(is_small[..., None], eye, rot)
     top = torch.cat([rot, trans[..., :, None]], dim=-1)
     return torch.cat([top, _last_row(top)], dim=-2)
@@ -65,5 +64,5 @@ def matrix_to_twist(matrix: torch.Tensor) -> torch.Tensor:
 def invert_matrix(matrix: torch.Tensor) -> torch.Tensor:
     """Rigid inverse: inv([R t]) = [R^T, -R^T t]."""
     rot_t = matrix[..., :3, :3].transpose(-1, -2)
-    top = torch.cat([rot_t, -matmul_f32(rot_t, matrix[..., :3, 3:])], dim=-1)
+    top = torch.cat([rot_t, -torch.matmul(rot_t, matrix[..., :3, 3:])], dim=-1)
     return torch.cat([top, _last_row(top)], dim=-2)
