@@ -1,28 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rigid predict + eval path once on one NVIDIA GPU.
+"""Drive the PyTorch port's rigid predict, eval and train paths once on one
+NVIDIA GPU.
 
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds kernel K1 (``xpt_mde_tpu_torch/csrc/warp.cu``) with ``nvcc`` and
-prints one line per phase:
+It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) with
+``nvcc`` and prints one line per phase:
 
-1. the device (name, count, power limit) and K1's register/spill report;
-2. K1 against its plain PyTorch version at the four headline scales
-   (8 x 4 sources x {128x512, 64x256, 32x128, 16x64} x 3), on coordinates
-   reprojected from synthetic depth and pose plus a band of out-of-frame
-   and border-exact ones, with a depth mask;
+1. the device (name, count, power limit) and the kernels' register/spill
+   report;
+2. K1 and K1-bwd against their plain PyTorch versions at the four
+   headline scales (8 x 4 sources x {128x512, 64x256, 32x128, 16x64} x 3),
+   on coordinates reprojected from synthetic depth and pose plus a band of
+   out-of-frame and border-exact ones, with a depth mask; K1-bwd also
+   against the autograd of the plain sampler;
 3. predict: EfficientNetB5 + PoseNetImproved, seeded random weights,
    batch 8, 128x512, on 3 synthetic batches: shapes and finiteness;
 4. eval: the same batches through the eval step (L1 + SSIM + smoothness
-   at the T1 scale weights): finite losses and 4 K1 launches per step;
+   at the T1 scale weights): finite losses, 4 K1 and no K1-bwd launches
+   per step;
 5. the eval step again on the CPU with the same weights on one batch: the
    GPU and CPU losses must agree within LOSS_TOL;
-6. timings, each tagged with the card's name and power limit.
+6. train: the same model and loss with Adam at 1e-4 and the default
+   augmentation from a seeded generator, TRAIN_STEPS steps over the
+   uint8-coded batches: finite losses, weights and BN statistics moved,
+   4 K1 and 4 K1-bwd launches per step;
+7. one train step on the card, one on the CPU and one on the CPU in
+   float64, from the same weights (the pose head's bias set to
+   CHECK_TWIST) on the first 2 samples of batch 0, without augmentation:
+   losses within LOSS_TOL, the loss's gradient at the same predictions
+   within LOSS_GRAD_RTOL, the parameter gradients as close to float64 as
+   the CPU's (GRAD_MEDIAN_RATIO, GRAD_MAX_RTOL), BN statistics within
+   BN_TOL;
+8. timings, each tagged with the card's name and power limit.
 
-Then a JSON line with the kernels' launches, errors and times, the
-``nvidia-smi`` name/power line, and last the result line
+Then a JSON line with each kernel's launches on the train path, error,
+device time, bound and the plain version's and the nearest library call's
+times, the ``nvidia-smi`` name/power line, and last the result line
 ``{"ok": true, "device": {...}}``. It exits non-zero and prints no result
 line when there is no CUDA card, when the repository's packages cannot be
 imported, or when any phase fails. It imports nothing of JAX.
@@ -40,11 +56,21 @@ import traceback
 BATCH, HEIGHT, WIDTH, NUM_BATCHES = 8, 128, 512, 3
 SCALES = (1, 2, 4, 8)
 RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
-# K1 and its plain version compute the same float32 products; they may
-# differ only by FMA contraction, a few ulp of values in [-1, 1]
+TRAIN_STEPS, LR, CHECK_BATCH = 6, 1e-4, 2
+# the GPU/CPU train cross-check sets the pose head's bias to this twist
+# (per source: tx, ty, tz in m, rotation in rad). At the seeded init the
+# predicted pose is ~0, so the reprojected coordinates lie within float
+# rounding of integer pixels, where the bilinear warp has a kink: each
+# device takes another one-sided derivative, and the pose gradient sums
+# that over every pixel. Away from identity the coordinates are generic.
+CHECK_TWIST = [0.3, 0.05, -0.1, 0.01, 0.02, -0.015]
+# each kernel and its plain version compute the same float32 products;
+# they may differ only by FMA contraction: a few ulp of values in [-1, 1]
+# (K1) or of |du|, |dv| <= 6 (K1-bwd: 3 channels, |g| <= 1, |D| <= 2)
 K1_ATOL = 1e-5
-# GPU vs CPU eval losses, (rtol, atol) per term. cuDNN on the card and
-# the CPU's convolutions sum in different orders through ~130 layers; the
+K1_BWD_ATOL = 1e-5
+# GPU vs CPU losses, (rtol, atol) per term. cuDNN on the card and the
+# CPU's convolutions sum in different orders through ~130 layers; the
 # losses are means of millions of terms, so rtol 1e-3
 LOSS_TOL = {"loss": (1e-3, 0.0), "loss/L1": (1e-3, 0.0), "loss/SSIM": (1e-3, 0.0),
             # at random init the disparity is nearly flat, so the smoothness
@@ -52,6 +78,29 @@ LOSS_TOL = {"loss": (1e-3, 0.0), "loss/L1": (1e-3, 0.0), "loss/SSIM": (1e-3, 0.0
             # disparities: float32 rounding of the convs moves it by a few
             # tenths of a percent of itself
             "loss/smoothe": (1e-2, 1e-9)}
+# The train step's gradients. (1) The loss's gradient with respect to the
+# same predictions on the card and on the CPU: float32 sums of the same
+# products in other orders, so LOSS_GRAD_RTOL. (2) The networks'
+# parameter gradients, against one float64 step on the CPU: float32 is
+# itself ill-conditioned here (train-mode BatchNorm on 2 samples, ~40
+# blocks), so the card must be as close to float64 as the CPU's float32
+# step (median relative error at most GRAD_MEDIAN_RATIO times the CPU's)
+# and no tensor further than GRAD_MAX_RTOL. GRAD_FLOOR: gradients with a
+# smaller norm are 0 but for float noise (the projection BNs' biases,
+# whose shift the next train-mode BN removes)
+LOSS_GRAD_RTOL = 1e-4
+GRAD_MEDIAN_RATIO = 1.5
+GRAD_MAX_RTOL = 0.1
+GRAD_FLOOR = 1e-6
+# GPU vs CPU running statistics after one step, (rtol, atol) on the batch
+# statistic that the step folds in with weight 0.01: a mean or variance of
+# activations that differ like the losses (rtol 1e-3); atol 1e-4 covers
+# means near 0 and the float32 rounding of 0.99 * the initial value
+BN_TOL = (1e-3, 1e-4)
+# the least time one H100 SXM could take: NVIDIA's data sheet rates for
+# device memory and for float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _nvidia_smi_line() -> str:
@@ -97,6 +146,13 @@ def _graph_ms(fn, iters: int = 20) -> float:
     return _event_ms(graph.replay, iters=5, warmup=1) / iters
 
 
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for moving ``nbytes``
+    once and doing ``flops`` float32 operations on one H100."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _warp_case(batch, scale, device, rng):
     """Sources, coords and mask of one headline scale: coords reprojected
     from the batch's depth and pose, with rows 0..h/8 replaced by
@@ -129,6 +185,209 @@ def _warp_case(batch, scale, device, rng):
     return src, coords, mask
 
 
+def _nchw_grid(src, coords):
+    """K1's inputs in ``F.grid_sample``'s layout: the image [B*N, C, H, W]
+    and the grid [B*N, H, W, 2] normalized for align_corners=True."""
+    import torch
+    b, n, h, w, c = src.shape
+    image = src.reshape(b * n, h, w, c).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([coords[:, :, 0] / (w - 1) * 2 - 1,
+                        coords[:, :, 1] / (h - 1) * 2 - 1], dim=-1)
+    return image, grid.reshape(b * n, h, w, 2).contiguous()
+
+
+def _warp_phase(batches, device, rng, tag):
+    """Phase 2: K1 and K1-bwd against their plain versions at each
+    headline scale, and their times beside the plain versions', the
+    nearest library calls' and the bounds. Returns per-kernel sums over
+    the four scales (one train step's warps)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xpt_mde_tpu_torch.ops.kernels.warp import K1, K1_BWD
+    from xpt_mde_tpu_torch.ops.warp import bilinear_sample_plain, warp_coord_grad_plain
+
+    keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
+    stats = {"K1": dict.fromkeys(keys, 0.0), "K1-bwd": dict.fromkeys(keys, 0.0)}
+    notes = []
+    generator = torch.Generator().manual_seed(1)
+    for scale in SCALES:
+        src, coords, mask = _warp_case(batches[0], scale, device, rng)
+        g = (torch.rand(src.shape, generator=generator) * 2 - 1).to(device)
+        cases = [(mask, "mask")] + ([(None, "no mask")] if scale == 1 else [])
+        for m, label in cases:
+            got = K1(src, coords, m)
+            ref = bilinear_sample_plain(src, coords, m)
+            d_got = K1_BWD(src, coords, m, g)
+            d_ref = warp_coord_grad_plain(src, coords, m, g)
+            leaf = coords.clone().requires_grad_(True)
+            bilinear_sample_plain(src, leaf, m).backward(g)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            err_bwd = max(float((d_got - d_ref).abs().max()),
+                          float((d_got - leaf.grad).abs().max()))
+            invalid = float((ref == 0).all(dim=-1).float().mean())
+            if not err <= K1_ATOL:
+                raise AssertionError(f"K1 differs from plain by {err} at 1/{scale} ({label})")
+            if not err_bwd <= K1_BWD_ATOL:
+                raise AssertionError(f"K1-bwd differs from plain by {err_bwd} at "
+                                     f"1/{scale} ({label})")
+            stats["K1"]["err"] = max(stats["K1"]["err"], err)
+            stats["K1-bwd"]["err"] = max(stats["K1-bwd"]["err"], err_bwd)
+            notes.append(f"1/{scale} {label} err {err:.3g} / {err_bwd:.3g} "
+                         f"invalid {invalid:.3f}")
+
+        # bytes: each input read once, each output written once; flops per
+        # target pixel and channel: K1 4 products + 3 sums after 4 weight
+        # products per pixel, K1-bwd 2 lerps, 2 differences and 2
+        # multiply-adds per channel
+        n_pix, chans = coords.shape[0] * coords.shape[1] * coords.shape[3], src.shape[-1]
+        io = src.numel() + coords.numel() + mask.numel()
+        work = {"K1": ((io + src.numel()) * 4, n_pix * (4 + 7 * chans)),
+                "K1-bwd": ((io + g.numel() + coords.numel()) * 4, n_pix * (2 + 16 * chans))}
+        image_nchw, grid = _nchw_grid(src, coords)
+        g_nchw = g.reshape(image_nchw.shape[0], *g.shape[2:]).permute(0, 3, 1, 2).contiguous()
+        runs = {"K1": (lambda: K1(src, coords, mask),
+                       lambda: bilinear_sample_plain(src, coords, mask),
+                       lambda: F.grid_sample(image_nchw, grid, mode="bilinear",
+                                             padding_mode="zeros", align_corners=True)),
+                "K1-bwd": (lambda: K1_BWD(src, coords, mask, g),
+                           lambda: warp_coord_grad_plain(src, coords, mask, g),
+                           # grid_sample's backward, the grid's gradient only
+                           lambda: torch.ops.aten.grid_sampler_2d_backward(
+                               g_nchw, image_nchw, grid, 0, 0, True, [False, True]))}
+        for name, (kernel, plain, library) in runs.items():
+            t_k, t_p, t_l = _graph_ms(kernel), _graph_ms(plain), _graph_ms(library)
+            e_k, e_p = _event_ms(kernel), _event_ms(plain)
+            bound_ms, _ = _bound(*work[name])
+            for key, value in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                               ("bound_ms", bound_ms), ("bytes", work[name][0]),
+                               ("flops", work[name][1])):
+                stats[name][key] += value
+            print(f"timing {name} 1/{scale} {tuple(src.shape)}: device (graph replay) "
+                  f"{name} {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_l:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({work[name][0] / 1e6:.1f} MB); eager per call "
+                  f"{name} {e_k:.4f} ms, plain {e_p:.4f} ms {tag}", flush=True)
+    print(f"phase 2 kernels vs plain: K1 max abs err {stats['K1']['err']:.3g} <= {K1_ATOL}, "
+          f"K1-bwd {stats['K1-bwd']['err']:.3g} <= {K1_BWD_ATOL} (vs the plain backward and "
+          f"the plain sampler's autograd; {'; '.join(notes)})", flush=True)
+    return stats
+
+
+def _check_losses(gpu, cpu, label):
+    """GPU vs CPU losses within LOSS_TOL; returns the relative differences."""
+    losses = {k: float(v) for k, v in gpu.items() if k.startswith("loss")}
+    if set(losses) != set(LOSS_TOL):
+        raise AssertionError(f"{label} losses {sorted(losses)}, want {sorted(LOSS_TOL)}")
+    rel = {}
+    for key, value in losses.items():
+        cpu_value = float(cpu[key])
+        diff = abs(value - cpu_value)
+        rel[key] = float(f"{diff / max(abs(cpu_value), 1e-30):.3g}")
+        rtol, atol = LOSS_TOL[key]
+        if not diff <= rtol * abs(cpu_value) + atol:
+            raise AssertionError(f"{label} {key}: GPU {value} vs CPU {cpu_value}")
+    return losses, rel
+
+
+def _loss_grad_diff(loss, preds, feats, device):
+    """GPU vs CPU gradient of the loss with respect to the same predictions
+    (depths and twists): (relative error of the whole gradient, number of
+    elements, number off by more than 1e-3 of the largest |gradient|). It
+    separates the loss and warp from the networks' backward."""
+    import torch
+
+    from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
+
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        depth = [d.detach().to(dev).requires_grad_(True) for d in preds["depth_ms"]]
+        pose = preds["pose"].detach().to(dev).requires_grad_(True)
+        total, _ = loss({"depth_ms": depth, "disp_ms": safe_reciprocal_ms(depth), "pose": pose},
+                        {k: v.to(dev) for k, v in feats.items()})
+        grads.append(torch.cat([g.reshape(-1).double().cpu()
+                                for g in torch.autograd.grad(total, depth + [pose])]))
+    diff = torch.abs(grads[0] - grads[1])
+    off = int((diff > 1e-3 * float(grads[1].abs().max())).sum())
+    return float(torch.linalg.norm(diff) / torch.linalg.norm(grads[1])), diff.numel(), off
+
+
+def _rel_errors(grads, ref):
+    """Per-tensor relative error ||g - ref|| / ||ref|| over the tensors
+    whose reference gradient exceeds the noise floor GRAD_FLOOR."""
+    import torch
+    return {n: float(torch.linalg.norm(grads[n] - r) / torch.linalg.norm(r))
+            for n, r in ref.items() if float(torch.linalg.norm(r)) > GRAD_FLOOR}
+
+
+def _train_cross_check(keys, batch, device, make_loss):
+    """Phase 7: one train step from the same seeded weights (the pose head
+    at CHECK_TWIST) on the first CHECK_BATCH samples, no augmentation: on
+    the card, on the CPU, and on the CPU in float64 as the reference."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.config import RIGID_NET
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
+
+    loss = make_loss(CHECK_BATCH)
+    feats = {k: torch.from_numpy(v[:CHECK_BATCH]) for k, v in batch.items()}
+    results = {}
+    for label, dev, dtype in (("gpu", device, torch.float32),
+                              ("cpu", torch.device("cpu"), torch.float32),
+                              ("cpu f64", torch.device("cpu"), torch.float64)):
+        model = ModelFactory(keys, RIGID_NET, stereo=False, device=dev, seed=0).get_model()
+        with torch.no_grad():  # the pose head: the posenet's last conv
+            list(model.posenet.children())[-1].Conv_0.bias.copy_(
+                torch.tensor(CHECK_TWIST * model.posenet.numsrc, device=dev))
+        model.to(dtype)
+        initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model))
+        metrics = step({k: v.to(dev, dtype) for k, v in feats.items()})
+        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        results[label] = (metrics, grads, stats, model, initial)
+    losses, rel = _check_losses(results["gpu"][0], results["cpu"][0], "train")
+
+    # the gradient of the loss alone, at the CPU model's train-mode predictions
+    model, initial = results["cpu"][3], results["cpu"][4]
+    model.load_state_dict(initial)
+    with torch.no_grad():
+        preds = model.train()({"image5d": feats["image5d"]})
+    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device)
+
+    ref = results["cpu f64"][1]
+    errors = {label: _rel_errors(results[label][1], ref) for label in ("gpu", "cpu")}
+    median = {label: float(np.median(list(e.values()))) for label, e in errors.items()}
+    worst = sorted(errors["gpu"].items(), key=lambda item: item[1], reverse=True)[:3]
+    worst_stat = 0.0
+    for key, value in results["cpu"][2].items():
+        # the batch statistic folded in: (new - 0.99 * initial) / 0.01
+        folded = [(results[label][2][key] - 0.99 * initial[key].double()) / 0.01
+                  for label in ("gpu", "cpu")]
+        excess = torch.abs(folded[0] - folded[1]) - BN_TOL[0] * torch.abs(folded[1])
+        worst_stat = max(worst_stat, float(excess.max()))
+    print(f"phase 7 train cross-check: one step at batch {CHECK_BATCH}, GPU vs CPU losses "
+          f"rel diff {json.dumps(rel)} (GPU {json.dumps(losses)}); loss gradient at the "
+          f"same predictions: rel error {loss_rel:.3g} <= {LOSS_GRAD_RTOL} ({n_off} of "
+          f"{n_elems} elements off by > 1e-3 of the largest); parameter gradients against "
+          f"the CPU's float64 step ({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median "
+          f"relative error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
+          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}; BN batch statistics GPU vs "
+          f"CPU: worst excess over rtol {BN_TOL[0]} {worst_stat:.3g}", flush=True)
+    if not loss_rel <= LOSS_GRAD_RTOL:
+        raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}")
+    if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
+        raise AssertionError(f"GPU gradients further from float64 than the CPU's: "
+                             f"{median['gpu']:.3g} vs {median['cpu']:.3g}")
+    if not worst[0][1] <= GRAD_MAX_RTOL:
+        raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g}")
+    if not worst_stat <= BN_TOL[1]:
+        raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -141,23 +400,24 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
-        from xpt_mde_tpu_torch.config import RIGID_NET, SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.config import AUGMENT_PROBS, RIGID_NET, SCALE_WEIGHT_T1
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
-        from xpt_mde_tpu_torch.ops.kernels import warp as k1_module
-        from xpt_mde_tpu_torch.ops.warp import bilinear_sample_plain
-        from xpt_mde_tpu_torch.training import make_eval_step, make_predict_step
+        from xpt_mde_tpu_torch.ops.kernels import warp as kernels
+        from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
+                                                make_predict_step, make_train_step,
+                                                optimizer_factory)
         from xpt_mde_tpu_torch.utils.precision import full_f32
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
 
-    K1 = k1_module.K1
+    K1, K1_BWD = kernels.K1, kernels.K1_BWD
     device = torch.device("cuda", 0)
     phase = "device"
     # full float32 (TF32 off for cuBLAS and cuDNN) in every phase, so the
-    # kernel check and the GPU/CPU loss comparison test float32 numerics
+    # kernel checks and the GPU/CPU comparisons test float32 numerics
     try:
         with full_f32():
             # 1. device and build
@@ -170,9 +430,10 @@ def main() -> int:
             phase = "build"
             t0 = time.perf_counter()
             K1.build()
+            K1_BWD.build()
             ptxas = [ln.strip() for ln in K1.build_log.splitlines()
-                     if "registers" in ln or "spill" in ln]
-            print(f"phase 1 build: K1 built in {time.perf_counter() - t0:.1f} s; "
+                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+            print(f"phase 1 build: K1 and K1-bwd built in {time.perf_counter() - t0:.1f} s; "
                   f"ptxas: {' | '.join(ptxas)}", flush=True)
 
             keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
@@ -180,45 +441,25 @@ def main() -> int:
                                        num_batches=NUM_BATCHES, seed=0)
             batches = list(dataset)
 
-            # 2. K1 against its plain version at the headline scales
-            phase = "K1 vs plain"
-            rng = np.random.RandomState(0)
-            k1_err, k1_ms, plain_ms, per_scale = 0.0, 0.0, 0.0, []
-            for scale in SCALES:
-                src, coords, mask = _warp_case(batches[0], scale, device, rng)
-                cases = [(mask, "mask")] + ([(None, "no mask")] if scale == 1 else [])
-                for m, label in cases:
-                    got = K1(src, coords, m)
-                    ref = bilinear_sample_plain(src, coords, m)
-                    torch.cuda.synchronize()
-                    err = float((got - ref).abs().max())
-                    invalid = float((ref == 0).all(dim=-1).float().mean())
-                    if not err <= K1_ATOL:
-                        raise AssertionError(f"K1 differs from plain by {err} at 1/{scale} ({label})")
-                    k1_err = max(k1_err, err)
-                    per_scale.append(f"1/{scale} {label} err {err:.3g} invalid {invalid:.3f}")
-                t_k = _graph_ms(lambda: K1(src, coords, mask))
-                t_p = _graph_ms(lambda: bilinear_sample_plain(src, coords, mask))
-                e_k = _event_ms(lambda: K1(src, coords, mask))
-                e_p = _event_ms(lambda: bilinear_sample_plain(src, coords, mask))
-                k1_ms += t_k
-                plain_ms += t_p
-                print(f"timing K1 1/{scale} {tuple(src.shape)}: device (graph replay) "
-                      f"K1 {t_k:.4f} ms, plain {t_p:.4f} ms; eager per call K1 "
-                      f"{e_k:.4f} ms, plain {e_p:.4f} ms {tag}", flush=True)
-            print(f"phase 2 K1 vs plain: max abs err {k1_err:.3g} <= {K1_ATOL} "
-                  f"({'; '.join(per_scale)})", flush=True)
+            # 2. the kernels against their plain versions, and their times
+            phase = "kernels vs plain"
+            kstats = _warp_phase(batches, device, np.random.RandomState(0), tag)
 
-            # 3. predict, 4. eval: the main path, counted from zero
+            # 3. predict, 4. eval: one path, its counts read from zero
             phase = "predict"
             model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
-            total_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
-                                      batch_size=BATCH)
+            init_state = copy.deepcopy(model.state_dict())
+
+            def make_loss(batch_size):
+                return loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                    batch_size=batch_size)
+
+            total_loss = make_loss(BATCH)
             predict_step = make_predict_step(model)
             eval_step = make_eval_step(model, total_loss)
             gpu_batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
                            for b in batches]
-            K1.launches = 0
+            K1.launches = K1_BWD.launches = 0
             for features in gpu_batches:
                 preds = predict_step(features)
                 for i in range(len(SCALES)):
@@ -249,63 +490,111 @@ def main() -> int:
                 if not all(np.isfinite(v) for v in values.values()):
                     raise AssertionError(f"non-finite eval metrics {values}")
                 gpu_metrics.append(values)
-            launches = K1.launches
-            if launches != len(SCALES) * NUM_BATCHES:
-                raise AssertionError(f"K1 launched {launches} times in the main path")
+            eval_launches = (K1.launches, K1_BWD.launches)
+            if eval_launches != (len(SCALES) * NUM_BATCHES, 0):
+                raise AssertionError(f"predict + eval launched (K1, K1-bwd) {eval_launches}")
             losses0 = {k: v for k, v in gpu_metrics[0].items() if k.startswith("loss")}
-            print(f"phase 4 eval: {NUM_BATCHES} steps, K1 launches {launches}, "
-                  f"batch 0 {json.dumps(losses0)}", flush=True)
+            print(f"phase 4 eval: {NUM_BATCHES} steps, K1 launches {eval_launches[0]}, "
+                  f"K1-bwd launches {eval_launches[1]}, batch 0 {json.dumps(losses0)}",
+                  flush=True)
 
             # 5. the same eval step on the CPU: the plain warp and CPU convs
-            phase = "cpu cross-check"
+            phase = "eval cross-check"
             cpu_model = copy.deepcopy(model).cpu()
             cpu_metrics = make_eval_step(cpu_model, total_loss)(
                 {k: torch.from_numpy(v) for k, v in batches[0].items()})
-            if set(losses0) != set(LOSS_TOL):
-                raise AssertionError(f"eval losses {sorted(losses0)}, want {sorted(LOSS_TOL)}")
-            rel = {}
-            for key, value in losses0.items():
-                cpu_value = float(cpu_metrics[key])
-                diff = abs(value - cpu_value)
-                rel[key] = diff / max(abs(cpu_value), 1e-30)
-                rtol, atol = LOSS_TOL[key]
-                if not diff <= rtol * abs(cpu_value) + atol:
-                    raise AssertionError(f"{key}: GPU {value} vs CPU {cpu_value}")
-            print(f"phase 5 cross-check: GPU vs CPU eval losses agree within "
-                  f"(rtol, atol) {json.dumps(LOSS_TOL)} (rel diff "
-                  f"{json.dumps({k: float(f'{r:.3g}') for k, r in rel.items()})}); CPU "
-                  f"{json.dumps({k: float(cpu_metrics[k]) for k in losses0})}", flush=True)
+            _, rel = _check_losses(gpu_metrics[0], cpu_metrics, "eval")
+            print(f"phase 5 eval cross-check: GPU vs CPU eval losses agree within "
+                  f"(rtol, atol) {json.dumps(LOSS_TOL)} (rel diff {json.dumps(rel)}); CPU "
+                  f"{json.dumps({k: float(cpu_metrics[k]) for k in LOSS_TOL})}", flush=True)
 
-            # 6. step timings and peak memory
+            # 6. train: the slice's main path, its counts read from zero
+            phase = "train"
+            model.load_state_dict(init_state)
+            optimizer = optimizer_factory("adam_constant", LR, model)
+            train_step = make_train_step(model, total_loss, optimizer,
+                                         augmenter=augmentation_factory(AUGMENT_PROBS))
+            generator = torch.Generator().manual_seed(0)
+            # the loaders ship uint8 snippets; the step decodes them
+            train_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5)
+                                  .to(torch.uint8)) for b in gpu_batches]
+            K1.launches = K1_BWD.launches = 0
+            train_losses = []
+            for i in range(TRAIN_STEPS):
+                metrics = train_step(train_batches[i % NUM_BATCHES], generator)
+                values = {k: float(v) for k, v in metrics.items()}
+                if not all(np.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"non-finite train metrics at step {i}: {values}")
+                train_losses.append(values["loss"])
+            train_launches = (K1.launches, K1_BWD.launches)
+            if train_launches != (len(SCALES) * TRAIN_STEPS,) * 2:
+                raise AssertionError(f"{TRAIN_STEPS} train steps launched (K1, K1-bwd) "
+                                     f"{train_launches}")
+            state = model.state_dict()
+            for suffix in ("weight", "running_mean", "running_var"):
+                names = [k for k in state if k.endswith(suffix)]
+                moved = sum(not torch.equal(state[k], init_state[k]) for k in names)
+                if moved != len(names):
+                    raise AssertionError(f"{len(names) - moved} of {len(names)} *.{suffix} "
+                                         f"tensors did not change in training")
+            print(f"phase 6 train: {TRAIN_STEPS} steps, K1 launches {train_launches[0]}, "
+                  f"K1-bwd launches {train_launches[1]}, losses "
+                  f"{json.dumps([round(v, 6) for v in train_losses])}, every weight and BN "
+                  f"statistic moved", flush=True)
+
+            # 7. one train step on the card and on the CPU
+            phase = "train cross-check"
+            _train_cross_check(keys, batches[0], device, make_loss)
+
+            # 8. step timings and peak memory
             phase = "timings"
-            torch.cuda.reset_peak_memory_stats(device)
             rounds, steps = 5, 10  # the steps are host-bound: report the spread
-            for label, step in (("predict", predict_step), ("eval", eval_step)):
-                step(gpu_batches[0])
+            for label, step, step_batches in (("predict", predict_step, gpu_batches),
+                                              ("eval", eval_step, gpu_batches),
+                                              ("train", lambda f: train_step(f, generator),
+                                               train_batches)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                step(step_batches[0])
                 torch.cuda.synchronize()
                 rates = []
                 for _ in range(rounds):
                     t0 = time.perf_counter()
                     for i in range(steps):
-                        step(gpu_batches[i % NUM_BATCHES])
+                        step(step_batches[i % NUM_BATCHES])
                     torch.cuda.synchronize()
                     rates.append(steps * BATCH / (time.perf_counter() - t0))
                 rates.sort()
                 median = rates[rounds // 2]
+                peak = torch.cuda.max_memory_allocated(device)
+                if label == "train":  # the optimizer alone, on the last gradients
+                    n_params = sum(p.numel() for p in model.parameters())
+                    print(f"timing Adam step alone: {_event_ms(optimizer.step, iters=10):.4f} "
+                          f"ms per call (eager, CUDA events) over {n_params} parameters in "
+                          f"{len(list(model.parameters()))} tensors {tag}", flush=True)
                 print(f"timing {label} B5 batch {BATCH} {HEIGHT}x{WIDTH} f32: median "
                       f"{median:.2f} images/s ({1000 * BATCH / median:.2f} ms/step), "
                       f"min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
-                      f"{steps} steps {tag}", flush=True)
-            peak = torch.cuda.max_memory_allocated(device)
-            print(f"memory: max_memory_allocated {peak / 2**30:.3f} GiB over "
-                  f"predict + eval at batch {BATCH} {tag}", flush=True)
+                      f"{steps} steps; max_memory_allocated {peak / 2**30:.3f} GiB {tag}",
+                      flush=True)
 
-            # ms / plain_ms: device time per eval step, summed over the four scales
-            print(json.dumps({"kernels": [{
-                "name": "K1 warp_const_src_fwd", "route": "cuda",
-                "source": k1_module.SOURCE, "replaces": k1_module.REPLACES,
-                "launches": launches, "max_abs_err": k1_err,
-                "ms": k1_ms, "plain_ms": plain_ms}]}), flush=True)
+            # ms, plain_ms, library_ms, bound_ms: device time per train step,
+            # summed over the four scales; launches: the train path's
+            report = []
+            for i, (kname, full_name, replaces) in enumerate((
+                    ("K1", "K1 warp_const_src_fwd", kernels.REPLACES),
+                    ("K1-bwd", "K1-bwd warp_const_src_bwd", kernels.REPLACES_BWD))):
+                s = kstats[kname]
+                report.append({
+                    "name": full_name, "route": "cuda", "source": kernels.SOURCE,
+                    "replaces": replaces, "launches": train_launches[i],
+                    "launches_by_path": {"predict+eval": eval_launches[i],
+                                         "train": train_launches[i]},
+                    "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                    "bound_ms": s["bound_ms"],
+                    "bound_by": _bound(s["bytes"], s["flops"])[1],
+                    "library_ms": s["library_ms"]})
+            print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)

@@ -153,7 +153,7 @@ def _rigid_pair(nets, height, width, seed):
     feats = {"image5d": jnp.zeros((1, 5, height, width, 3)),
              "intrinsic": jnp.zeros((1, 3, 3))}
     variables = random_variables(jmodel, feats, seed=seed)
-    tmodel = ModelFactory(KEYS, nets, stereo=False).get_model().eval()
+    tmodel = ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model().eval()
     return jmodel, variables, tmodel
 
 
@@ -197,9 +197,9 @@ def test_converter_rejects_unused_missing_and_misshapen():
 
 
 def test_factory_seeds_device_and_unported():
-    a = ModelFactory(KEYS, RIGID_B0, stereo=False, seed=7).get_model()
-    b = ModelFactory(KEYS, RIGID_B0, stereo=False, seed=7).get_model()
-    c = ModelFactory(KEYS, RIGID_B0, stereo=False, seed=8).get_model()
+    a = ModelFactory(KEYS, RIGID_B0, stereo=False, device="cpu", seed=7).get_model()
+    b = ModelFactory(KEYS, RIGID_B0, stereo=False, device="cpu", seed=7).get_model()
+    c = ModelFactory(KEYS, RIGID_B0, stereo=False, device="cpu", seed=8).get_model()
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     w = "posenet.Conv_0.Conv_0.weight"
@@ -213,6 +213,14 @@ def test_factory_seeds_device_and_unported():
     for nets in ({"depth": "DepthNetBasic"}, {"camera": "PoseNetBasic"},
                  {"depth": "ResNet50V2"}, {"flow": "PWCNet"}):
         with pytest.raises(NotImplementedError, match="not ported"):
-            ModelFactory(KEYS, nets, stereo=False).get_model()
+            ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model()
     with pytest.raises(NotImplementedError, match="stereo"):
-        ModelFactory(KEYS + ["image_R", "intrinsic_R"], RIGID_B0).get_model()
+        ModelFactory(KEYS + ["image_R", "intrinsic_R"], RIGID_B0, device="cpu").get_model()
+
+
+def test_factory_defaults_to_the_card(monkeypatch):
+    factory = ModelFactory(KEYS, RIGID_B0, stereo=False)
+    assert factory.device == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        factory.get_model()  # no silent fall-back to the CPU

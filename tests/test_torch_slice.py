@@ -1,5 +1,6 @@
-"""The port's whole slice -- the rigid predict and eval steps -- against the
-JAX package, and the guards that keep the port free of JAX.
+"""The port's rigid predict and eval steps against the JAX package, and the
+guards that keep the port free of JAX. (The train step's parity is in
+test_torch_train.py.)
 
 The slice runs at EfficientNetB0 + PoseNetImproved, batch 2, 64x128 on a
 SyntheticDataset batch, with the same weights on both sides: the flax
@@ -88,7 +89,7 @@ def test_rigid_predict_and_eval_match_jax(image_dtype):
     ref_preds = j_make_predict_step(jmodel)(state, jfeats)
     ref_metrics = j_make_eval_step(jmodel, jloss)(state, jfeats)
 
-    model = ModelFactory(keys, NETS_B0, stereo=False).get_model()
+    model = ModelFactory(keys, NETS_B0, stereo=False, device="cpu").get_model()
     load_flax_variables(model, variables)
     model.train()  # the steps must switch to BN running stats and back
     tloss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False, batch_size=BATCH)
@@ -133,9 +134,10 @@ def test_metrics_match_jax():
 
 
 def test_port_runs_with_jax_blocked():
-    """The GPU machine has no JAX: import every module of the port and
-    chip_smoke, then run the slice at a tiny size, with jax/flax/optax
-    and the JAX package itself made unimportable."""
+    """The port must not need JAX: import every module of the port and
+    chip_smoke, then run the slice (predict, eval and an augmented train
+    step) at a tiny size, with jax/flax/optax and the JAX package itself
+    made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
@@ -145,15 +147,18 @@ def test_port_runs_with_jax_blocked():
         for info in pkgutil.walk_packages(xpt_mde_tpu_torch.__path__, "xpt_mde_tpu_torch."):
             importlib.import_module(info.name)
         import torch
-        from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.config import AUGMENT_PROBS, SCALE_WEIGHT_T1
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
-        from xpt_mde_tpu_torch.training import make_eval_step, make_predict_step
+        from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
+                                                make_predict_step, make_train_step,
+                                                optimizer_factory)
         ds = SyntheticDataset(batch_size=1, height=32, width=64, num_batches=1)
         keys = ds.config_keys()
         model = ModelFactory(keys, {"depth": "EfficientNetB0",
-                                    "camera": "PoseNetImproved"}, stereo=False).get_model()
+                                    "camera": "PoseNetImproved"}, stereo=False,
+                             device="cpu").get_model()
         loss = loss_factory(keys, {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0},
                             SCALE_WEIGHT_T1, stereo=False, batch_size=1)
         feats = {k: torch.from_numpy(v) for k, v in next(iter(ds)).items()}
@@ -161,6 +166,12 @@ def test_port_runs_with_jax_blocked():
         metrics = make_eval_step(model, loss)(feats)
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
         assert tuple(preds["depth_ms"][0].shape) == (1, 32, 64, 1)
+        step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                               augmenter=augmentation_factory(AUGMENT_PROBS))
+        weight = model.posenet.Conv_0.Conv_0.weight.detach().clone()
+        metrics = step(feats, torch.Generator().manual_seed(0))
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        assert not torch.equal(weight, model.posenet.Conv_0.Conv_0.weight)
         assert all(sys.modules.get(m) is None
                    for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
         print("JAX-FREE OK")

@@ -1,4 +1,5 @@
-"""K1's plain version and the view synthesis against the JAX package.
+"""K1's and K1-bwd's plain versions and the view synthesis against the
+JAX package.
 
 ``ops.warp.bilinear_sample_plain`` (the CPU path and K1's oracle) is held
 against both JAX samplers: ``xpt_mde_tpu.ops.warp.bilinear_sample`` and
@@ -7,10 +8,13 @@ interpret=True)``, at 16x128 (the Pallas kernel's HW % 1024 rule), with
 and without a mask, on scattered (spread 1.0) and coherent (spread 0.1)
 coordinates. Tolerance atol/rtol 1e-5: the same float32 bilinear weights
 on both sides, summed in another order (the Pallas "exact" mode splits
-the image into three bf16 terms, ~1e-7). K1 itself is tested in
-test_torch_kernels.py.
+the image into three bf16 terms, ~1e-7). The coordinate gradient
+(``warp_coord_grad_plain``, K1-bwd's oracle, and the autograd of the plain
+sampler) is held against ``jax.vjp`` of both samplers the same way. The
+kernels themselves are tested in test_torch_kernels.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +26,8 @@ from xpt_mde_tpu.ops.warp import bilinear_sample as j_sample
 from xpt_mde_tpu.utils import se3 as jse3
 from xpt_mde_tpu_torch.ops.kernels import warp as k1
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
-from xpt_mde_tpu_torch.ops.warp import bilinear_sample, bilinear_sample_plain
+from xpt_mde_tpu_torch.ops.warp import (bilinear_sample, bilinear_sample_plain,
+                                        warp_coord_grad_plain)
 from xpt_mde_tpu_torch.utils.precision import full_f32
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -120,3 +125,77 @@ def test_synthesize_multi_scale_matches_jax(pose_kind):
         # of up to ~2 per pixel
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5, rtol=1e-5)
         assert np.all(g.numpy()[:, :, :2] == 0)  # zero-depth rows are black
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("rows", [2, 3])
+def test_coord_grad_matches_jax_vjp(use_mask, rows):
+    image, coords, mask = _case()
+    if rows == 3:
+        coords = np.concatenate([coords, np.ones_like(coords[:, :, :1])], axis=2)
+    grad_out = np.random.RandomState(2).uniform(-1, 1, image.shape).astype(np.float32)
+    m = mask if use_mask else None
+    jm = None if m is None else jnp.asarray(m)
+    refs = {}
+    for label, sampler in (("pallas", lambda i, c: j_pallas(i, c, jm, mode="exact",
+                                                              interpret=True)),
+                           ("xla", lambda i, c: j_sample(i, c, jm, const_src=True))):
+        _, vjp = jax.vjp(sampler, jnp.asarray(image), jnp.asarray(coords))
+        refs[label] = [np.asarray(g) for g in vjp(jnp.asarray(grad_out))]
+    # the Pallas VJP gives the image no gradient: its contract, and K1-bwd's
+    assert np.all(refs["pallas"][0] == 0)
+
+    t_image, t_mask = torch.from_numpy(image), None if m is None else torch.from_numpy(m)
+    plain = warp_coord_grad_plain(t_image, torch.from_numpy(coords), t_mask,
+                                  torch.from_numpy(grad_out)).numpy()
+    t_coords = torch.from_numpy(coords).requires_grad_(True)
+    bilinear_sample_plain(t_image, t_coords, t_mask).backward(torch.from_numpy(grad_out))
+    assert plain.shape == coords.shape
+    if rows == 3:
+        assert np.all(plain[:, :, 2] == 0)
+    # 1e-5: |du|, |dv| <= 6 here (3 channels, |g| <= 1, |D| <= 2); the
+    # same float32 products, summed in another order
+    for got in (plain, t_coords.grad.numpy()):
+        for ref in refs.values():
+            np.testing.assert_allclose(got, ref[1], atol=1e-5, rtol=1e-5)
+    # invalid pixels get no gradient
+    invalid = np.all(bilinear_sample_plain(t_image, torch.from_numpy(coords),
+                                           t_mask).numpy() == 0, axis=-1)
+    assert np.all(plain[:, :, 0].reshape(invalid.shape)[invalid] == 0)
+
+
+def test_plain_warp_gradcheck_in_float64():
+    """The plain sampler's autograd is its true derivative in the coords,
+    at points away from integer coordinates (where it has kinks)."""
+    rng = np.random.RandomState(3)
+    batch, numsrc, height, width = 1, 2, 5, 7
+    image = torch.from_numpy(rng.uniform(-1, 1, (batch, numsrc, height, width, 3)))
+    whole = np.stack([rng.randint(0, width - 1, (batch, numsrc, height * width)),
+                      rng.randint(0, height - 1, (batch, numsrc, height * width))], axis=2)
+    coords = torch.from_numpy(whole + rng.uniform(0.2, 0.8, whole.shape)).requires_grad_(True)
+    mask = torch.from_numpy((rng.rand(batch, height, width, 1) > 0.2).astype(np.float64))
+    assert torch.autograd.gradcheck(lambda c: bilinear_sample_plain(image, c, mask),
+                                    (coords,), eps=1e-6, atol=1e-6)
+
+
+def test_warp_const_src_function_wiring(monkeypatch):
+    """``WarpConstSrc`` with its two kernels stood in for by their plain
+    versions (the kernels run only on the card): K1 forward, K1-bwd for
+    the coordinates, and no gradient for the image or the mask (the
+    depth)."""
+    calls = []
+    monkeypatch.setattr(k1, "K1", lambda *a: calls.append("K1") or bilinear_sample_plain(*a))
+    monkeypatch.setattr(k1, "K1_BWD",
+                        lambda *a: calls.append("K1-bwd") or warp_coord_grad_plain(*a))
+    image, coords, mask = (torch.from_numpy(a).requires_grad_(True) for a in _case())
+    grad_out = torch.from_numpy(np.random.RandomState(4).uniform(
+        -1, 1, tuple(image.shape)).astype(np.float32))
+    out = k1.WarpConstSrc.apply(image, coords, mask)
+    torch.testing.assert_close(out, bilinear_sample_plain(image, coords, mask))
+    out.backward(grad_out)
+    assert calls == ["K1", "K1-bwd"]
+    assert image.grad is None and mask.grad is None
+    torch.testing.assert_close(coords.grad, warp_coord_grad_plain(image, coords, mask, grad_out))
+    with torch.inference_mode():  # an eval step: forward only
+        k1.WarpConstSrc.apply(image, coords, mask)
+    assert calls == ["K1", "K1-bwd", "K1"]

@@ -14,3 +14,7 @@ SCALE_WEIGHT_T2 = tuple(w * 4.0 for w in (0.1, 0.2, 0.3, 0.4))
 
 # the rigid stage's nets (depth + camera of the reference's JOINT_NET)
 RIGID_NET = {"depth": "EfficientNetB5", "camera": "PoseNetImproved"}
+
+# the default augmentation probabilities (the reference's
+# ``Config.augment_probs``)
+AUGMENT_PROBS = {"CropAndResize": 0.2, "HorizontalFlip": 0.2, "ColorJitter": 0.2}

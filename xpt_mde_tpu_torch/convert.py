@@ -12,7 +12,9 @@ modules carry the same names, so each leaf maps by its path:
 - EfficientNet ``input_mean`` / ``input_var`` -> the buffers of that name.
 
 Conversion fails if a flax leaf has no torch counterpart or the wrong
-shape, or if a torch tensor is left unset. BatchNorm's
+shape, or if a torch tensor is left unset. :func:`flax_params_to_torch`
+maps a params-only tree (gradients, updated parameters) the same way onto
+``named_parameters()`` names. BatchNorm's
 ``num_batches_tracked`` has no flax counterpart (the momentum is fixed)
 and is set to 0.
 """
@@ -51,10 +53,10 @@ def _map_leaf(collection: str, path: tuple[str, ...],
     return ".".join(modules + [names[name]]), value
 
 
-def flax_to_state_dict(variables: Mapping[str, Any],
-                       model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """Map flax ``variables`` onto ``model``'s state_dict keys and shapes."""
-    target = model.state_dict()
+def _convert(variables: Mapping[str, Any],
+             target: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Map every leaf of ``variables`` onto its key in ``target``, checking
+    that the key exists, is hit once and has the leaf's shape."""
     out: dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, leaf in _leaves(tree):
@@ -69,12 +71,35 @@ def flax_to_state_dict(variables: Mapping[str, Any],
                 raise ValueError(f"{where}: shape {value.shape} does not fit "
                                  f"{key} {tuple(ref.shape)}")
             out[key] = torch.tensor(np.ascontiguousarray(value), dtype=ref.dtype)
-    for key, ref in target.items():
-        if key.endswith("num_batches_tracked"):
-            out[key] = torch.zeros_like(ref, device="cpu")
+    return out
+
+
+def _check_complete(out: Mapping[str, torch.Tensor], target) -> None:
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"{len(missing)} torch tensors left unset, e.g. {missing[:5]}")
+
+
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Map flax ``variables`` onto ``model``'s state_dict keys and shapes."""
+    target = model.state_dict()
+    out = _convert(variables, target)
+    for key, ref in target.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros_like(ref, device="cpu")
+    _check_complete(out, target)
+    return out
+
+
+def flax_params_to_torch(params: Mapping[str, Any],
+                         model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Map a params-only flax tree (parameters, gradients or updated
+    parameters, shaped like ``variables["params"]``) onto ``model``'s
+    ``named_parameters()`` names, with the same kernel transposes."""
+    target = dict(model.named_parameters())
+    out = _convert({"params": params}, target)
+    _check_complete(out, target)
     return out
 
 

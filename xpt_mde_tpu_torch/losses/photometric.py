@@ -35,7 +35,10 @@ def avg_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     """3x3 mean over the (H, W) axes of [..., H, W, C], SAME padding,
     padded positions excluded (interior pixels average 9, corners 4)."""
     h, w, c = x.shape[-3:]
-    flat = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    # contiguous NCHW: on a CUDA tensor in the channels-last layout that
+    # the permute gives, avg_pool2d's backward is wrong (torch 2.11 with
+    # CUDA 12.8: it disagrees with the CPU's while the forward agrees)
+    flat = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).contiguous()
     pooled = F.avg_pool2d(flat, 3, stride=1, padding=1, count_include_pad=False)
     return pooled.permute(0, 2, 3, 1).reshape(x.shape)
 

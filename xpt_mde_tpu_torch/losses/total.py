@@ -32,7 +32,7 @@ def _merge_multi_scale(losses: Sequence[torch.Tensor],
                        scale_weights: Sequence[float]) -> torch.Tensor:
     """[scales][batch] -> [batch] via scale-weighted sum."""
     stacked = torch.stack(list(losses), dim=0)
-    weights = torch.as_tensor(scale_weights, dtype=torch.float32,
+    weights = torch.as_tensor(scale_weights, dtype=stacked.dtype,
                               device=stacked.device)
     return torch.tensordot(weights, stacked, dims=1)
 

@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from xpt_mde_tpu_torch.models.layers import Conv, upsample_2x_nchw
 from xpt_mde_tpu_torch.utils.image import resize_nchw
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -53,7 +54,7 @@ class ScaledDepthHead(nn.Module):
         self.Conv_0 = Conv(in_ch, 1, 3, use_activation=False)
 
     def forward(self, src, dst_h: int, dst_w: int):
-        conv = self.Conv_0(src).float()  # depth math stays f32
+        conv = at_least_f32(self.Conv_0(src))  # depth math stays f32
         depth = self.pred_activation(conv)
         return depth, resize_nchw(conv, dst_h, dst_w, "bilinear"), conv
 

@@ -9,7 +9,8 @@ naming the ROADMAP item that adds them.
 Weights are drawn from an explicit ``torch.Generator`` on the CPU (the
 modules are built on the ``meta`` device first, so nothing is drawn
 twice), then moved to ``device``: one seed gives the same weights on
-every device.
+every device. ``device`` defaults to the card; without one, building
+raises unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ class ModelFactory:
                  stereo: bool = True, high_res: bool = False,
                  upsample_interp: str = "nearest",
                  compute_dtype: str = "float32",
-                 device: torch.device | str = "cpu", seed: int = 0):
+                 device: torch.device | str = "cuda", seed: int = 0):
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={compute_dtype!r} is not ported yet: float32 only "
@@ -100,6 +101,9 @@ class ModelFactory:
                 "image_R" in self.dataset_keys and self.stereo):
             raise NotImplementedError(
                 "the stereo VodeModel is not ported yet (ROADMAP: 'Stereo slice')")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the model is built on the card "
+                               "unless the caller passes device='cpu'")
         with torch.device("meta"):
             depthnet = posenet = None
             if "depth" in self.net_names:

@@ -9,6 +9,7 @@ import torch
 import torch.nn as nn
 
 from xpt_mde_tpu_torch.models.layers import Conv
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 # (features, kernel, stride) of the conv stack, in flax's Conv_i order
 _IMPROVED = [(32, 5, 2), (32, 5, 2), (64, 3, 2), (128, 3, 2),
@@ -37,5 +38,5 @@ class PoseNetImproved(nn.Module):
         x = image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w)
         for conv in self._convs:
             x = conv(x)
-        poses = torch.mean(x.float(), dim=(2, 3))
+        poses = torch.mean(at_least_f32(x), dim=(2, 3))
         return {"pose": poses.reshape(-1, self.numsrc, 6)}

@@ -1,11 +1,13 @@
-"""Kernel K1: the const-source bilinear warp on the card (``csrc/warp.cu``).
+"""Kernels K1 and K1-bwd: the const-source bilinear warp on the card and its
+coordinate gradient (``csrc/warp.cu``).
 
-Port of ``xpt_mde_tpu/ops/pallas/warp.py``, forward only. K1 computes
-exactly :func:`xpt_mde_tpu_torch.ops.warp.bilinear_sample_plain` in
-float32 (the JAX ``mode="exact"`` sampler; the TPU's int8 mode is not
-reproduced). Like the TPU kernel it gives the image no gradient, and its
-coordinate gradient is not written yet: a call that would need one
-raises.
+Port of ``xpt_mde_tpu/ops/pallas/warp.py``: K1 is the kernel, K1-bwd its
+custom VJP. K1 computes exactly
+:func:`xpt_mde_tpu_torch.ops.warp.bilinear_sample_plain` in float32 (the
+JAX ``mode="exact"`` sampler; the TPU's int8 mode is not reproduced), and
+K1-bwd exactly :func:`xpt_mde_tpu_torch.ops.warp.warp_coord_grad_plain`.
+:class:`WarpConstSrc` joins them into one differentiable op: like the TPU
+kernel it gives the image and the mask no gradient.
 """
 
 from __future__ import annotations
@@ -18,70 +20,139 @@ from xpt_mde_tpu_torch.ops.kernels.build import load_library
 
 SOURCE = "xpt_mde_tpu_torch/csrc/warp.cu"
 REPLACES = "xpt_mde_tpu/ops/pallas/warp.py:135"
+REPLACES_BWD = "xpt_mde_tpu/ops/pallas/warp.py:288"
 
 
-class WarpKernel:
-    """Launches K1. ``launches`` counts the launches this wrapper made."""
+def _check(image, pixel_coords, valid_mask, grad_out=None):
+    """Raise unless the tensors are what the kernels take: image
+    [B,N,H,W,C], coords [B,N,2|3,H*W], mask [B,H,W,1] or None, grad_out
+    like image; all float32, contiguous, on one CUDA device."""
+    if image.dim() != 5:
+        raise ValueError(f"image must be [B,N,H,W,C], got {tuple(image.shape)}")
+    batch, numsrc, height, width, _ = image.shape
+    hw = height * width
+    if (pixel_coords.dim() != 4 or pixel_coords.shape[2] not in (2, 3)
+            or pixel_coords.shape[:2] != (batch, numsrc)
+            or pixel_coords.shape[3] != hw):
+        raise ValueError(f"coords must be [{batch},{numsrc},2|3,{hw}], "
+                         f"got {tuple(pixel_coords.shape)}")
+    tensors = [("image", image), ("pixel_coords", pixel_coords)]
+    if valid_mask is not None:
+        if tuple(valid_mask.shape) != (batch, height, width, 1):
+            raise ValueError(f"valid_mask must be [{batch},{height},{width},1], "
+                             f"got {tuple(valid_mask.shape)}")
+        tensors.append(("valid_mask", valid_mask))
+    if grad_out is not None:
+        if grad_out.shape != image.shape:
+            raise ValueError(f"grad_out must be {tuple(image.shape)}, "
+                             f"got {tuple(grad_out.shape)}")
+        tensors.append(("grad_out", grad_out))
+    for name, t in tensors:
+        if t.device.type != "cuda" or t.device != image.device:
+            raise ValueError(f"{name} must be on {image.device} (CUDA), got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
-    def __init__(self):
+
+class _WarpEntry:
+    """One C entry of ``warp.cu``, built at first use. ``launches``
+    counts the launches this wrapper made."""
+
+    def __init__(self, name: str, entry: str, n_pointers: int):
+        self.name = name
         self.launches = 0
         self.build_log = ""
+        self._entry = entry
+        self._n_pointers = n_pointers
         self._fn = None
 
     def build(self):
-        """Compile (or reuse) and load the library; return its C entry."""
+        """Compile (or reuse) and load the library; return the C entry."""
         if self._fn is None:
             lib, self.build_log = load_library("warp", ("warp.cu",))
-            fn = lib.xpt_warp_const_src_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            fn = getattr(lib, self._entry)
+            fn.argtypes = ([ctypes.c_void_p] * self._n_pointers + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
+    def _launch(self, image, pixel_coords, *tensors) -> None:
+        """Call the entry with the tensors' pointers, the shapes and the
+        current stream; raise on a non-zero CUDA error."""
+        fn = self.build()
+        batch, numsrc, height, width, channels = image.shape
+        pointers = [None if t is None else t.data_ptr() for t in tensors]
+        with torch.cuda.device(image.device):
+            stream = torch.cuda.current_stream(image.device).cuda_stream
+            err = fn(image.data_ptr(), pixel_coords.data_ptr(), *pointers,
+                     batch, numsrc, height, width, channels, pixel_coords.shape[2],
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed with CUDA error {err}")
+        self.launches += 1
+
+
+class WarpKernel(_WarpEntry):
+    """Launches K1."""
+
+    def __init__(self):
+        super().__init__("K1", "xpt_warp_const_src_fwd", 4)
+
     def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
                  valid_mask: torch.Tensor | None = None) -> torch.Tensor:
         """:param image: [B,N,H,W,C]; :param pixel_coords: [B,N,2|3,H*W];
         :param valid_mask: optional [B,H,W,1]. All float32, contiguous,
-        on one CUDA device. :return: [B,N,H,W,C]."""
-        if image.dim() != 5:
-            raise ValueError(f"image must be [B,N,H,W,C], got {tuple(image.shape)}")
-        batch, numsrc, height, width, channels = image.shape
-        hw = height * width
-        if (pixel_coords.dim() != 4 or pixel_coords.shape[2] not in (2, 3)
-                or pixel_coords.shape[:2] != (batch, numsrc)
-                or pixel_coords.shape[3] != hw):
-            raise ValueError(f"coords must be [{batch},{numsrc},2|3,{hw}], "
-                             f"got {tuple(pixel_coords.shape)}")
-        tensors = [("image", image), ("pixel_coords", pixel_coords)]
-        if valid_mask is not None:
-            if tuple(valid_mask.shape) != (batch, height, width, 1):
-                raise ValueError(f"valid_mask must be [{batch},{height},{width},1], "
-                                 f"got {tuple(valid_mask.shape)}")
-            tensors.append(("valid_mask", valid_mask))
-        for name, t in tensors:
-            if t.device.type != "cuda" or t.device != image.device:
-                raise ValueError(f"{name} must be on {image.device} (CUDA), got {t.device}")
-            if t.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32, got {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
+        on one CUDA device. :return: [B,N,H,W,C]. Differentiable calls go
+        through :class:`WarpConstSrc`."""
+        _check(image, pixel_coords, valid_mask)
         if torch.is_grad_enabled() and pixel_coords.requires_grad:
-            raise NotImplementedError(
-                "K1 has no coordinate gradient yet: its backward comes with the "
-                "rigid train step (ROADMAP: 'Rigid train step')")
-        fn = self.build()
+            raise ValueError("K1 called directly drops the coordinate gradient: "
+                             "use WarpConstSrc.apply (ops.warp.bilinear_sample)")
         out = torch.empty_like(image)
-        with torch.cuda.device(image.device):
-            stream = torch.cuda.current_stream(image.device).cuda_stream
-            err = fn(image.data_ptr(), pixel_coords.data_ptr(),
-                     None if valid_mask is None else valid_mask.data_ptr(),
-                     out.data_ptr(), batch, numsrc, height, width, channels,
-                     pixel_coords.shape[2], stream)
-        if err != 0:
-            raise RuntimeError(f"K1 launch failed with CUDA error {err}")
-        self.launches += 1
+        self._launch(image, pixel_coords, valid_mask, out)
         return out
 
 
+class WarpBwdKernel(_WarpEntry):
+    """Launches K1-bwd."""
+
+    def __init__(self):
+        super().__init__("K1-bwd", "xpt_warp_const_src_bwd", 5)
+
+    def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
+                 valid_mask: torch.Tensor | None,
+                 grad_out: torch.Tensor) -> torch.Tensor:
+        """K1's inputs plus ``grad_out`` [B,N,H,W,C], the cotangent of its
+        output. :return: dcoords [B,N,2|3,H*W] (du, dv[, 0])."""
+        grad_out = grad_out.contiguous()
+        _check(image, pixel_coords, valid_mask, grad_out)
+        dcoords = torch.empty_like(pixel_coords)
+        self._launch(image, pixel_coords, valid_mask, grad_out, dcoords)
+        return dcoords
+
+
 K1 = WarpKernel()
+K1_BWD = WarpBwdKernel()
+
+
+class WarpConstSrc(torch.autograd.Function):
+    """K1 forward, K1-bwd backward. The image and mask cotangents are
+    zero by contract (``None``): the image is training data and the mask
+    (the depth) only selects pixels, as in the JAX VJP."""
+
+    @staticmethod
+    def forward(ctx, image, pixel_coords, valid_mask):
+        # references, not copies: the backward re-reads the image
+        ctx.save_for_backward(image, pixel_coords, valid_mask)
+        return K1(image, pixel_coords, valid_mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        image, pixel_coords, valid_mask = ctx.saved_tensors
+        dcoords = None
+        if ctx.needs_input_grad[1]:
+            dcoords = K1_BWD(image, pixel_coords, valid_mask, grad_out)
+        return None, dcoords, None

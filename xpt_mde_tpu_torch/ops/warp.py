@@ -1,6 +1,6 @@
 """Bilinear sampling with validity masking (port of ``xpt_mde_tpu.ops.warp``).
 
-Semantics, shared with kernel K1 (``ops/kernels/warp.py``):
+Semantics, shared with kernels K1 and K1-bwd (``ops/kernels/warp.py``):
 
 - the floor/ceil neighbours are clipped into the image; a pair whose
   clipped ceil != floor + 1 (outside, or exactly on the far border) is
@@ -9,22 +9,23 @@ Semantics, shared with kernel K1 (``ops/kernels/warp.py``):
   invalidates, shared by all sources;
 - invalid pixels come out black (all four weights 0).
 
-:func:`bilinear_sample_plain` is the plain PyTorch version: the CPU path
-and the oracle K1 is held against on the card. It gathers the four
-neighbours directly; the TPU one-hot / patch-gather formulations were
-workarounds for slow TPU gathers and are not ported.
+:func:`bilinear_sample_plain` and :func:`warp_coord_grad_plain` are the
+plain PyTorch versions of K1 and K1-bwd: the CPU path and the oracles the
+kernels are held against on the card. They gather the four neighbours
+directly; the TPU one-hot / patch-gather formulations were workarounds
+for slow TPU gathers and are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from xpt_mde_tpu_torch.ops.kernels.warp import K1
+from xpt_mde_tpu_torch.ops.kernels.warp import WarpConstSrc
 
 
-def _neighbor_weights(image, pixel_coords, valid_mask):
-    """(uf, vf, uc, vc as int64 [B,N,HW]) and the four bilinear weights
-    (ff, fc, cf, cc), each [B,N,HW] and zero where invalid."""
+def _clipped_neighbors(image, pixel_coords, valid_mask):
+    """u, v [B,N,HW], their clipped floor/ceil neighbours uf, uc, vf, vc
+    (float) and ``valid`` (image dtype, 0 or 1)."""
     batch, _, height, width, _ = image.shape
     u = pixel_coords[:, :, 0]
     v = pixel_coords[:, :, 1]
@@ -39,19 +40,22 @@ def _neighbor_weights(image, pixel_coords, valid_mask):
     valid = (uf + 1.0 == uc) & (vf + 1.0 == vc)
     if valid_mask is not None:
         valid = valid & (valid_mask.reshape(batch, 1, -1) != 0)
-    valid = valid.to(image.dtype)
+    return u, v, uf, uc, vf, vc, valid.to(image.dtype)
 
-    w_uf, w_uc = uc - u, u - uf
-    w_vf, w_vc = vc - v, v - vf
-    weights = (w_uf * w_vf * valid, w_uf * w_vc * valid,
-               w_uc * w_vf * valid, w_uc * w_vc * valid)
-    ints = (uf.long(), vf.long(), uc.long(), vc.long())
-    return ints, weights
+
+def _gather(image, index):
+    """image [B,N,H,W,C] at flat pixel indices [B,N,HW] -> [B,N,HW,C]."""
+    batch, numsrc, height, width, channels = image.shape
+    flat = image.reshape(batch, numsrc, height * width, channels)
+    return torch.gather(flat, 2, index[..., None].expand(-1, -1, -1, channels))
 
 
 def bilinear_sample_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
                           valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch bilinear sample on any device (K1's oracle).
+
+    Its autograd gives the coordinates the gradient of
+    :func:`warp_coord_grad_plain` (and, unlike K1, the image one too).
 
     :param image: [B, N, H, W, C]
     :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
@@ -59,16 +63,57 @@ def bilinear_sample_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
     :return: [B, N, H, W, C]
     """
     batch, numsrc, height, width, channels = image.shape
-    (uf, vf, uc, vc), weights = _neighbor_weights(image, pixel_coords,
-                                                  valid_mask)
-    flat = image.reshape(batch, numsrc, height * width, channels)
+    u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
+    w_uf, w_uc = uc - u, u - uf
+    w_vf, w_vc = vc - v, v - vf
+    weights = (w_uf * w_vf * valid, w_uf * w_vc * valid,
+               w_uc * w_vf * valid, w_uc * w_vc * valid)
+    uf, vf, uc, vc = uf.long(), vf.long(), uc.long(), vc.long()
     out = None
     for idx, w in zip((vf * width + uf, vc * width + uf,
                        vf * width + uc, vc * width + uc), weights):
-        index = idx[..., None].expand(-1, -1, -1, channels)
-        term = torch.gather(flat, 2, index) * w[..., None]
+        term = _gather(image, idx) * w[..., None]
         out = term if out is None else out + term
     return out.reshape(batch, numsrc, height, width, channels)
+
+
+def warp_coord_grad_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
+                          valid_mask: torch.Tensor | None,
+                          grad_out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch coordinate gradient of the const-source warp (K1-bwd's
+    oracle), as ``_warp_const_bwd`` of the JAX kernel forms it:
+
+        du = valid * sum_c g * (w_v * D_f + (1 - w_v) * D_c)
+        dv = valid * sum_c g * (J_c - J_f)
+
+    with w_u = uc - u, w_v = vc - v, P_f / P_c the image columns uf and
+    uf + 1, J = w_u * P_f + (1 - w_u) * P_c and D = P_c - P_f, each at row
+    vf (J_f, D_f) and vf + 1 (J_c, D_c).
+
+    :param image: [B, N, H, W, C]; :param pixel_coords: [B, N, 2 or 3, H*W]
+    :param valid_mask: optional [B, H, W, 1]
+    :param grad_out: [B, N, H, W, C], the cotangent of the sample
+    :return: dcoords [B, N, 2 or 3, H*W]; a homogeneous third row gets 0
+    """
+    batch, numsrc, height, width, channels = image.shape
+    u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
+    w_u = (uc - u)[..., None]
+    w_v = (vc - v)[..., None]
+    # valid => uc == uf + 1 and vc == vf + 1; invalid pixels are zeroed below
+    uf, vf, uc, vc = uf.long(), vf.long(), uc.long(), vc.long()
+    p_ff = _gather(image, vf * width + uf)
+    p_cf = _gather(image, vf * width + uc)
+    p_fc = _gather(image, vc * width + uf)
+    p_cc = _gather(image, vc * width + uc)
+    j_f = w_u * p_ff + (1.0 - w_u) * p_cf
+    j_c = w_u * p_fc + (1.0 - w_u) * p_cc
+    d_f = p_cf - p_ff
+    d_c = p_cc - p_fc
+    g = grad_out.reshape(batch, numsrc, height * width, channels)
+    du = torch.sum(g * (w_v * d_f + (1.0 - w_v) * d_c), dim=-1) * valid
+    dv = torch.sum(g * (j_c - j_f), dim=-1) * valid
+    rows = [du, dv] + [torch.zeros_like(du)] * (pixel_coords.shape[2] - 2)
+    return torch.stack(rows, dim=2)
 
 
 def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
@@ -78,7 +123,10 @@ def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
 
     ``const_src`` promises that ``image`` is never differentiated (the
     synthesis losses warp training data). On a CUDA tensor that warp is
-    kernel K1; on a CPU tensor it is :func:`bilinear_sample_plain`.
+    :class:`~xpt_mde_tpu_torch.ops.kernels.warp.WarpConstSrc`: kernel K1
+    forward, kernel K1-bwd for the coordinate gradient, no gradient for
+    the image or the mask. On a CPU tensor it is
+    :func:`bilinear_sample_plain` and its autograd.
 
     :param image: source images [B, N, H, W, C]
     :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
@@ -90,6 +138,6 @@ def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
     if not const_src:
         raise NotImplementedError(
             "the image-differentiable warp has no kernel on the card yet; "
-            "view synthesis uses const_src=True (kernel K1)")
+            "view synthesis uses const_src=True (kernels K1 and K1-bwd)")
     mask = None if valid_mask is None else valid_mask.contiguous()
-    return K1(image.contiguous(), pixel_coords.contiguous(), mask)
+    return WarpConstSrc.apply(image.contiguous(), pixel_coords.contiguous(), mask)

@@ -1,12 +1,14 @@
-"""Where the time of the predict and eval steps goes on one CUDA card.
+"""Where the time of the predict, eval and train steps goes on one CUDA card.
 
 Usage, from the repository root on a machine with a CUDA card:
 
     python -m xpt_mde_tpu_torch.tools.profile_steps [--out FILE]
 
 It builds the rigid model (EfficientNetB5 + PoseNetImproved, seeded
-random weights, batch 8, 128x512) and the eval loss of ``chip_smoke.py``,
-then for each step (predict, eval):
+random weights, batch 8, 128x512) and the loss of ``chip_smoke.py``, and
+for the train step Adam at 1e-4, the default augmentation from a seeded
+generator and uint8-coded batches; then for each step (predict, eval,
+train):
 
 - times 5 steps on the host clock around ``torch.cuda.synchronize()``,
   without the profiler (wall ms/step);
@@ -64,7 +66,7 @@ def profile_step(label: str, step, batches) -> list[str]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for features in batches:  # warm-up: cuDNN autotuning, K1's build
+    for features in batches:  # warm-up: cuDNN autotuning, the kernels' build
         step(features)
     wall = _wall_ms(step, batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -91,11 +93,13 @@ def main(argv=None) -> int:
         print("profile_steps: no CUDA device", file=sys.stderr)
         return 1
 
-    from xpt_mde_tpu_torch.config import RIGID_NET, SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.config import AUGMENT_PROBS, RIGID_NET, SCALE_WEIGHT_T1
     from xpt_mde_tpu_torch.data import SyntheticDataset
     from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.models import ModelFactory
-    from xpt_mde_tpu_torch.training import make_eval_step, make_predict_step
+    from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
+                                            make_predict_step, make_train_step,
+                                            optimizer_factory)
 
     device = torch.device("cuda", 0)
     dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
@@ -110,6 +114,14 @@ def main(argv=None) -> int:
     for label, step in (("predict", make_predict_step(model)),
                         ("eval", make_eval_step(model, total_loss))):
         report += profile_step(label, step, batches)
+    train_step = make_train_step(model, total_loss,
+                                 optimizer_factory("adam_constant", 1e-4, model),
+                                 augmenter=augmentation_factory(AUGMENT_PROBS))
+    generator = torch.Generator().manual_seed(0)
+    uint8_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5).to(torch.uint8))
+                     for b in batches]
+    report += profile_step("train", lambda features: train_step(features, generator),
+                           uint8_batches)
     text = "\n".join(report)
     print(text, flush=True)
     if args.out:

@@ -1,17 +1,19 @@
-"""Predict and eval steps (port of the inference part of
-``xpt_mde_tpu.training.train_step``).
+"""Train, eval and predict steps (port of ``xpt_mde_tpu.training.train_step``).
 
 The port has no TrainState: the module carries its weights and BatchNorm
-statistics, so ``make_*_step`` takes the module and the step takes the
-features (a dict of tensors on the module's device). Both steps run the
-module in eval mode (BN running statistics) under ``inference_mode`` and
-in full float32 (TF32 off), and restore the module's mode afterwards.
+statistics and the optimizer its moments, so ``make_*_step`` takes the
+module (and the optimizer) and the step takes the features (a dict of
+tensors on the module's device). Every step runs in full float32 (TF32
+off) and restores the module's mode afterwards. The eval and predict
+steps run the module in eval mode (BN running statistics) under
+``inference_mode``; the train step runs it in train mode, so BatchNorm
+normalizes with the batch statistics and updates its running ones.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Sequence
 
 import torch
 
@@ -55,6 +57,65 @@ def _inference(model: torch.nn.Module):
             yield
     finally:
         model.train(was_training)
+
+
+def make_train_step(model: torch.nn.Module, total_loss,
+                    optimizer: torch.optim.Optimizer, augmenter=None,
+                    frozen_nets: Sequence[str] = (),
+                    regularize_net: str | None = None,
+                    grad_accum_steps: int = 1) -> Callable:
+    """Train step: decode, augment, forward in train mode, ``total_loss``,
+    backward, ``optimizer.step()``.
+
+    :param optimizer: from ``training.optimizers.optimizer_factory`` over
+        the same model (frozen nets left out of it)
+    :param augmenter: optional ``TotalAugment``; its draws come from the
+        CPU ``generator`` the step is given
+    :param frozen_nets: top-level nets (``depthnet``, ``posenet``) whose
+        parameters get no gradient during the step, as JAX's
+        ``stop_gradient`` prunes them; their BN running statistics still
+        update
+    :return: ``step(features, generator=None) -> metrics``, the metrics of
+        the train-mode forward (detached), as the JAX step reports them
+    """
+    if regularize_net is not None:
+        raise NotImplementedError(
+            "regularize_net (the flow L2 regularizer) is not ported yet "
+            "(ROADMAP: 'Flow slice')")
+    if grad_accum_steps != 1:
+        raise NotImplementedError(
+            "grad_accum_steps > 1 is not ported yet (ROADMAP: 'Breadth')")
+    frozen = set(frozen_nets)
+    frozen_params = [p for name, net in model.named_children() if name in frozen
+                     for p in net.parameters()]
+
+    def train_step(features: Mapping[str, torch.Tensor],
+                   generator: torch.Generator | None = None) -> dict:
+        was_training = model.training
+        grad_flags = [p.requires_grad for p in frozen_params]
+        model.train()
+        for p in frozen_params:
+            p.requires_grad_(False)
+        try:
+            with full_f32():
+                features = decode_image_features(features)
+                if augmenter is not None:
+                    features = augmenter(features, generator)
+                preds = model(features)
+                loss, loss_by_type = total_loss(preds, features)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                optimizer.step()
+                with torch.no_grad():
+                    return _compute_metrics(
+                        preds, features, loss.detach(),
+                        {k: v.detach() for k, v in loss_by_type.items()})
+        finally:
+            for p, flag in zip(frozen_params, grad_flags):
+                p.requires_grad_(flag)
+            model.train(was_training)
+
+    return train_step
 
 
 def make_eval_step(model: torch.nn.Module, total_loss) -> Callable:

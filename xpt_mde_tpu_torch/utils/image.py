@@ -13,18 +13,21 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
+
 
 def resize_nchw(x: torch.Tensor, height: int, width: int,
                 method: str = "bilinear") -> torch.Tensor:
     """Resize [N, C, H, W] to [N, C, height, width] (the conv modules'
-    layout). Bilinear interpolates in float32 whatever the input dtype."""
+    layout). Bilinear interpolates in float32 (or float64) whatever the
+    input dtype."""
     if x.shape[-2:] == (height, width):
         return x
     if method == "nearest":
         return F.interpolate(x, size=(height, width), mode="nearest-exact")
     if method != "bilinear":
         raise ValueError(f"unknown resize method: {method!r}")
-    out = F.interpolate(x.float(), size=(height, width), mode="bilinear",
+    out = F.interpolate(at_least_f32(x), size=(height, width), mode="bilinear",
                         align_corners=False, antialias=False)
     return out.to(x.dtype) if x.is_floating_point() else out
 

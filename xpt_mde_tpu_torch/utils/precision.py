@@ -5,8 +5,9 @@ the same for matmuls when ``allow_tf32`` is set. TF32 keeps about three
 decimal digits: enough to move reprojected pixels visibly and to break
 the float32 parity with the JAX reference (which pins
 ``Precision.HIGHEST`` in its geometry). This context owns the setting:
-the predict and eval steps run inside :func:`full_f32`, and code that
-calls the geometry or the convolutions directly enters it itself.
+the steps run inside :func:`full_f32`, and code that calls the geometry
+or the convolutions directly enters it itself. :func:`at_least_f32` keeps
+depth, pose and resampling in float32 or wider.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or kept in float64: the dtype of the math that
+    must not run in a narrower type (depth, pose, resampling)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 @contextlib.contextmanager
