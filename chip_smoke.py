@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rigid predict, eval and train paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's rigid predict, eval and train paths and its
+flow predict and train paths once on one NVIDIA GPU.
 
 Usage, from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) with
-``nvcc`` and prints one line per phase:
+It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) and
+K2, K3 and K4 (``xpt_mde_tpu_torch/csrc/correlation.cu``) with ``nvcc``,
+one compiler per source started together, and prints one line per phase:
 
 1. the device (name, count, power limit) and the kernels' register/spill
    report;
@@ -34,9 +35,27 @@ It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) with
    within LOSS_GRAD_RTOL, the parameter gradients as close to float64 as
    the CPU's (GRAD_MEDIAN_RATIO, GRAD_MAX_RTOL), BN statistics within
    BN_TOL;
-8. timings, each tagged with the card's name and power limit.
+8. K2, K3 and K4 against their plain versions (K3 and K4 also against
+   the plain cost volume's autograd) at the five PWC-Net levels of the
+   flow stage (32 target/source pairs, [32, C, h, w] from a seeded
+   generator), within CORR_RTOL of the largest plain value, and their
+   times;
+9. flow predict: PWC-Net, seeded random weights, batch 8 x 4 sources,
+   128x512, on the 3 batches: flow shapes, finiteness, 5 K2 launches
+   per forward and no other;
+10. flow train: FLOW_RECIPE with ``regularize_net="flownet"`` and Adam
+    at 1e-4, FLOW_TRAIN_STEPS steps over the uint8-coded batches: finite
+    losses, every weight moved, and per step 5 launches each of K2, K3
+    and K4 and 4 each of K1 and K1-bwd;
+11. one flow train step on the card, on the CPU and on the CPU in
+    float64, from the same weights (every flow head's bias set to
+    CHECK_FLOW) on the first FLOW_CHECK_BATCH samples of batch 0, at
+    128x512: checked as in phase 7 (FLOW_LOSS_TOL);
+12. timings, each tagged with the card's name and power limit, and the
+    flow train step's device busy time, kernels per step and idle share
+    (``tools/profile_steps.py``).
 
-Then a JSON line with each kernel's launches on the train path, error,
+Then a JSON line with each kernel's launches on its train path, error,
 device time, bound and the plain version's and the nearest library call's
 times, the ``nvidia-smi`` name/power line, and last the result line
 ``{"ok": true, "device": {...}}``. It exits non-zero and prints no result
@@ -52,6 +71,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 BATCH, HEIGHT, WIDTH, NUM_BATCHES = 8, 128, 512, 3
 SCALES = (1, 2, 4, 8)
@@ -97,6 +117,24 @@ GRAD_FLOOR = 1e-6
 # activations that differ like the losses (rtol 1e-3); atol 1e-4 covers
 # means near 0 and the float32 rounding of 0.99 * the initial value
 BN_TOL = (1e-3, 1e-4)
+# the flow stage: LOSS_FLOW without the right views' flowL2_R
+FLOW_RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}
+FLOW_TRAIN_STEPS, FLOW_CHECK_BATCH = 6, 2
+# the flow cross-check sets the bias of every flow head (each
+# FlowPredictor's last conv) to this (u, v) flow in pixels. At the seeded
+# init the flows are ~0, so the warps' coordinates grid - flow lie within
+# rounding of integer pixels, where the bilinear warp has a kink (as for
+# CHECK_TWIST above); a sub-pixel flow moves them off the integers.
+CHECK_FLOW = [0.35, -0.25]
+# K2, K3 and K4 against their plain versions: the same float32 products
+# summed in another order over up to 196 channels (K2) or 81
+# displacements (K3, K4), so within this share of the largest plain value
+CORR_RTOL = 1e-5
+# GPU vs CPU flow losses, (rtol, atol) per term: flowL2 is a mean of
+# millions of squared errors after the float32 net (as LOSS_TOL); flow_reg
+# sums the squares of the same weights in another order
+FLOW_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/flowL2": (1e-3, 0.0),
+                 "loss/flow_reg": (1e-5, 0.0)}
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
 # device memory and for float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -274,39 +312,45 @@ def _warp_phase(batches, device, rng, tag):
     return stats
 
 
-def _check_losses(gpu, cpu, label):
-    """GPU vs CPU losses within LOSS_TOL; returns the relative differences."""
+def _check_losses(gpu, cpu, label, tol=LOSS_TOL):
+    """GPU vs CPU losses within ``tol``; returns the relative differences."""
     losses = {k: float(v) for k, v in gpu.items() if k.startswith("loss")}
-    if set(losses) != set(LOSS_TOL):
-        raise AssertionError(f"{label} losses {sorted(losses)}, want {sorted(LOSS_TOL)}")
+    if set(losses) != set(tol):
+        raise AssertionError(f"{label} losses {sorted(losses)}, want {sorted(tol)}")
     rel = {}
     for key, value in losses.items():
         cpu_value = float(cpu[key])
         diff = abs(value - cpu_value)
         rel[key] = float(f"{diff / max(abs(cpu_value), 1e-30):.3g}")
-        rtol, atol = LOSS_TOL[key]
+        rtol, atol = tol[key]
         if not diff <= rtol * abs(cpu_value) + atol:
             raise AssertionError(f"{label} {key}: GPU {value} vs CPU {cpu_value}")
     return losses, rel
 
 
-def _loss_grad_diff(loss, preds, feats, device):
+def _loss_grad_diff(loss, preds, feats, device, pred_keys):
     """GPU vs CPU gradient of the loss with respect to the same predictions
-    (depths and twists): (relative error of the whole gradient, number of
-    elements, number off by more than 1e-3 of the largest |gradient|). It
-    separates the loss and warp from the networks' backward."""
+    (``pred_keys``: the depths and twists, or the flows): (relative error
+    of the whole gradient, number of elements, number off by more than
+    1e-3 of the largest |gradient|). It separates the loss and warp from
+    the networks' backward."""
     import torch
 
     from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
 
     grads = []
     for dev in (device, torch.device("cpu")):
-        depth = [d.detach().to(dev).requires_grad_(True) for d in preds["depth_ms"]]
-        pose = preds["pose"].detach().to(dev).requires_grad_(True)
-        total, _ = loss({"depth_ms": depth, "disp_ms": safe_reciprocal_ms(depth), "pose": pose},
-                        {k: v.to(dev) for k, v in feats.items()})
+        leaves, inputs = [], {}
+        for key in pred_keys:
+            tensors = preds[key] if isinstance(preds[key], list) else [preds[key]]
+            tensors = [t.detach().to(dev).requires_grad_(True) for t in tensors]
+            leaves += tensors
+            inputs[key] = tensors if isinstance(preds[key], list) else tensors[0]
+        if "depth_ms" in inputs:
+            inputs["disp_ms"] = safe_reciprocal_ms(inputs["depth_ms"])
+        total, _ = loss(inputs, {k: v.to(dev) for k, v in feats.items()})
         grads.append(torch.cat([g.reshape(-1).double().cpu()
-                                for g in torch.autograd.grad(total, depth + [pose])]))
+                                for g in torch.autograd.grad(total, leaves)]))
     diff = torch.abs(grads[0] - grads[1])
     off = int((diff > 1e-3 * float(grads[1].abs().max())).sum())
     return float(torch.linalg.norm(diff) / torch.linalg.norm(grads[1])), diff.numel(), off
@@ -320,63 +364,79 @@ def _rel_errors(grads, ref):
             for n, r in ref.items() if float(torch.linalg.norm(r)) > GRAD_FLOOR}
 
 
-def _train_cross_check(keys, batch, device, make_loss):
-    """Phase 7: one train step from the same seeded weights (the pose head
-    at CHECK_TWIST) on the first CHECK_BATCH samples, no augmentation: on
-    the card, on the CPU, and on the CPU in float64 as the reference."""
+def _set_pose_twist(model, device):
+    """The pose head (the posenet's last conv) predicts CHECK_TWIST."""
+    import torch
+    with torch.no_grad():
+        list(model.posenet.children())[-1].Conv_0.bias.copy_(
+            torch.tensor(CHECK_TWIST * model.posenet.numsrc, device=device))
+
+
+def _set_flow_heads(model, device):
+    """Every flow head (each FlowPredictor's last conv) predicts CHECK_FLOW."""
+    import torch
+    with torch.no_grad():
+        for name, module in model.flownet.named_children():
+            if name.startswith("FlowPredictor_"):
+                module.Conv_5.Conv_0.bias.copy_(torch.tensor(CHECK_FLOW, device=device))
+
+
+def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
+                       pred_keys, loss_tol, step_kwargs=None):
+    """Phases 7 and 11: one train step from the same seeded weights
+    (``prepare`` sets the head's bias), no augmentation, on the card, on
+    the CPU, and on the CPU in float64 as the reference."""
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.config import RIGID_NET
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
 
-    loss = make_loss(CHECK_BATCH)
-    feats = {k: torch.from_numpy(v[:CHECK_BATCH]) for k, v in batch.items()}
     results = {}
-    for label, dev, dtype in (("gpu", device, torch.float32),
-                              ("cpu", torch.device("cpu"), torch.float32),
-                              ("cpu f64", torch.device("cpu"), torch.float64)):
-        model = ModelFactory(keys, RIGID_NET, stereo=False, device=dev, seed=0).get_model()
-        with torch.no_grad():  # the pose head: the posenet's last conv
-            list(model.posenet.children())[-1].Conv_0.bias.copy_(
-                torch.tensor(CHECK_TWIST * model.posenet.numsrc, device=dev))
+    for dev_label, dev, dtype in (("gpu", device, torch.float32),
+                                  ("cpu", torch.device("cpu"), torch.float32),
+                                  ("cpu f64", torch.device("cpu"), torch.float64)):
+        model = ModelFactory(keys, nets, stereo=False, device=dev, seed=0).get_model()
+        prepare(model, dev)
         model.to(dtype)
         initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-        step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model))
+        step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model),
+                               **(step_kwargs or {}))
         metrics = step({k: v.to(dev, dtype) for k, v in feats.items()})
         grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
         stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))}
-        results[label] = (metrics, grads, stats, model, initial)
-    losses, rel = _check_losses(results["gpu"][0], results["cpu"][0], "train")
+        results[dev_label] = (metrics, grads, stats, model, initial)
+    losses, rel = _check_losses(results["gpu"][0], results["cpu"][0], label, loss_tol)
 
     # the gradient of the loss alone, at the CPU model's train-mode predictions
     model, initial = results["cpu"][3], results["cpu"][4]
     model.load_state_dict(initial)
     with torch.no_grad():
         preds = model.train()({"image5d": feats["image5d"]})
-    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device)
+    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device, pred_keys)
 
     ref = results["cpu f64"][1]
-    errors = {label: _rel_errors(results[label][1], ref) for label in ("gpu", "cpu")}
-    median = {label: float(np.median(list(e.values()))) for label, e in errors.items()}
+    errors = {dev_label: _rel_errors(results[dev_label][1], ref) for dev_label in ("gpu", "cpu")}
+    median = {dev_label: float(np.median(list(e.values()))) for dev_label, e in errors.items()}
     worst = sorted(errors["gpu"].items(), key=lambda item: item[1], reverse=True)[:3]
     worst_stat = 0.0
     for key, value in results["cpu"][2].items():
         # the batch statistic folded in: (new - 0.99 * initial) / 0.01
-        folded = [(results[label][2][key] - 0.99 * initial[key].double()) / 0.01
-                  for label in ("gpu", "cpu")]
+        folded = [(results[dev_label][2][key] - 0.99 * initial[key].double()) / 0.01
+                  for dev_label in ("gpu", "cpu")]
         excess = torch.abs(folded[0] - folded[1]) - BN_TOL[0] * torch.abs(folded[1])
         worst_stat = max(worst_stat, float(excess.max()))
-    print(f"phase 7 train cross-check: one step at batch {CHECK_BATCH}, GPU vs CPU losses "
-          f"rel diff {json.dumps(rel)} (GPU {json.dumps(losses)}); loss gradient at the "
-          f"same predictions: rel error {loss_rel:.3g} <= {LOSS_GRAD_RTOL} ({n_off} of "
+    bn_note = (f"BN batch statistics GPU vs CPU: worst excess over rtol {BN_TOL[0]} "
+               f"{worst_stat:.3g}" if results["cpu"][2] else "no BatchNorm")
+    batch = feats["image5d"].shape[0]
+    print(f"phase {phase_no} {label} cross-check: one step at batch {batch}, GPU vs CPU "
+          f"losses rel diff {json.dumps(rel)} (GPU {json.dumps(losses)}); loss gradient at "
+          f"the same predictions: rel error {loss_rel:.3g} <= {LOSS_GRAD_RTOL} ({n_off} of "
           f"{n_elems} elements off by > 1e-3 of the largest); parameter gradients against "
           f"the CPU's float64 step ({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median "
           f"relative error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
-          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}; BN batch statistics GPU vs "
-          f"CPU: worst excess over rtol {BN_TOL[0]} {worst_stat:.3g}", flush=True)
+          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}; {bn_note}", flush=True)
     if not loss_rel <= LOSS_GRAD_RTOL:
         raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}")
     if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
@@ -386,6 +446,92 @@ def _train_cross_check(keys, batch, device, make_loss):
         raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g}")
     if not worst_stat <= BN_TOL[1]:
         raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
+
+
+def _valid_terms(height, width, max_displacement, stride):
+    """The (pixel, displacement) pairs of one [height, width] plane whose
+    displaced position lies in the frame: the terms K2, K3 and K4 compute
+    (they skip the others)."""
+    offsets = range(-max_displacement, max_displacement + 1, stride)
+    return (sum(max(0, height - abs(o)) for o in offsets)
+            * sum(max(0, width - abs(o)) for o in offsets))
+
+
+def _corr_phase(device, tag):
+    """Phase 8: K2, K3 and K4 against their plain versions at the five
+    PWC-Net levels of the flow stage, and their times beside the plain
+    versions' and the bounds. Returns per-kernel sums over the levels
+    (one train step's launches)."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import NUM_SRC
+    from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+    from xpt_mde_tpu_torch.ops.correlation import (correlation_channels,
+                                                   correlation_cost_plain,
+                                                   correlation_grad_cl_plain,
+                                                   correlation_grad_cr_plain)
+    from xpt_mde_tpu_torch.ops.kernels.correlation import K2, K3, K4
+
+    keys = ("err", "ms", "plain_ms", "bound_ms", "bytes", "flops")
+    stats = {name: dict.fromkeys(keys, 0.0) for name in ("K2", "K3", "K4")}
+    notes = []
+    generator = torch.Generator().manual_seed(2)
+    pairs = BATCH * NUM_SRC
+    for level in (6, 5, 4, 3, 2):
+        md, stride = level_displacement(level)
+        chans, h, w = ENCODER_CHANNELS[level - 1], HEIGHT >> level, WIDTH >> level
+        n2 = correlation_channels(md, stride)
+        cl, cr = ((torch.rand((pairs, chans, h, w), generator=generator) * 2 - 1).to(device)
+                  for _ in range(2))
+        g = (torch.rand((pairs, n2, h, w), generator=generator) * 2 - 1).to(device)
+        got = {"K2": K2(cl, cr, md, stride), "K3": K3(g, cr, md, stride),
+               "K4": K4(g, cl, md, stride)}
+        ref = {"K2": correlation_cost_plain(cl, cr, md, stride),
+               "K3": correlation_grad_cl_plain(g, cr, md, stride),
+               "K4": correlation_grad_cr_plain(g, cl, md, stride)}
+        leaves = [cl.clone().requires_grad_(True), cr.clone().requires_grad_(True)]
+        autograd = dict(zip(("K3", "K4"), torch.autograd.grad(
+            correlation_cost_plain(*leaves, md, stride), leaves, g)))
+        torch.cuda.synchronize()
+        for name in ("K2", "K3", "K4"):
+            err = float((got[name] - ref[name]).abs().max())
+            if name in autograd:
+                err = max(err, float((got[name] - autograd[name]).abs().max()))
+            scale = float(ref[name].abs().max())
+            if not err <= CORR_RTOL * scale:
+                raise AssertionError(f"{name} differs from plain by {err} (max |plain| "
+                                     f"{scale}) at level {level}")
+            stats[name]["err"] = max(stats[name]["err"], err)
+            notes.append(f"L{level} {name} {err:.3g} / {scale:.3g}")
+
+        # bytes: each input read once, each output written once; flops: a
+        # multiply-add per channel for every in-frame (pixel, displacement)
+        feat_bytes, g_bytes = cl.numel() * 4, g.numel() * 4
+        flops = 2 * pairs * chans * _valid_terms(h, w, md, stride)
+        work = {"K2": (2 * feat_bytes + g_bytes, flops),
+                "K3": (g_bytes + 2 * feat_bytes, flops), "K4": (g_bytes + 2 * feat_bytes, flops)}
+        runs = {"K2": (lambda: K2(cl, cr, md, stride),
+                       lambda: correlation_cost_plain(cl, cr, md, stride)),
+                "K3": (lambda: K3(g, cr, md, stride),
+                       lambda: correlation_grad_cl_plain(g, cr, md, stride)),
+                "K4": (lambda: K4(g, cl, md, stride),
+                       lambda: correlation_grad_cr_plain(g, cl, md, stride))}
+        line = []
+        for name, (kernel, plain) in runs.items():
+            t_k, t_p = _graph_ms(kernel), _graph_ms(plain)
+            bound_ms, bound_by = _bound(*work[name])
+            for key, value in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound_ms),
+                               ("bytes", work[name][0]), ("flops", work[name][1])):
+                stats[name][key] += value
+            line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound {bound_ms:.4f} by "
+                        f"{bound_by})")
+        print(f"timing L{level} [{pairs},{chans},{h},{w}] md {md} stride {stride} n^2 {n2}: "
+              f"device (graph replay) {'; '.join(line)} {tag}", flush=True)
+    print(f"phase 8 correlation kernels vs plain: max abs err K2 {stats['K2']['err']:.3g}, "
+          f"K3 {stats['K3']['err']:.3g}, K4 {stats['K4']['err']:.3g}, each <= {CORR_RTOL} x "
+          f"max |plain| (K3, K4 also vs the plain cost volume's autograd; err / max |plain|: "
+          f"{'; '.join(notes)})", flush=True)
+    return stats
 
 
 def main() -> int:
@@ -400,11 +546,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
-        from xpt_mde_tpu_torch.config import AUGMENT_PROBS, RIGID_NET, SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, NUM_SRC, RIGID_NET,
+                                              SCALE_WEIGHT_T1)
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
+        from xpt_mde_tpu_torch.ops.kernels import correlation as corr_kernels
         from xpt_mde_tpu_torch.ops.kernels import warp as kernels
+        from xpt_mde_tpu_torch.tools.profile_steps import profile_step
         from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
                                                 make_predict_step, make_train_step,
                                                 optimizer_factory)
@@ -414,6 +563,16 @@ def main() -> int:
         return 1
 
     K1, K1_BWD = kernels.K1, kernels.K1_BWD
+    K2, K3, K4 = corr_kernels.K2, corr_kernels.K3, corr_kernels.K4
+    all_kernels = {"K1": K1, "K1-bwd": K1_BWD, "K2": K2, "K3": K3, "K4": K4}
+
+    def zero_counts():
+        for kernel in all_kernels.values():
+            kernel.launches = 0
+
+    def counts():
+        return {name: kernel.launches for name, kernel in all_kernels.items()}
+
     device = torch.device("cuda", 0)
     phase = "device"
     # full float32 (TF32 off for cuBLAS and cuDNN) in every phase, so the
@@ -429,12 +588,18 @@ def main() -> int:
                   flush=True)
             phase = "build"
             t0 = time.perf_counter()
-            K1.build()
-            K1_BWD.build()
-            ptxas = [ln.strip() for ln in K1.build_log.splitlines()
+            # one nvcc per source, started together; the other entries of
+            # each library then load the built file
+            with ThreadPoolExecutor(2) as pool:
+                for future in [pool.submit(K1.build), pool.submit(K2.build)]:
+                    future.result()
+            for kernel in (K1_BWD, K3, K4):
+                kernel.build()
+            ptxas = [ln.strip() for log in (K1.build_log, K2.build_log)
+                     for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-            print(f"phase 1 build: K1 and K1-bwd built in {time.perf_counter() - t0:.1f} s; "
-                  f"ptxas: {' | '.join(ptxas)}", flush=True)
+            print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 built in "
+                  f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
 
             keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
             dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
@@ -459,7 +624,7 @@ def main() -> int:
             eval_step = make_eval_step(model, total_loss)
             gpu_batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
                            for b in batches]
-            K1.launches = K1_BWD.launches = 0
+            zero_counts()
             for features in gpu_batches:
                 preds = predict_step(features)
                 for i in range(len(SCALES)):
@@ -490,12 +655,12 @@ def main() -> int:
                 if not all(np.isfinite(v) for v in values.values()):
                     raise AssertionError(f"non-finite eval metrics {values}")
                 gpu_metrics.append(values)
-            eval_launches = (K1.launches, K1_BWD.launches)
-            if eval_launches != (len(SCALES) * NUM_BATCHES, 0):
-                raise AssertionError(f"predict + eval launched (K1, K1-bwd) {eval_launches}")
+            eval_counts = counts()
+            if eval_counts != dict.fromkeys(all_kernels, 0) | {"K1": len(SCALES) * NUM_BATCHES}:
+                raise AssertionError(f"predict + eval launched {eval_counts}")
             losses0 = {k: v for k, v in gpu_metrics[0].items() if k.startswith("loss")}
-            print(f"phase 4 eval: {NUM_BATCHES} steps, K1 launches {eval_launches[0]}, "
-                  f"K1-bwd launches {eval_launches[1]}, batch 0 {json.dumps(losses0)}",
+            print(f"phase 4 eval: {NUM_BATCHES} steps, K1 launches {eval_counts['K1']}, "
+                  f"K1-bwd launches {eval_counts['K1-bwd']}, batch 0 {json.dumps(losses0)}",
                   flush=True)
 
             # 5. the same eval step on the CPU: the plain warp and CPU convs
@@ -508,7 +673,7 @@ def main() -> int:
                   f"(rtol, atol) {json.dumps(LOSS_TOL)} (rel diff {json.dumps(rel)}); CPU "
                   f"{json.dumps({k: float(cpu_metrics[k]) for k in LOSS_TOL})}", flush=True)
 
-            # 6. train: the slice's main path, its counts read from zero
+            # 6. train: the rigid train path, its counts read from zero
             phase = "train"
             model.load_state_dict(init_state)
             optimizer = optimizer_factory("adam_constant", LR, model)
@@ -518,7 +683,7 @@ def main() -> int:
             # the loaders ship uint8 snippets; the step decodes them
             train_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5)
                                   .to(torch.uint8)) for b in gpu_batches]
-            K1.launches = K1_BWD.launches = 0
+            zero_counts()
             train_losses = []
             for i in range(TRAIN_STEPS):
                 metrics = train_step(train_batches[i % NUM_BATCHES], generator)
@@ -526,10 +691,10 @@ def main() -> int:
                 if not all(np.isfinite(v) for v in values.values()):
                     raise AssertionError(f"non-finite train metrics at step {i}: {values}")
                 train_losses.append(values["loss"])
-            train_launches = (K1.launches, K1_BWD.launches)
-            if train_launches != (len(SCALES) * TRAIN_STEPS,) * 2:
-                raise AssertionError(f"{TRAIN_STEPS} train steps launched (K1, K1-bwd) "
-                                     f"{train_launches}")
+            train_counts = counts()
+            if train_counts != dict.fromkeys(all_kernels, 0) | dict.fromkeys(
+                    ("K1", "K1-bwd"), len(SCALES) * TRAIN_STEPS):
+                raise AssertionError(f"{TRAIN_STEPS} train steps launched {train_counts}")
             state = model.state_dict()
             for suffix in ("weight", "running_mean", "running_var"):
                 names = [k for k in state if k.endswith(suffix)]
@@ -537,22 +702,100 @@ def main() -> int:
                 if moved != len(names):
                     raise AssertionError(f"{len(names) - moved} of {len(names)} *.{suffix} "
                                          f"tensors did not change in training")
-            print(f"phase 6 train: {TRAIN_STEPS} steps, K1 launches {train_launches[0]}, "
-                  f"K1-bwd launches {train_launches[1]}, losses "
+            print(f"phase 6 train: {TRAIN_STEPS} steps, K1 launches {train_counts['K1']}, "
+                  f"K1-bwd launches {train_counts['K1-bwd']}, losses "
                   f"{json.dumps([round(v, 6) for v in train_losses])}, every weight and BN "
                   f"statistic moved", flush=True)
 
             # 7. one train step on the card and on the CPU
             phase = "train cross-check"
-            _train_cross_check(keys, batches[0], device, make_loss)
+            _train_cross_check(7, "train", RIGID_NET, keys,
+                               {k: torch.from_numpy(v[:CHECK_BATCH])
+                                for k, v in batches[0].items()},
+                               device, make_loss(CHECK_BATCH), _set_pose_twist,
+                               ("depth_ms", "pose"), LOSS_TOL)
 
-            # 8. step timings and peak memory
+            # 8. the correlation kernels against their plain versions
+            phase = "correlation kernels vs plain"
+            cstats = _corr_phase(device, tag)
+
+            # 9. flow predict: its counts read from zero
+            phase = "flow predict"
+            flow_model = ModelFactory(keys, FLOW_NET, stereo=False, device=device,
+                                      seed=0).get_model()
+            flow_init = copy.deepcopy(flow_model.state_dict())
+
+            def make_flow_loss(batch_size):
+                return loss_factory(keys, FLOW_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                    batch_size=batch_size)
+
+            flow_predict = make_predict_step(flow_model)
+            per_forward = dict.fromkeys(all_kernels, 0) | {"K2": 5}
+            zero_counts()
+            for features in gpu_batches:
+                before = counts()
+                flow_ms = flow_predict(features)["flow_ms"]
+                delta = {k: v - before[k] for k, v in counts().items()}
+                if delta != per_forward:
+                    raise AssertionError(f"a flow forward launched {delta}, want {per_forward}")
+                for i, flow in enumerate(flow_ms):
+                    want = (BATCH, NUM_SRC, HEIGHT >> (i + 2), WIDTH >> (i + 2), 2)
+                    if tuple(flow.shape) != want or not bool(torch.isfinite(flow).all()):
+                        raise AssertionError(f"flow_ms[{i}] {tuple(flow.shape)} (want {want}) "
+                                             f"bad or not finite")
+            flow_predict_counts = counts()
+            print(f"phase 9 flow predict: {NUM_BATCHES} batches, flow_ms "
+                  f"{[tuple(f.shape) for f in flow_ms]}, all finite, launches "
+                  f"{json.dumps(flow_predict_counts)}", flush=True)
+
+            # 10. flow train: the flow stage's train path, its counts read from zero
+            phase = "flow train"
+            flow_optimizer = optimizer_factory("adam_constant", LR, flow_model)
+            flow_train = make_train_step(flow_model, make_flow_loss(BATCH), flow_optimizer,
+                                         regularize_net="flownet")
+            per_step = {"K1": 4, "K1-bwd": 4, "K2": 5, "K3": 5, "K4": 5}
+            zero_counts()
+            flow_losses = []
+            for i in range(FLOW_TRAIN_STEPS):
+                before = counts()
+                metrics = flow_train(train_batches[i % NUM_BATCHES])
+                delta = {k: v - before[k] for k, v in counts().items()}
+                if delta != per_step:
+                    raise AssertionError(f"flow train step {i} launched {delta}, "
+                                         f"want {per_step}")
+                values = {k: float(v) for k, v in metrics.items()}
+                if not all(np.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"non-finite flow train metrics at step {i}: {values}")
+                flow_losses.append({k: round(v, 6) for k, v in values.items()})
+            flow_train_counts = counts()
+            state = flow_model.state_dict()
+            moved = sum(not torch.equal(state[k], flow_init[k]) for k in state)
+            if moved != len(state):
+                raise AssertionError(f"{len(state) - moved} of {len(state)} flownet tensors "
+                                     f"did not change in training")
+            print(f"phase 10 flow train: {FLOW_TRAIN_STEPS} steps, launches "
+                  f"{json.dumps(flow_train_counts)} ({json.dumps(per_step)} per step), every "
+                  f"weight moved, metrics {json.dumps(flow_losses)}", flush=True)
+
+            # 11. one flow train step on the card and on the CPU
+            phase = "flow train cross-check"
+            _train_cross_check(11, "flow train", FLOW_NET, keys,
+                               {k: torch.from_numpy(v[:FLOW_CHECK_BATCH])
+                                for k, v in batches[0].items()},
+                               device, make_flow_loss(FLOW_CHECK_BATCH), _set_flow_heads,
+                               ("flow_ms",), FLOW_LOSS_TOL, {"regularize_net": "flownet"})
+
+            # 12. step timings and peak memory
             phase = "timings"
             rounds, steps = 5, 10  # the steps are host-bound: report the spread
-            for label, step, step_batches in (("predict", predict_step, gpu_batches),
-                                              ("eval", eval_step, gpu_batches),
-                                              ("train", lambda f: train_step(f, generator),
-                                               train_batches)):
+            for label, step, step_batches, net, opt, opt_model in (
+                    ("predict", predict_step, gpu_batches, "B5", None, None),
+                    ("eval", eval_step, gpu_batches, "B5", None, None),
+                    ("train", lambda f: train_step(f, generator), train_batches, "B5",
+                     optimizer, model),
+                    ("flow predict", flow_predict, gpu_batches, "PWCNet", None, None),
+                    ("flow train", flow_train, train_batches, "PWCNet", flow_optimizer,
+                     flow_model)):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(device)
                 step(step_batches[0])
@@ -567,33 +810,50 @@ def main() -> int:
                 rates.sort()
                 median = rates[rounds // 2]
                 peak = torch.cuda.max_memory_allocated(device)
-                if label == "train":  # the optimizer alone, on the last gradients
-                    n_params = sum(p.numel() for p in model.parameters())
-                    print(f"timing Adam step alone: {_event_ms(optimizer.step, iters=10):.4f} "
+                if opt is not None:  # the optimizer alone, on the last gradients
+                    n_params = sum(p.numel() for p in opt_model.parameters())
+                    print(f"timing {label} Adam step alone: {_event_ms(opt.step, iters=10):.4f} "
                           f"ms per call (eager, CUDA events) over {n_params} parameters in "
-                          f"{len(list(model.parameters()))} tensors {tag}", flush=True)
-                print(f"timing {label} B5 batch {BATCH} {HEIGHT}x{WIDTH} f32: median "
+                          f"{len(list(opt_model.parameters()))} tensors {tag}", flush=True)
+                print(f"timing {label} {net} batch {BATCH} {HEIGHT}x{WIDTH} f32: median "
                       f"{median:.2f} images/s ({1000 * BATCH / median:.2f} ms/step), "
                       f"min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
                       f"{steps} steps; max_memory_allocated {peak / 2**30:.3f} GiB {tag}",
                       flush=True)
+            for line in profile_step("flow-train (PWCNet)", flow_train, train_batches):
+                print(f"profile {line} {tag}", flush=True)
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
-            # summed over the four scales; launches: the train path's
+            # summed over the scales or levels; launches: the train path's
             report = []
-            for i, (kname, full_name, replaces) in enumerate((
+            for kname, full_name, replaces in (
                     ("K1", "K1 warp_const_src_fwd", kernels.REPLACES),
-                    ("K1-bwd", "K1-bwd warp_const_src_bwd", kernels.REPLACES_BWD))):
+                    ("K1-bwd", "K1-bwd warp_const_src_bwd", kernels.REPLACES_BWD)):
                 s = kstats[kname]
                 report.append({
                     "name": full_name, "route": "cuda", "source": kernels.SOURCE,
-                    "replaces": replaces, "launches": train_launches[i],
-                    "launches_by_path": {"predict+eval": eval_launches[i],
-                                         "train": train_launches[i]},
+                    "replaces": replaces, "launches": train_counts[kname],
+                    "launches_by_path": {"predict+eval": eval_counts[kname],
+                                         "train": train_counts[kname],
+                                         "flow train": flow_train_counts[kname]},
                     "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
                     "library_ms": s["library_ms"]})
+            for kname, full_name in (("K2", "K2 corr_fwd"), ("K3", "K3 corr_bwd_cl"),
+                                     ("K4", "K4 corr_bwd_cr")):
+                s = cstats[kname]
+                report.append({
+                    "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
+                    "replaces": corr_kernels.REPLACES[kname],
+                    "launches": flow_train_counts[kname],
+                    "launches_by_path": {"flow predict": flow_predict_counts[kname],
+                                         "flow train": flow_train_counts[kname]},
+                    "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                    "bound_ms": s["bound_ms"],
+                    "bound_by": _bound(s["bytes"], s["flops"])[1],
+                    "library_ms": None,
+                    "library": "none: no single PyTorch call computes the cost volume"})
             print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result

@@ -10,14 +10,19 @@ import pytest
 
 from xpt_mde_tpu import config as jconfig
 from xpt_mde_tpu.data import SyntheticDataset as JSyntheticDataset
+from xpt_mde_tpu.models import flow_net as j_flow_net
 from xpt_mde_tpu_torch import config
 from xpt_mde_tpu_torch.data import SyntheticDataset
 
 
 @pytest.mark.parametrize("name", ["SNIPPET_LEN", "NUM_SRC", "SCALE_WEIGHT_T1",
-                                  "SCALE_WEIGHT_T2", "RIGID_NET"])
+                                  "SCALE_WEIGHT_T2", "RIGID_NET", "FLOW_NET", "LOSS_FLOW"])
 def test_config_constant_matches_jax(name):
     assert getattr(config, name) == getattr(jconfig, name)
+
+
+def test_max_displacement_matches_jax():
+    assert config.MAX_DISPLACEMENT == j_flow_net.MAX_DISPLACEMENT
 
 
 @pytest.mark.parametrize("options", [

@@ -1,5 +1,7 @@
-"""Kernels K1 and K1-bwd (``ops/kernels/warp.py`` + ``csrc/warp.cu``)
-against their plain PyTorch versions, and the launches of a train step.
+"""Kernels K1 and K1-bwd (``ops/kernels/warp.py`` + ``csrc/warp.cu``) and
+K2, K3 and K4 (``ops/kernels/correlation.py`` + ``csrc/correlation.cu``)
+against their plain PyTorch versions, and the launches of the rigid and
+flow train steps.
 
 This file imports torch and numpy only, so it also runs on a GPU machine
 without JAX. Tests marked ``gpu`` need a CUDA card and skip without one;
@@ -8,25 +10,32 @@ run them there with
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest -q
 
 (``--noconftest``: the suite's conftest.py configures JAX). Tolerance
-1e-5 absolute: each kernel and its plain version form the same float32
-products; only FMA contraction differs, a few ulp of values in [-1, 1]
-(K1) or of |du|, |dv| <= 6 (K1-bwd: 3 channels, |g| <= 1, |D| <= 2).
+1e-5 absolute for K1 and K1-bwd: each kernel and its plain version form
+the same float32 products; only FMA contraction differs, a few ulp of
+values in [-1, 1] (K1) or of |du|, |dv| <= 6 (K1-bwd: 3 channels,
+|g| <= 1, |D| <= 2). K2, K3 and K4: 1e-5 of the largest plain value, as
+they sum the same products in another order over up to 196 channels or
+81 displacements.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
+from xpt_mde_tpu_torch.config import FLOW_NET, SCALE_WEIGHT_T1
 from xpt_mde_tpu_torch.data import SyntheticDataset
 from xpt_mde_tpu_torch.losses import loss_factory
 from xpt_mde_tpu_torch.losses.photometric import photometric_loss_ssim
 from xpt_mde_tpu_torch.models import ModelFactory
+from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+from xpt_mde_tpu_torch.ops import correlation as corr
 from xpt_mde_tpu_torch.ops.kernels import build
+from xpt_mde_tpu_torch.ops.kernels import correlation as kcorr
 from xpt_mde_tpu_torch.ops.kernels import warp as k1
 from xpt_mde_tpu_torch.ops.warp import (bilinear_sample, bilinear_sample_plain,
                                         warp_coord_grad_plain)
-from xpt_mde_tpu_torch.training import make_eval_step, make_train_step, optimizer_factory
+from xpt_mde_tpu_torch.training import (make_eval_step, make_predict_step, make_train_step,
+                                        optimizer_factory)
 from xpt_mde_tpu_torch.utils.precision import full_f32
 
 HEADLINE = [(128, 512), (64, 256), (32, 128), (16, 64)]
@@ -35,7 +44,7 @@ HEADLINE = [(128, 512), (64, 256), (32, 128), (16, 64)]
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     with full_f32():
         yield torch.device("cuda")
 
@@ -145,8 +154,9 @@ def test_cuda_routing_and_refusals(cuda):
     ref = warp_coord_grad_plain(image.detach(), coords, mask.detach(), torch.ones_like(got))
     torch.testing.assert_close(leaf.grad, ref, atol=1e-5, rtol=0)
     image, mask = image.detach(), mask.detach()
-    with pytest.raises(NotImplementedError):
-        bilinear_sample(image, coords, mask)  # the image-differentiable warp
+    # the image-differentiable warp is plain gathers, no kernel
+    torch.testing.assert_close(bilinear_sample(image, coords, mask),
+                               bilinear_sample_plain(image, coords, mask), atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="WarpConstSrc"):
         k1.K1(image, coords.clone().requires_grad_(True), mask)
     with pytest.raises(ValueError, match="float32"):
@@ -194,3 +204,92 @@ def test_ssim_gradient_on_the_card_matches_the_cpu(cuda):
         grads.append(s.grad.cpu())
     # float32 sums in another order
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-4)
+
+
+def _corr_counts():
+    return (kcorr.K2.launches, kcorr.K3.launches, kcorr.K4.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_correlation_kernels_match_plain_at_pwc_levels(cuda, level):
+    """The flow stage's shapes: 32 pairs at 128x512 inputs, C and (md,
+    stride) of each level; K3 and K4 also against the plain autograd."""
+    md, stride = level_displacement(level)
+    shape = (32, ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level)
+    generator = torch.Generator().manual_seed(level)
+    cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1).to(cuda) for _ in range(2))
+    n2 = corr.correlation_channels(md, stride)
+    g = (torch.rand((32, n2) + shape[2:], generator=generator) * 2 - 1).to(cuda)
+    before = _corr_counts()
+    got = [kcorr.K2(cl, cr, md, stride), kcorr.K3(g, cr, md, stride), kcorr.K4(g, cl, md, stride)]
+    assert _corr_counts() == tuple(c + 1 for c in before)
+    ref = [corr.correlation_cost_plain(cl, cr, md, stride),
+           corr.correlation_grad_cl_plain(g, cr, md, stride),
+           corr.correlation_grad_cr_plain(g, cl, md, stride)]
+    leaves = [cl.clone().requires_grad_(True), cr.clone().requires_grad_(True)]
+    autograd = torch.autograd.grad(corr.correlation_cost_plain(*leaves, md, stride), leaves, g)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("K2", "K3", "K4"), got, ref):
+        assert tuple(x.shape) == tuple(r.shape)
+        assert float((x - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+    for name, x, r in zip(("K3", "K4"), got[1:], autograd):
+        assert float((x - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_correlation_routing_and_refusals(cuda):
+    rng = np.random.RandomState(5)
+    cl, cr = (torch.from_numpy(rng.uniform(-1, 1, (2, 8, 6, 10)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    before = _corr_counts()
+    out = corr.correlation_cost(cl, cr, 4, 2)
+    torch.testing.assert_close(out, corr.correlation_cost_plain(cl, cr, 4, 2), atol=1e-6, rtol=0)
+    # differentiable: K2 forward, then K3 and K4 only for the inputs that need them
+    a, b = cl.clone().requires_grad_(True), cr.clone().requires_grad_(True)
+    corr.correlation_cost(a, b, 4, 2).sum().backward()
+    corr.correlation_cost(cl, b, 4, 2).sum().backward()
+    assert _corr_counts() == (before[0] + 3, before[1] + 1, before[2] + 2)
+    g = torch.ones_like(out)
+    torch.testing.assert_close(a.grad, corr.correlation_grad_cl_plain(g, cr, 4, 2),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(b.grad, 2 * corr.correlation_grad_cr_plain(g, cl, 4, 2),
+                               atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="Correlation"):
+        kcorr.K2(a, cr, 4, 2)
+    with pytest.raises(ValueError, match="float32"):
+        kcorr.K2(cl.double(), cr.double(), 4, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kcorr.K2(cl.transpose(2, 3).contiguous().transpose(2, 3), cr, 4, 2)
+    with pytest.raises(ValueError, match="grad_out"):
+        kcorr.K4(g[:, :5], cl, 4, 2)
+    assert _corr_counts() == (before[0] + 3, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.gpu
+def test_cuda_flow_steps_launch_every_kernel(cuda):
+    """PWC-Net at 64x128, batch 2: a forward launches K2 at the 5 levels
+    and nothing else; a flow train step K2, K3 and K4 5 times each and
+    K1 and K1-bwd 4 times each (the flowL2 warps)."""
+    dataset = SyntheticDataset(batch_size=2, height=64, width=128, num_batches=1, seed=0)
+    keys = dataset.config_keys()
+    model = ModelFactory(keys, FLOW_NET, stereo=False, device=cuda).get_model()
+    loss = loss_factory(keys, {"flowL2": 1.0, "flow_reg": 4e-7}, SCALE_WEIGHT_T1,
+                        stereo=False, batch_size=2)
+    features = {k: torch.from_numpy(v).to(cuda) for k, v in next(iter(dataset)).items()}
+
+    def counts():
+        return (k1.K1.launches, k1.K1_BWD.launches) + _corr_counts()
+
+    before = counts()
+    preds = make_predict_step(model)(features)
+    assert [tuple(f.shape) for f in preds["flow_ms"]] == [
+        (2, 4, 64 >> s, 128 >> s, 2) for s in (2, 3, 4, 5)]
+    assert counts() == (before[0], before[1], before[2] + 5, before[3], before[4])
+    step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                           regularize_net="flownet")
+    before = counts()
+    metrics = step(features)
+    assert counts() == tuple(c + n for c, n in zip(before, (4, 4, 5, 5, 5)))
+    assert set(metrics) == {"loss", "loss/flowL2", "loss/flow_reg"}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

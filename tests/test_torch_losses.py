@@ -127,7 +127,7 @@ def test_factory_drops_like_jax_and_raises_on_unported():
     got = ttotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     ref = jtotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     assert list(got.loss_weights.items()) == list(ref.loss_weights.items())
-    for name in ("cmbL1", "md2SSIM", "flowL2"):
+    for name in ("cmbL1", "md2SSIM", "md2cmbL1"):
         with pytest.raises(NotImplementedError, match=name):
             ttotal.loss_factory(mono, {name: 1.0}, SCALE_WEIGHT_T1)
     stereo_keys = mono + ["image_R", "intrinsic_R"]

@@ -211,7 +211,7 @@ def test_factory_seeds_device_and_unported():
     with pytest.raises(NotImplementedError, match="float32 only"):
         ModelFactory(KEYS, RIGID_B0, compute_dtype="bfloat16")
     for nets in ({"depth": "DepthNetBasic"}, {"camera": "PoseNetBasic"},
-                 {"depth": "ResNet50V2"}, {"flow": "PWCNet"}):
+                 {"depth": "ResNet50V2"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model()
     with pytest.raises(NotImplementedError, match="stereo"):

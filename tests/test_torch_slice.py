@@ -135,9 +135,10 @@ def test_metrics_match_jax():
 
 def test_port_runs_with_jax_blocked():
     """The port must not need JAX: import every module of the port and
-    chip_smoke, then run the slice (predict, eval and an augmented train
-    step) at a tiny size, with jax/flax/optax and the JAX package itself
-    made unimportable."""
+    chip_smoke, then run the rigid slice (predict, eval and an augmented
+    train step) and the flow slice (predict and a regularized train step)
+    at a tiny size, with jax/flax/optax and the JAX package itself made
+    unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
@@ -147,7 +148,7 @@ def test_port_runs_with_jax_blocked():
         for info in pkgutil.walk_packages(xpt_mde_tpu_torch.__path__, "xpt_mde_tpu_torch."):
             importlib.import_module(info.name)
         import torch
-        from xpt_mde_tpu_torch.config import AUGMENT_PROBS, SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, SCALE_WEIGHT_T1
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
@@ -172,6 +173,20 @@ def test_port_runs_with_jax_blocked():
         metrics = step(feats, torch.Generator().manual_seed(0))
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
         assert not torch.equal(weight, model.posenet.Conv_0.Conv_0.weight)
+        flow_ds = SyntheticDataset(batch_size=1, height=64, width=128, num_batches=1)
+        flow_feats = {k: torch.from_numpy(v) for k, v in next(iter(flow_ds)).items()}
+        flow_model = ModelFactory(keys, FLOW_NET, stereo=False, device="cpu").get_model()
+        flow_ms = make_predict_step(flow_model)(flow_feats)["flow_ms"]
+        assert [tuple(f.shape) for f in flow_ms] == [
+            (1, 4, 64 >> s, 128 >> s, 2) for s in (2, 3, 4, 5)]
+        flow_loss = loss_factory(keys, {"flowL2": 1.0, "flow_reg": 4e-7}, SCALE_WEIGHT_T1,
+                                 stereo=False, batch_size=1)
+        flow_step = make_train_step(flow_model, flow_loss,
+                                    optimizer_factory("adam_constant", 1e-4, flow_model),
+                                    regularize_net="flownet")
+        metrics = flow_step(flow_feats)
+        assert set(metrics) == {"loss", "loss/flowL2", "loss/flow_reg"}
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
         assert all(sys.modules.get(m) is None
                    for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
         print("JAX-FREE OK")

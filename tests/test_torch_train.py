@@ -493,8 +493,8 @@ def test_train_step_frozen_net_and_guards():
     assert all(p.requires_grad for p in model.posenet.parameters())
     assert all(p.grad is None for p in model.posenet.parameters())
 
-    with pytest.raises(NotImplementedError, match="Flow slice"):
-        make_train_step(model, loss, optimizer, regularize_net="flownet")
+    # a regularized net the model lacks adds nothing, as in JAX
+    make_train_step(model, loss, optimizer, regularize_net="flownet")
     with pytest.raises(NotImplementedError, match="Breadth"):
         make_train_step(model, loss, optimizer, grad_accum_steps=2)
 

@@ -86,7 +86,8 @@ def test_plain_warp_homogeneous_coords_and_cpu_routing():
                               jnp.asarray(mask)))
     args = (torch.from_numpy(image), torch.from_numpy(coords3), torch.from_numpy(mask))
     before = k1.K1.launches
-    # CPU tensors: every entry point takes the plain version, K1 is not launched
+    # CPU tensors: the const-source warp takes the plain version, the
+    # image-differentiable one the patch gather; K1 is not launched
     for got in (bilinear_sample_plain(*args),
                 bilinear_sample(*args, const_src=True),
                 bilinear_sample(*args)):

@@ -12,10 +12,13 @@ like): snippets ``[B, S, H, W, C]``, pixel coordinates ``[B, N, 2, H*W]``,
 NHWC tensors in the prediction dict. NCHW exists only inside the conv
 modules.
 
-Ported so far: the rigid stage's predict and eval steps (EfficientNet
-depth net + PoseNetImproved, L1/SSIM/smoothness losses), with the view
-synthesis warp running as the hand-written CUDA kernel K1
-(``ops/kernels/warp.py`` + ``csrc/warp.cu``) on the card.
+Ported so far: the rigid stage's predict, eval and train steps
+(EfficientNet depth net + PoseNetImproved, L1/SSIM/smoothness losses) and
+the flow stage's predict and train steps (PWC-Net, flowL2 + flow_reg).
+On the card the view-synthesis and flow warps run as the hand-written
+CUDA kernels K1 and K1-bwd (``ops/kernels/warp.py`` + ``csrc/warp.cu``)
+and PWC-Net's cost volume as K2, with K3 and K4 for its gradient
+(``ops/kernels/correlation.py`` + ``csrc/correlation.cu``).
 """
 
 __version__ = "0.1.0"

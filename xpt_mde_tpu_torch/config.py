@@ -14,6 +14,12 @@ SCALE_WEIGHT_T2 = tuple(w * 4.0 for w in (0.1, 0.2, 0.3, 0.4))
 
 # the rigid stage's nets (depth + camera of the reference's JOINT_NET)
 RIGID_NET = {"depth": "EfficientNetB5", "camera": "PoseNetImproved"}
+# the flow pre-training stage's net and loss recipe
+FLOW_NET = {"flow": "PWCNet"}
+LOSS_FLOW = {"flowL2": 1.0, "flowL2_R": 1.0, "flow_reg": 4e-7}
+
+# PWC-Net's largest displacement, at stride 1 (level p searches 128 / 2^p)
+MAX_DISPLACEMENT = 128
 
 # the default augmentation probabilities (the reference's
 # ``Config.augment_probs``)

@@ -7,6 +7,10 @@ modules carry the same names, so each leaf maps by its path:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW (a depthwise [kh, kw, 1, C]
   kernel becomes [C, 1, kh, kw] by the same transpose);
+- transpose-conv (``ConvTranspose_*``) ``kernel`` HWIO -> ``weight``
+  [in, out, kh, kw] with both spatial axes flipped: flax correlates the
+  dilated input with the kernel as it is, ``conv_transpose2d`` flips it
+  (``models/layers.py::ConvTranspose``);
 - conv / BatchNorm ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``;
 - BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
 - EfficientNet ``input_mean`` / ``input_var`` -> the buffers of that name.
@@ -49,7 +53,10 @@ def _map_leaf(collection: str, path: tuple[str, ...],
         if value.ndim != 4:
             raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel, "
                              f"got shape {value.shape}")
-        value = value.transpose(3, 2, 0, 1)
+        if modules and modules[-1].startswith("ConvTranspose"):
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            value = value.transpose(3, 2, 0, 1)
     return ".".join(modules + [names[name]]), value
 
 

@@ -31,6 +31,15 @@ def photometric_loss_l1(synth_target: torch.Tensor, orig_target: torch.Tensor,
     return err
 
 
+def photometric_loss_l2(synth_target: torch.Tensor, orig_target: torch.Tensor,
+                        reduce: bool = True) -> torch.Tensor:
+    err = torch.square(synth_target - orig_target[:, None])
+    err = torch.where(_error_mask(synth_target), torch.zeros_like(err), err)
+    if reduce:
+        return torch.mean(err, dim=(1, 2, 3, 4))
+    return err
+
+
 def avg_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     """3x3 mean over the (H, W) axes of [..., H, W, C], SAME padding,
     padded positions excluded (interior pixels average 9, corners 4)."""
@@ -67,5 +76,6 @@ def photometric_loss_ssim(synth_target: torch.Tensor, orig_target: torch.Tensor,
 
 PHOTOMETRIC_FNS = {
     "L1": photometric_loss_l1,
+    "L2": photometric_loss_l2,
     "SSIM": photometric_loss_ssim,
 }

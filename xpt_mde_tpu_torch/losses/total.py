@@ -1,4 +1,4 @@
-"""Loss orchestration for the rigid stage (port of part of
+"""Loss orchestration for the rigid and flow stages (port of part of
 ``xpt_mde_tpu.losses.total``).
 
 Contracts kept:
@@ -6,12 +6,13 @@ Contracts kept:
 - multi-scale losses combine per-scale batch losses by a scale-weight
   vector;
 - ``TotalLoss`` builds the shared data (source/target split, target
-  pyramid, synthesized views) once, then sums each loss over the GLOBAL
-  batch, divides by it and weights it by the recipe;
+  pyramids, synthesized and flow-warped views) once, then sums each loss
+  over the GLOBAL batch, divides by it and weights it by the recipe;
 - the factory drops losses whose required features the dataset lacks.
 
-Ported: ``L1``, ``SSIM`` and ``smoothe``. A recipe that keeps any other
-loss raises, naming it; nothing is dropped silently.
+Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2`` and ``flow_reg``. A
+recipe that keeps any other loss raises, naming it; nothing is dropped
+silently.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
+from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
 from xpt_mde_tpu_torch.utils.image import multi_scale_like
 
@@ -89,6 +91,36 @@ class SmoothenessLossMultiScale:
         return sx + sy
 
 
+class FlowWarpLossMultiScale:
+    """Photometric loss of the flow-warped sources against the scaled
+    target."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        flow_target_ms = augm_data["flow_target_ms" + self.sfx]
+        warped_ms = augm_data["warped_target_ms" + self.sfx]
+        losses = [self.photo(w, t) for w, t in zip(warped_ms, flow_target_ms)]
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
+class L2Regularizer:
+    """0.5 * sum(w^2) over the tensors in ``predictions["regularize_weights"]``
+    (the train step puts a net's parameters there, kernels and biases),
+    the same value for every sample; zeros without it."""
+
+    def __call__(self, features, predictions, augm_data):
+        weights = predictions.get("regularize_weights")
+        image5d = features["image5d"]
+        if weights is None:
+            return torch.zeros(image5d.shape[0], dtype=image5d.dtype, device=image5d.device)
+        loss = sum(0.5 * torch.sum(torch.square(w)) for w in weights)
+        return loss.expand(image5d.shape[0])
+
+
 class TotalLoss:
     """Weighted sum of registered losses over shared augmented data."""
 
@@ -128,6 +160,10 @@ class TotalLoss:
             augm["synth_target_ms" + suffix] = synthesize_multi_scale(
                 source, features["intrinsic" + suffix], depth_ms,
                 predictions["pose" + suffix])
+        if "flow_ms" + suffix in predictions:
+            flow_ms = predictions["flow_ms" + suffix]
+            augm["flow_target_ms" + suffix] = multi_scale_like(target, flow_ms)
+            augm["warped_target_ms" + suffix] = flow_warp_multi_scale(source, flow_ms)
         return augm
 
 
@@ -175,6 +211,8 @@ def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
         "SSIM": PhotometricLossMultiScale("SSIM", scale_weights),
         "smoothe": SmoothenessLossMultiScale(scale_weights, "",
                                              image_gradient_factor),
+        "flowL2": FlowWarpLossMultiScale("L2", scale_weights),
+        "flow_reg": L2Regularizer(),
     }
     losses, weights = {}, {}
     for name, weight in loss_weights.items():

@@ -2,8 +2,8 @@
 
 ``VodeModel(features)`` runs each sub-net on ``image5d`` and merges their
 prediction dicts, deriving ``disp_ms = 1 / depth_ms``. Ported so far: the
-monocular rigid nets, i.e. an EfficientNet ``DepthNetPretrained`` and
-``PoseNetImproved``, in float32. Any other net, stereo and bfloat16 raise,
+monocular nets an EfficientNet ``DepthNetPretrained``, ``PoseNetImproved``
+and ``PWCNet``, in float32. Any other net, stereo and bfloat16 raise,
 naming the ROADMAP item that adds them.
 
 Weights are drawn from an explicit ``torch.Generator`` on the CPU (the
@@ -25,18 +25,21 @@ from xpt_mde_tpu_torch.models import depth_net as dn
 from xpt_mde_tpu_torch.models import pose_net as pn
 from xpt_mde_tpu_torch.models.backbones import backbone_factory
 from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
-from xpt_mde_tpu_torch.models.layers import Conv2dSame, activation_factory
+from xpt_mde_tpu_torch.models.flow_net import PWCNet
+from xpt_mde_tpu_torch.models.layers import Conv2dSame, ConvTranspose, activation_factory
 from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
 
 
 class VodeModel(nn.Module):
-    """Composite {depthnet, posenet} model (monocular)."""
+    """Composite {depthnet, posenet, flownet} model (monocular)."""
 
     def __init__(self, depthnet: nn.Module | None = None,
-                 posenet: nn.Module | None = None):
+                 posenet: nn.Module | None = None,
+                 flownet: nn.Module | None = None):
         super().__init__()
         self.depthnet = depthnet
         self.posenet = posenet
+        self.flownet = flownet
 
     def forward(self, features: Mapping[str, torch.Tensor]) -> dict:
         return self.predict_batch(features, "")
@@ -48,6 +51,8 @@ class VodeModel(nn.Module):
             preds.update(self.depthnet(image5d))
         if self.posenet is not None:
             preds.update(self.posenet(image5d))
+        if self.flownet is not None:
+            preds.update(self.flownet(image5d))
         if "depth_ms" in preds:
             preds["disp_ms"] = safe_reciprocal_ms(preds["depth_ms"])
         return {key + suffix: value for key, value in preds.items()}
@@ -59,7 +64,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     normal or lecun normal convs, zero biases, identity BatchNorm and
     input normalization)."""
     for module in model.modules():
-        if isinstance(module, Conv2dSame):
+        if isinstance(module, (Conv2dSame, ConvTranspose)):
             module.init_weights(generator)
         elif isinstance(module, nn.BatchNorm2d):
             nn.init.ones_(module.weight)
@@ -93,10 +98,9 @@ class ModelFactory:
         self.seed = seed
 
     def get_model(self) -> VodeModel:
-        unported = set(self.net_names) - {"depth", "camera"}
+        unported = set(self.net_names) - {"depth", "camera", "flow"}
         if unported:
-            raise NotImplementedError(
-                f"nets {sorted(unported)} are not ported yet (ROADMAP: 'Flow slice')")
+            raise NotImplementedError(f"nets {sorted(unported)} are not ported yet")
         if "stereo_T_LR" in self.dataset_keys or (
                 "image_R" in self.dataset_keys and self.stereo):
             raise NotImplementedError(
@@ -105,12 +109,14 @@ class ModelFactory:
             raise RuntimeError("no CUDA device: the model is built on the card "
                                "unless the caller passes device='cpu'")
         with torch.device("meta"):
-            depthnet = posenet = None
+            depthnet = posenet = flownet = None
             if "depth" in self.net_names:
                 depthnet = self.depth_net_factory(self.net_names["depth"])
             if "camera" in self.net_names:
                 posenet = self.pose_net_factory(self.net_names["camera"])
-            model = VodeModel(depthnet, posenet)
+            if "flow" in self.net_names:
+                flownet = self.flow_net_factory(self.net_names["flow"])
+            model = VodeModel(depthnet, posenet, flownet)
         model.to_empty(device="cpu")
         init_weights(model, torch.Generator().manual_seed(self.seed))
         return model.to(self.device)
@@ -125,3 +131,8 @@ class ModelFactory:
             return pn.PoseNetImproved(SNIPPET_LEN, self.high_res)
         raise NotImplementedError(
             f"pose net {net_name!r} is not ported yet (ROADMAP: 'Breadth')")
+
+    def flow_net_factory(self, net_name: str) -> nn.Module:
+        if net_name == "PWCNet":
+            return PWCNet()
+        raise ValueError(f"wrong flow net name: {net_name}")

@@ -73,6 +73,31 @@ class Conv2dSame(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(features, (4, 4), strides=(2, 2), padding="SAME")``,
+    PWC-Net's 2x upsampler.
+
+    flax (``transpose_kernel=False``) dilates the input by the stride,
+    pads it by (2, 2) and correlates it with an HWIO kernel WITHOUT
+    flipping it; ``conv_transpose2d`` is the gradient of a conv, so it
+    flips its [in, out, kh, kw] weight and pads the dilated input by
+    k - 1 - padding. Hence ``padding=1``, and the converter stores
+    ``weight[i, o, y, x] = kernel[3 - y, 3 - x, i, o]``. The output is
+    (2H, 2W). Init: flax's ``lecun_normal`` over the kernel's fan-in
+    (in * 4 * 4), zero bias."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(in_channels, features, 4, stride=2, padding=1)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        in_channels, _, kh, kw = self.weight.shape
+        std = math.sqrt(1.0 / (in_channels * kh * kw)) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        nn.init.zeros_(self.bias)
+
+
 class Conv(nn.Module):
     """Conv with framework defaults: k3 s1 SAME, LeakyReLU(0.1),
     truncated-normal(0.025) init; ``use_activation=False`` is linear.

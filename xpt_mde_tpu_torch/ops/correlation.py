@@ -1,0 +1,103 @@
+"""Correlation cost volume of PWC-Net (port of ``xpt_mde_tpu.ops.correlation``).
+
+For every pixel, the channel mean of the left feature times the right
+feature displaced by each (dy, dx) of the grid ``range(-md, md + 1,
+stride)`` squared, dy-major; a displaced position outside the frame
+counts as zero:
+
+    out[b, k, y, x] = (1/C) sum_c cl[b, c, y, x] * cr[b, c, y + dy_k, x + dx_k]
+
+The port works channel-first (NCHW), the layout of its convolutions and
+of the Pallas kernel; the JAX twin works channel-last. On a CUDA tensor
+the cost volume is :class:`~xpt_mde_tpu_torch.ops.kernels.correlation.
+Correlation` (kernel K2 forward, K3 and K4 backward); on a CPU tensor it
+is :func:`correlation_cost_plain` and its autograd. The plain versions of
+the three kernels, their oracles on the card, are
+:func:`correlation_cost_plain`, :func:`correlation_grad_cl_plain` and
+:func:`correlation_grad_cr_plain`; the autograd of the first is a second
+oracle of the other two.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from xpt_mde_tpu_torch.ops.kernels.correlation import Correlation, num_displacements
+
+
+def correlation_cost_plain(cl: torch.Tensor, cr: torch.Tensor,
+                           max_displacement: int, stride: int = 1) -> torch.Tensor:
+    """Plain PyTorch cost volume on any device (K2's oracle; its autograd
+    is K3's and K4's).
+
+    :param cl, cr: left and right features [B, C, H, W]
+    :param max_displacement: md, the largest displacement in pixels
+    :param stride: the displacement grid's stride
+    :return: [B, n^2, H, W], n = len(range(-md, md + 1, stride))
+    """
+    height, width = cl.shape[-2:]
+    md = max_displacement
+    cr_pad = F.pad(cr, (md, md, md, md))
+    offsets = range(-md, md + 1, stride)
+    slices = [torch.mean(cl * cr_pad[:, :, md + dy: md + dy + height,
+                                     md + dx: md + dx + width], dim=1)
+              for dy in offsets for dx in offsets]
+    return torch.stack(slices, dim=1)
+
+
+def correlation_grad_cl_plain(grad_out: torch.Tensor, cr: torch.Tensor,
+                              max_displacement: int, stride: int = 1) -> torch.Tensor:
+    """Plain PyTorch gradient of the cost volume for the left features
+    (K3's oracle): dcl = (1/C) sum_k g_k * (cr shifted by +(dy_k, dx_k)).
+
+    :param grad_out: [B, n^2, H, W]; :param cr: [B, C, H, W]
+    :return: dcl [B, C, H, W]
+    """
+    height, width = cr.shape[-2:]
+    md = max_displacement
+    cr_pad = F.pad(cr, (md, md, md, md))
+    offsets = range(-md, md + 1, stride)
+    acc = torch.zeros_like(cr)
+    for k, (dy, dx) in enumerate((dy, dx) for dy in offsets for dx in offsets):
+        acc += grad_out[:, k:k + 1] * cr_pad[:, :, md + dy: md + dy + height,
+                                             md + dx: md + dx + width]
+    return acc / cr.shape[1]
+
+
+def correlation_grad_cr_plain(grad_out: torch.Tensor, cl: torch.Tensor,
+                              max_displacement: int, stride: int = 1) -> torch.Tensor:
+    """Plain PyTorch gradient of the cost volume for the right features
+    (K4's oracle): dcr[y', x'] = (1/C) sum_k g_k * cl, both taken at
+    (y' - dy_k, x' - dx_k), formed by adding each product into a padded
+    frame at its displacement.
+
+    :param grad_out: [B, n^2, H, W]; :param cl: [B, C, H, W]
+    :return: dcr [B, C, H, W]
+    """
+    height, width = cl.shape[-2:]
+    md = max_displacement
+    offsets = range(-md, md + 1, stride)
+    acc = F.pad(torch.zeros_like(cl), (md, md, md, md))
+    for k, (dy, dx) in enumerate((dy, dx) for dy in offsets for dx in offsets):
+        acc[:, :, md + dy: md + dy + height, md + dx: md + dx + width] += \
+            grad_out[:, k:k + 1] * cl
+    return acc[:, :, md: md + height, md: md + width] / cl.shape[1]
+
+
+def correlation_cost(cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
+                     stride: int = 1) -> torch.Tensor:
+    """The cost volume of :func:`correlation_cost_plain`: kernel K2 (K3
+    and K4 in the backward) on CUDA tensors, the plain version on CPU
+    tensors. There is no fallback: a CUDA input the kernels refuse raises.
+
+    :param cl, cr: [B, C, H, W]; :return: [B, n^2, H, W]
+    """
+    if cl.device.type == "cpu":
+        return correlation_cost_plain(cl, cr, max_displacement, stride)
+    return Correlation.apply(cl.contiguous(), cr.contiguous(), max_displacement, stride)
+
+
+def correlation_channels(max_displacement: int, stride: int = 1) -> int:
+    """The cost volume's channel count, n^2."""
+    return num_displacements(max_displacement, stride) ** 2

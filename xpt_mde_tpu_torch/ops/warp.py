@@ -12,13 +12,19 @@ Semantics, shared with kernels K1 and K1-bwd (``ops/kernels/warp.py``):
 :func:`bilinear_sample_plain` and :func:`warp_coord_grad_plain` are the
 plain PyTorch versions of K1 and K1-bwd: the CPU path and the oracles the
 kernels are held against on the card. They gather the four neighbours
-directly; the TPU one-hot / patch-gather formulations were workarounds
-for slow TPU gathers and are not ported.
+directly; the TPU one-hot formulation was a workaround for slow TPU
+gathers and is not ported.
+
+The image-differentiable warp (``const_src=False``, PWC-Net's feature
+warp) is :func:`sample_patch_gather` on either device, plain PyTorch with
+autograd: in JAX it is XLA code (``_sample_patch_gather``), not a Pallas
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from xpt_mde_tpu_torch.ops.kernels.warp import WarpConstSrc
 
@@ -116,6 +122,42 @@ def warp_coord_grad_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
     return torch.stack(rows, dim=2)
 
 
+def sample_patch_gather(image: torch.Tensor, pixel_coords: torch.Tensor,
+                        valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Image-differentiable bilinear sample, as JAX's XLA path
+    ``_sample_patch_gather`` forms it: every 2x2 neighbourhood packed into
+    the channels of a zero-padded copy, one gather at the floor neighbour,
+    then the four weighted corners. Its autograd gives both the image and
+    the coordinates their gradients (the image's through the gather's
+    scatter-add, whose summation order on the card varies from run to
+    run).
+
+    :param image: [B, N, H, W, C]
+    :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
+    :param valid_mask: optional [B, H, W, 1]; zero entries are invalid
+    :return: [B, N, H, W, C]
+    """
+    batch, numsrc, height, width, channels = image.shape
+    u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
+    w_uf, w_uc = uc - u, u - uf
+    w_vf, w_vc = vc - v, v - vf
+    padded = F.pad(image, (0, 0, 0, 1, 0, 1))
+    patches = torch.cat([padded[:, :, :height, :width],          # (v, u)
+                         padded[:, :, 1:height + 1, :width],     # (v + 1, u)
+                         padded[:, :, :height, 1:width + 1],     # (v, u + 1)
+                         padded[:, :, 1:height + 1, 1:width + 1]], dim=-1)
+    index = (vf.long() * width + uf.long())[..., None].expand(-1, -1, -1, 4 * channels)
+    picked = torch.gather(patches.reshape(batch, numsrc, height * width, 4 * channels),
+                          2, index).reshape(batch, numsrc, height * width, 4, channels)
+    # wherever a weight is non-zero, validity guarantees uc == uf + 1 and
+    # vc == vf + 1, so the packed corners are the four neighbours
+    out = (picked[:, :, :, 0] * (w_uf * w_vf * valid)[..., None]
+           + picked[:, :, :, 1] * (w_uf * w_vc * valid)[..., None]
+           + picked[:, :, :, 2] * (w_uc * w_vf * valid)[..., None]
+           + picked[:, :, :, 3] * (w_uc * w_vc * valid)[..., None])
+    return out.reshape(batch, numsrc, height, width, channels)
+
+
 def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
                     valid_mask: torch.Tensor | None = None,
                     const_src: bool = False) -> torch.Tensor:
@@ -126,18 +168,18 @@ def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,
     :class:`~xpt_mde_tpu_torch.ops.kernels.warp.WarpConstSrc`: kernel K1
     forward, kernel K1-bwd for the coordinate gradient, no gradient for
     the image or the mask. On a CPU tensor it is
-    :func:`bilinear_sample_plain` and its autograd.
+    :func:`bilinear_sample_plain` and its autograd. Without
+    ``const_src`` the warp is :func:`sample_patch_gather` on either
+    device.
 
     :param image: source images [B, N, H, W, C]
     :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
     :param valid_mask: optional [B, H, W, 1]; zero entries are invalid
     :return: reconstructed target views [B, N, H, W, C]
     """
+    if not const_src:
+        return sample_patch_gather(image, pixel_coords, valid_mask)
     if image.device.type == "cpu":
         return bilinear_sample_plain(image, pixel_coords, valid_mask)
-    if not const_src:
-        raise NotImplementedError(
-            "the image-differentiable warp has no kernel on the card yet; "
-            "view synthesis uses const_src=True (kernels K1 and K1-bwd)")
     mask = None if valid_mask is None else valid_mask.contiguous()
     return WarpConstSrc.apply(image.contiguous(), pixel_coords.contiguous(), mask)

@@ -2,13 +2,17 @@
 
 Usage, from the repository root on a machine with a CUDA card:
 
-    python -m xpt_mde_tpu_torch.tools.profile_steps [--out FILE]
+    python -m xpt_mde_tpu_torch.tools.profile_steps [--steps NAMES] [--cudnn-benchmark]
+                                                    [--out FILE]
 
-It builds the rigid model (EfficientNetB5 + PoseNetImproved, seeded
-random weights, batch 8, 128x512) and the loss of ``chip_smoke.py``, and
-for the train step Adam at 1e-4, the default augmentation from a seeded
-generator and uint8-coded batches; then for each step (predict, eval,
-train):
+``--steps`` is a comma-separated subset of ``predict,eval,train`` (the
+rigid stage: EfficientNetB5 + PoseNetImproved with the loss of
+``chip_smoke.py``; the train step with the default augmentation from a
+seeded generator) and ``flow-predict,flow-train`` (the flow stage:
+PWC-Net alone, ``{"flowL2": 1.0, "flow_reg": 4e-7}``, ``regularize_net=
+"flownet"``); all five by default. Every step runs at batch 8, 128x512,
+seeded random weights, with Adam at 1e-4 and uint8-coded batches for the
+train steps. For each step:
 
 - times 5 steps on the host clock around ``torch.cuda.synchronize()``,
   without the profiler (wall ms/step);
@@ -18,7 +22,9 @@ train):
   20 operators and kernels by self device time.
 
 The first line of the output names the card and its power limit
-(``nvidia-smi``). ``--out`` also writes the report to a file.
+(``nvidia-smi``) and whether cuDNN picks its convolution algorithms by
+its heuristics (the port's default) or, with ``--cudnn-benchmark``, by
+timing them at first use. ``--out`` also writes the report to a file.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import time
 import torch
 
 RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
+FLOW_RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}  # LOSS_FLOW without flowL2_R
+STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train")
 BATCH, HEIGHT, WIDTH = 8, 128, 512
 STEPS = 5  # timed steps, and as many profiled
 TOP = 20  # operators and kernels listed per step
@@ -85,43 +93,72 @@ def profile_step(label: str, step, batches) -> list[str]:
     return lines
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", default=None, help="also write the report here")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_steps: no CUDA device", file=sys.stderr)
-        return 1
-
-    from xpt_mde_tpu_torch.config import AUGMENT_PROBS, RIGID_NET, SCALE_WEIGHT_T1
-    from xpt_mde_tpu_torch.data import SyntheticDataset
+def _build_steps(names, batches):
+    """{name: (label, step)} for the requested step names."""
+    from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, RIGID_NET, SCALE_WEIGHT_T1
     from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
                                             make_predict_step, make_train_step,
                                             optimizer_factory)
 
+    keys = ["image", "intrinsic"]
+    device = batches[0]["image5d"].device
+    steps = {}
+    if {"predict", "eval", "train"} & set(names):
+        model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
+        total_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                  batch_size=BATCH)
+        label = f"{RIGID_NET['depth']} + {RIGID_NET['camera']}"
+        steps["predict"] = (label, make_predict_step(model))
+        steps["eval"] = (label, make_eval_step(model, total_loss))
+        train_step = make_train_step(model, total_loss,
+                                     optimizer_factory("adam_constant", 1e-4, model),
+                                     augmenter=augmentation_factory(AUGMENT_PROBS))
+        generator = torch.Generator().manual_seed(0)
+        steps["train"] = (label, lambda features: train_step(features, generator))
+    if {"flow-predict", "flow-train"} & set(names):
+        model = ModelFactory(keys, FLOW_NET, stereo=False, device=device, seed=0).get_model()
+        flow_loss = loss_factory(keys, FLOW_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                 batch_size=BATCH)
+        steps["flow-predict"] = ("PWCNet", make_predict_step(model))
+        steps["flow-train"] = ("PWCNet", make_train_step(
+            model, flow_loss, optimizer_factory("adam_constant", 1e-4, model),
+            regularize_net="flownet"))
+    return {name: steps[name] for name in names}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", default=",".join(STEP_NAMES),
+                        help=f"comma-separated subset of {','.join(STEP_NAMES)}")
+    parser.add_argument("--cudnn-benchmark", action="store_true",
+                        help="let cuDNN time its convolution algorithms at first use")
+    parser.add_argument("--out", default=None, help="also write the report here")
+    args = parser.parse_args(argv)
+    names = [n for n in args.steps.split(",") if n]
+    unknown = sorted(set(names) - set(STEP_NAMES))
+    if unknown:
+        parser.error(f"unknown steps {unknown}; choose from {','.join(STEP_NAMES)}")
+    if not torch.cuda.is_available():
+        print("profile_steps: no CUDA device", file=sys.stderr)
+        return 1
+
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     device = torch.device("cuda", 0)
     dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
                                num_batches=3, seed=0)
-    keys = dataset.config_keys()
     batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in dataset]
-    model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
-    total_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
-                              batch_size=BATCH)
-    report = [f"{_device_line()}; {RIGID_NET['depth']} + {RIGID_NET['camera']}, batch "
-              f"{BATCH}, {HEIGHT}x{WIDTH}, float32 (TF32 off), {STEPS} steps"]
-    for label, step in (("predict", make_predict_step(model)),
-                        ("eval", make_eval_step(model, total_loss))):
-        report += profile_step(label, step, batches)
-    train_step = make_train_step(model, total_loss,
-                                 optimizer_factory("adam_constant", 1e-4, model),
-                                 augmenter=augmentation_factory(AUGMENT_PROBS))
-    generator = torch.Generator().manual_seed(0)
     uint8_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5).to(torch.uint8))
                      for b in batches]
-    report += profile_step("train", lambda features: train_step(features, generator),
-                           uint8_batches)
+    report = [f"{_device_line()}; batch {BATCH}, {HEIGHT}x{WIDTH}, float32 (TF32 off), "
+              f"{STEPS} steps, cuDNN algorithms by "
+              f"{'timing (benchmark)' if args.cudnn_benchmark else 'heuristics'}"]
+    for name, (label, step) in _build_steps(names, batches).items():
+        step_batches = uint8_batches if name.endswith("train") else batches
+        report += profile_step(f"{name} ({label})", step, step_batches)
     text = "\n".join(report)
     print(text, flush=True)
     if args.out:

@@ -71,23 +71,23 @@ def make_train_step(model: torch.nn.Module, total_loss,
         the same model (frozen nets left out of it)
     :param augmenter: optional ``TotalAugment``; its draws come from the
         CPU ``generator`` the step is given
-    :param frozen_nets: top-level nets (``depthnet``, ``posenet``) whose
-        parameters get no gradient during the step, as JAX's
-        ``stop_gradient`` prunes them; their BN running statistics still
-        update
+    :param frozen_nets: top-level nets (``depthnet``, ``posenet``,
+        ``flownet``) whose parameters get no gradient during the step, as
+        JAX's ``stop_gradient`` prunes them; their BN running statistics
+        still update
+    :param regularize_net: the top-level net whose parameters the
+        ``flow_reg`` loss reads, as ``preds["regularize_weights"]``; it is
+        never frozen. A name the model lacks adds nothing, as in JAX
     :return: ``step(features, generator=None) -> metrics``, the metrics of
         the train-mode forward (detached), as the JAX step reports them
     """
-    if regularize_net is not None:
-        raise NotImplementedError(
-            "regularize_net (the flow L2 regularizer) is not ported yet "
-            "(ROADMAP: 'Flow slice')")
     if grad_accum_steps != 1:
         raise NotImplementedError(
             "grad_accum_steps > 1 is not ported yet (ROADMAP: 'Breadth')")
-    frozen = set(frozen_nets)
+    frozen = set(frozen_nets) - {regularize_net}
     frozen_params = [p for name, net in model.named_children() if name in frozen
                      for p in net.parameters()]
+    regularized = getattr(model, regularize_net, None) if regularize_net else None
 
     def train_step(features: Mapping[str, torch.Tensor],
                    generator: torch.Generator | None = None) -> dict:
@@ -102,6 +102,8 @@ def make_train_step(model: torch.nn.Module, total_loss,
                 if augmenter is not None:
                     features = augmenter(features, generator)
                 preds = model(features)
+                if regularized is not None:
+                    preds["regularize_weights"] = list(regularized.parameters())
                 loss, loss_by_type = total_loss(preds, features)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
