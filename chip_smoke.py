@@ -4,7 +4,12 @@ flow predict and train paths once on one NVIDIA GPU.
 
 Usage, from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--earlier DIR]
+
+``--earlier DIR`` names a checkout of an earlier commit (for example a
+``git archive`` of it under ``build/``): its phases 2 and 8 run first, in
+a subprocess on the same card, and their per-step kernel times become
+``earlier_ms`` in the kernels line (else ``earlier_ms`` is null).
 
 It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) and
 K2, K3 and K4 (``xpt_mde_tpu_torch/csrc/correlation.cu``) with ``nvcc``,
@@ -56,8 +61,10 @@ one compiler per source started together, and prints one line per phase:
     (``tools/profile_steps.py``).
 
 Then a JSON line with each kernel's launches on its train path, error,
-device time, bound and the plain version's and the nearest library call's
-times, the ``nvidia-smi`` name/power line, and last the result line
+device time, bound, the plain version's, the nearest library call's and
+the earlier checkout's times (``redesigned_in`` names the pull request
+that redesigned a kernel), the ``nvidia-smi`` name/power line, and last
+the result line
 ``{"ok": true, "device": {...}}``. It exits non-zero and prints no result
 line when there is no CUDA card, when the repository's packages cannot be
 imported, or when any phase fails. It imports nothing of JAX.
@@ -65,8 +72,10 @@ imported, or when any phase fails. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -139,6 +148,24 @@ FLOW_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/flowL2": (1e-3, 0.0),
 # device memory and for float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the kernels redesigned after their first port, and in which pull request
+REDESIGNED = {"K1": "PR 4", "K3": "PR 4"}
+# run in an earlier checkout: its phases 2 and 8, then each kernel's
+# device ms per train step as one JSON line
+EARLIER_PHASES = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+from xpt_mde_tpu_torch.data import SyntheticDataset
+from xpt_mde_tpu_torch.utils.precision import full_f32
+with full_f32():
+    batches = list(SyntheticDataset(batch_size=cs.BATCH, height=cs.HEIGHT, width=cs.WIDTH,
+                                    num_batches=1, seed=0))
+    device = torch.device("cuda", 0)
+    stats = cs._warp_phase(batches, device, np.random.RandomState(0), sys.argv[1])
+    stats.update(cs._corr_phase(device, sys.argv[1]))
+print("EARLIER " + json.dumps({name: s["ms"] for name, s in stats.items()}), flush=True)
+"""
 
 
 def _nvidia_smi_line() -> str:
@@ -189,6 +216,26 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     once and doing ``flops`` float32 operations on one H100."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _earlier_kernels(checkout: str, tag: str) -> dict:
+    """Phases 2 and 8 of the checkout ``checkout`` on this card, in a
+    subprocess (its package has this one's name): each kernel's device ms
+    per train step. Its timing lines are echoed with the prefix
+    ``earlier``."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(checkout))
+    proc = subprocess.run([sys.executable, "-c", EARLIER_PHASES, tag], cwd=checkout, env=env,
+                          capture_output=True, text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("EARLIER "):
+            result = json.loads(line[len("EARLIER "):])
+        else:
+            print(f"earlier {line}", flush=True)
+    if proc.returncode != 0 or result is None:
+        raise RuntimeError(f"the earlier checkout's phases failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return result
 
 
 def _warp_case(batch, scale, device, rng):
@@ -294,6 +341,7 @@ def _warp_phase(batches, device, rng, tag):
                            # grid_sample's backward, the grid's gradient only
                            lambda: torch.ops.aten.grid_sampler_2d_backward(
                                g_nchw, image_nchw, grid, 0, 0, True, [False, True]))}
+        library_names = {"K1": "grid_sample", "K1-bwd": "grid_sampler_2d_backward"}
         for name, (kernel, plain, library) in runs.items():
             t_k, t_p, t_l = _graph_ms(kernel), _graph_ms(plain), _graph_ms(library)
             e_k, e_p = _event_ms(kernel), _event_ms(plain)
@@ -303,8 +351,9 @@ def _warp_phase(batches, device, rng, tag):
                                ("flops", work[name][1])):
                 stats[name][key] += value
             print(f"timing {name} 1/{scale} {tuple(src.shape)}: device (graph replay) "
-                  f"{name} {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_l:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({work[name][0] / 1e6:.1f} MB); eager per call "
+                  f"{name} {t_k:.4f} ms, plain {t_p:.4f} ms, {library_names[name]} "
+                  f"{t_l:.4f} ms, bound {bound_ms:.4f} ms ({work[name][0] / 1e6:.1f} MB); "
+                  f"eager per call "
                   f"{name} {e_k:.4f} ms, plain {e_p:.4f} ms {tag}", flush=True)
     print(f"phase 2 kernels vs plain: K1 max abs err {stats['K1']['err']:.3g} <= {K1_ATOL}, "
           f"K1-bwd {stats['K1-bwd']['err']:.3g} <= {K1_BWD_ATOL} (vs the plain backward and "
@@ -534,7 +583,12 @@ def _corr_phase(device, tag):
     return stats
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """Run the phases; ``argv``: the command line's arguments."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--earlier", metavar="DIR",
+                        help="a checkout of an earlier commit whose kernels to time first")
+    args = parser.parse_args(list(argv))
     try:
         import numpy as np
         import torch
@@ -600,6 +654,13 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 built in "
                   f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
+
+            earlier = {}
+            if args.earlier:
+                phase = "earlier kernels"
+                earlier = _earlier_kernels(args.earlier, tag)
+                print(f"phase 1 earlier kernels ({args.earlier}), device ms per train step: "
+                      f"{json.dumps(earlier)} {tag}", flush=True)
 
             keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
             dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
@@ -839,7 +900,8 @@ def main() -> int:
                     "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
-                    "library_ms": s["library_ms"]})
+                    "library_ms": s["library_ms"], "earlier_ms": earlier.get(kname)}
+                    | ({"redesigned_in": REDESIGNED[kname]} if kname in REDESIGNED else {}))
             for kname, full_name in (("K2", "K2 corr_fwd"), ("K3", "K3 corr_bwd_cl"),
                                      ("K4", "K4 corr_bwd_cr")):
                 s = cstats[kname]
@@ -853,7 +915,9 @@ def main() -> int:
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
                     "library_ms": None,
-                    "library": "none: no single PyTorch call computes the cost volume"})
+                    "library": "none: no single PyTorch call computes the cost volume",
+                    "earlier_ms": earlier.get(kname)}
+                    | ({"redesigned_in": REDESIGNED[kname]} if kname in REDESIGNED else {}))
             print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result
@@ -866,4 +930,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -49,11 +49,11 @@ def cuda():
         yield torch.device("cuda")
 
 
-def _case(batch, numsrc, height, width, seed, rows=2, device="cpu"):
+def _case(batch, numsrc, height, width, seed, rows=2, device="cpu", channels=3):
     """Coords over in-frame, out-of-frame and border-exact positions and
     a mask with ~20% zeros."""
     rng = np.random.RandomState(seed)
-    image = rng.uniform(-1, 1, (batch, numsrc, height, width, 3)).astype(np.float32)
+    image = rng.uniform(-1, 1, (batch, numsrc, height, width, channels)).astype(np.float32)
     u = rng.uniform(-4, width + 4, (batch, numsrc, 1, height * width))
     v = rng.uniform(-4, height + 4, (batch, numsrc, 1, height * width))
     coords = [u, v] + ([np.ones_like(u)] if rows == 3 else [])
@@ -90,6 +90,75 @@ def test_k1_bwd_checks_its_inputs_before_launching():
     with pytest.raises(ValueError, match="coords"):
         k1.K1_BWD(image, coords[:, :, :1], mask, torch.zeros_like(image))
     assert k1.K1_BWD.launches == before
+
+
+@pytest.mark.parametrize("height,width,threads", [(128, 512, 256), (64, 256, 256),
+                                                  (32, 128, 64), (16, 64, 64)])
+def test_k1_block_size_fills_the_card(height, width, threads):
+    """K1's block shrinks with the plane so that the headline scales
+    (32 planes) give two blocks per SM of an H100, or the 64-thread
+    floor."""
+    hw = height * width
+    assert k1.fwd_threads(32, hw, 132) == threads
+    blocks = -(-hw // (threads // 32 * k1.WARP_PIXELS)) * 32
+    assert blocks >= 2 * 132 or threads == 64
+
+
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_k3_plan_fits_at_pwc_levels(level):
+    """K3's tiling at the flow stage's shapes: one block per image row
+    and channel chunk, at least two blocks per SM of an H100, 227 KB at
+    most, tiles that cover the row, at most 2-way bank conflicts, and
+    one stage for all displacement rows where it fits."""
+    md, stride = level_displacement(level)
+    chans, height, width = ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level
+    plan = kcorr.bwd_cl_plan(32, chans, height, width, md, stride)
+    n = kcorr.num_displacements(md, stride)
+    groups = plan["tile_x"] // kcorr.BWD_CL_PIX
+    chunks = plan["grid"][2] // 32
+    assert plan["tile_x"] % (kcorr.BWD_CL_PIX * stride) == 0
+    assert plan["tile_x"] >= width and plan["grid"] == (1, height, 32 * chunks)
+    assert height * 32 * chunks >= 2 * kcorr.H100_SMS
+    assert chunks * plan["chan_blocks"] * kcorr.BWD_CL_CHAN >= chans
+    assert max(groups * plan["chan_blocks"], kcorr.BWD_CL_MIN_THREADS) <= plan["threads"]
+    assert plan["threads"] <= kcorr.BWD_CL_MAX_THREADS
+    assert plan["threads"] % 32 == 0
+    assert plan["smem_bytes"] == kcorr.bwd_cl_smem_bytes(
+        plan["tile_x"], plan["chan_blocks"], n, stride, plan["cb_skew"],
+        plan["rows_per_stage"], plan["buffers"])
+    assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
+    # levels 4-6 stage every in-frame displacement row at once; 2-3 one a
+    # stage, double-buffered
+    rows_max = kcorr.bwd_cl_rows_max(n, stride, height)
+    assert (plan["rows_per_stage"], plan["buffers"]) == ((rows_max, 1) if level >= 4 else (1, 2))
+    assert kcorr.bwd_cl_bank_conflicts(plan["tile_x"], plan["chan_blocks"], n, stride,
+                                       plan["cb_skew"]) <= 2
+
+
+@pytest.mark.parametrize("shape,md,stride,num_sms,tiles", [
+    ((1, 5, 5, 7), 4, 3, 1, (1, 1)),       # a stride that does not divide md
+    ((2, 8, 3, 130), 0, 1, 1, (2, 1)),     # md 0; two x tiles
+    ((1, 300, 4, 128), 4, 1, 1, (1, 5)),   # five channel chunks of 64
+    ((1, 512, 4, 64), 64, 1, 1, (1, 6)),   # 12 of 16 channel blocks, to fit 227 KB
+    ((1, 300, 4, 128), 4, 1, 132, (1, 38)),  # one channel block each, to fill 132 SMs
+])
+def test_k3_plan_at_edge_shapes(shape, md, stride, num_sms, tiles):
+    plan = kcorr.bwd_cl_plan(*shape, md, stride, num_sms)
+    batch, chans, height, width = shape
+    assert (plan["grid"][0], plan["grid"][2] // batch) == tiles
+    assert plan["grid"][0] * plan["tile_x"] >= width
+    assert plan["grid"][2] // batch * plan["chan_blocks"] * kcorr.BWD_CL_CHAN >= chans
+    assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
+
+
+def test_k3_plan_refuses_what_cannot_fit():
+    """Too many displacements for 227 KB, or a stride whose pixel cluster
+    needs more than 256 threads: the plan raises, and so the wrapper
+    does before it launches."""
+    with pytest.raises(ValueError, match="shared memory"):
+        kcorr.bwd_cl_plan(1, 8, 4, 64, 2000, 1)
+    with pytest.raises(ValueError, match="threads"):
+        kcorr.bwd_cl_plan(1, 8, 4, 64, 300, 300)
 
 
 def test_nvcc_missing_is_reported(monkeypatch, tmp_path):
@@ -135,6 +204,69 @@ def test_k1_bwd_matches_plain_at_headline_scales(cuda, height, width, rows):
         assert float((got - leaf.grad).abs().max()) <= 1e-5
         if rows == 3:
             assert bool((got[:, :, 2] == 0).all())
+
+
+def _offset_copy(t, offset):
+    """``t`` as a contiguous view ``offset`` floats into a larger buffer:
+    its data_ptr is not 16-byte aligned for offset 1."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,numsrc,height,width,rows,channels", [
+    (1, 4, 5, 7, 2, 3),      # H*W % 4 != 0: the scalar path
+    (2, 3, 3, 130, 3, 3),    # H*W % 4 != 0, 3 coord rows
+    (1, 1, 16, 64, 2, 3),    # batch 1, one source
+    (3, 2, 9, 28, 3, 3),     # H*W % 4 == 0, a ragged last warp
+    (2, 2, 8, 24, 2, 5),     # C other than 3, on the float4 path
+    (2, 2, 8, 24, 2, 12),    # C above 8: the scalar path
+])
+def test_k1_matches_plain_at_edge_shapes(cuda, batch, numsrc, height, width, rows, channels):
+    """K1 against the plain sampler with and without a mask, on aligned
+    inputs and on views whose data_ptr is not 16-byte aligned (its scalar
+    path); both paths give the same bits."""
+    image, coords, mask = _case(batch, numsrc, height, width, seed=width, rows=rows,
+                                device=cuda, channels=channels)
+    for m in (mask, None):
+        ref = bilinear_sample_plain(image, coords, m)
+        got = k1.K1(image, coords, m)
+        shifted = k1.K1(_offset_copy(image, 1), _offset_copy(coords, 1),
+                        None if m is None else _offset_copy(m, 1))
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-5
+        assert bool((got[ref == 0] == 0).all())
+        assert torch.equal(got, shifted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,md,stride", [
+    ((1, 5, 5, 7), 4, 3),      # a stride that does not divide md, batch 1
+    ((2, 8, 3, 130), 0, 1),    # md 0, two x tiles
+    ((1, 13, 3, 4), 4, 1),     # H and W below 2 * md + 1
+    ((2, 300, 4, 40), 4, 1),   # several channel chunks
+    ((2, 20, 6, 24), 6, 2),    # C not a multiple of 8
+])
+def test_k3_matches_plain_at_edge_shapes(cuda, shape, md, stride):
+    """K3 against the plain gradient and the plain cost volume's
+    autograd, on aligned inputs and on views offset by one float."""
+    generator = torch.Generator().manual_seed(sum(shape))
+    cr = (torch.rand(shape, generator=generator) * 2 - 1).to(cuda)
+    n2 = corr.correlation_channels(md, stride)
+    g = (torch.rand((shape[0], n2) + shape[2:], generator=generator) * 2 - 1).to(cuda)
+    ref = corr.correlation_grad_cl_plain(g, cr, md, stride)
+    leaf = cr.clone().requires_grad_(True)
+    (autograd,) = torch.autograd.grad(
+        corr.correlation_cost_plain(leaf, cr, md, stride), leaf, g)
+    got = kcorr.K3(g, cr, md, stride)
+    shifted = kcorr.K3(_offset_copy(g, 1), _offset_copy(cr, 1), md, stride)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert float((got - autograd).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, shifted)
 
 
 @pytest.mark.gpu

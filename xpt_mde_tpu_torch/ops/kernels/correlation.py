@@ -31,6 +31,127 @@ def num_displacements(max_displacement: int, stride: int) -> int:
     return len(range(-max_displacement, max_displacement + 1, stride))
 
 
+# K3's tiling (csrc/correlation.cu::corr_bwd_cl_kernel): a thread owns
+# BWD_CL_PIX pixels one stride apart times BWD_CL_CHAN channels; a CUDA
+# block one row of BWD_CL_TILE_X columns or fewer and a chunk of channels,
+# split over more blocks until the grid has two blocks per SM. A stage
+# copies one or more displacement rows' g and cr rows into shared memory:
+# all of a block's in-frame rows at once where they fit BWD_CL_STAGE_BYTES,
+# else one row per stage, double-buffered.
+BWD_CL_PIX, BWD_CL_CHAN, BWD_CL_DISP = 4, 8, 9
+BWD_CL_TILE_X = 128
+BWD_CL_MIN_THREADS, BWD_CL_MAX_THREADS = 128, 256
+BWD_CL_STAGE_BYTES = 80 * 1024
+SMEM_LIMIT = 232448  # 227 KB, the most one block of an H100 may take
+H100_SMS = 132
+
+
+def _padded(col: int, stride: int) -> int:
+    """The shared-memory index of staged column ``col`` (``padded`` in
+    csrc/correlation.cu): ``stride % 32`` floats of padding per 32
+    columns."""
+    return col + (col >> 5) * (stride & 31)
+
+
+def _bwd_cl_layout(tile_x: int, chan_blocks: int, n: int, stride: int, cb_skew: int):
+    """(cr row pitch, channel-block pitch, g row pitch, floats per slot),
+    as ``bwd_cl_layout`` in csrc/correlation.cu."""
+    cr_pitch = _padded(tile_x + (n - 1) * stride - 1, stride) + 1
+    cb_pitch = BWD_CL_CHAN * cr_pitch + cb_skew
+    g_pitch = _padded(tile_x - 1, stride) + 1
+    slot = -(-(chan_blocks * cb_pitch + n * g_pitch) // 4) * 4
+    return cr_pitch, cb_pitch, g_pitch, slot
+
+
+def bwd_cl_rows_max(n: int, stride: int, height: int) -> int:
+    """The most in-frame displacement rows one image row can have."""
+    return min(n, -(-height // stride))
+
+
+def bwd_cl_smem_bytes(tile_x: int, chan_blocks: int, n: int, stride: int,
+                      cb_skew: int = 0, rows_per_stage: int = 1, buffers: int = 2) -> int:
+    """Shared memory of one K3 block: ``buffers`` buffers of
+    ``rows_per_stage`` slots."""
+    slot = _bwd_cl_layout(tile_x, chan_blocks, n, stride, cb_skew)[3]
+    return buffers * rows_per_stage * slot * 4
+
+
+def bwd_cl_bank_conflicts(tile_x: int, chan_blocks: int, n: int, stride: int,
+                          cb_skew: int) -> int:
+    """The most distinct shared-memory words that the first warp's lanes
+    read from one bank in one load of their cr window (the kernel's
+    ``row_q[w_addr[m]]``, any m): 1 means conflict-free."""
+    _, cb_pitch, _, _ = _bwd_cl_layout(tile_x, chan_blocks, n, stride, cb_skew)
+    groups = tile_x // BWD_CL_PIX
+    lanes = [(t % groups, t // groups) for t in range(min(32, groups * chan_blocks))]
+    worst = 1
+    for m in range(BWD_CL_DISP + BWD_CL_PIX - 1):
+        banks: dict[int, set] = {}
+        for gi, cb in lanes:
+            x0 = (gi // stride) * (BWD_CL_PIX * stride) + gi % stride
+            addr = cb * cb_pitch + _padded(x0 + m * stride, stride)
+            banks.setdefault(addr % 32, set()).add(addr)
+        worst = max(worst, max(len(words) for words in banks.values()))
+    return worst
+
+
+def bwd_cl_plan(batch: int, channels: int, height: int, width: int,
+                max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+    """K3's launch for these shapes: ``tile_x`` (a multiple of 4 * stride
+    covering up to 128 columns), ``chan_blocks`` (blocks of 8 channels per
+    CUDA block: as many as 256 threads and 227 KB allow, fewer where the
+    grid would have under two blocks per SM), ``cb_skew`` (the spacing of
+    the channel blocks in shared memory with the fewest bank conflicts),
+    ``rows_per_stage`` and ``buffers`` (every in-frame displacement row in
+    one buffer where that fits BWD_CL_STAGE_BYTES, else one row per stage
+    in two), ``threads``, ``smem_bytes`` and ``grid``. Narrows
+    the channels, then the tile, until one row per stage fits 227 KB;
+    raises ValueError where even one cluster of one channel block does not,
+    or the grid is too large."""
+    n = num_displacements(max_displacement, stride)
+    cluster = BWD_CL_PIX * stride
+    tile_x = cluster * -(-min(width, BWD_CL_TILE_X) // cluster)
+    all_blocks = -(-channels // BWD_CL_CHAN)
+    rows_max = bwd_cl_rows_max(n, stride, height)
+
+    def smem(chan_blocks, cb_skew=31, rows=1):  # skew 31: room for any skew
+        buffers = 1 if rows >= rows_max else 2
+        return bwd_cl_smem_bytes(tile_x, chan_blocks, n, stride, cb_skew, rows, buffers)
+
+    while True:
+        groups = tile_x // BWD_CL_PIX
+        chan_blocks = min(all_blocks, max(1, BWD_CL_MAX_THREADS // groups))
+        while chan_blocks > 1 and smem(chan_blocks) > SMEM_LIMIT:
+            chan_blocks -= 1
+        if smem(chan_blocks) <= SMEM_LIMIT or tile_x == cluster:
+            break
+        tile_x -= cluster
+    rows = -(-width // tile_x) * height * batch
+    if rows * -(-all_blocks // chan_blocks) < 2 * num_sms:
+        chunks = min(all_blocks, -(-2 * num_sms // rows))
+        chan_blocks = -(-all_blocks // chunks)
+    skews = range(0, 32, 4) if stride % 4 == 0 else range(32)
+    cb_skew = min(skews, key=lambda k: (
+        bwd_cl_bank_conflicts(tile_x, chan_blocks, n, stride, k), k))
+    rows_per_stage = next((r for r in range(rows_max, 0, -1)
+                           if smem(chan_blocks, cb_skew, r) <= BWD_CL_STAGE_BYTES), 1)
+    buffers = 1 if rows_per_stage >= rows_max else 2
+    smem_bytes = smem(chan_blocks, cb_skew, rows_per_stage)
+    threads = max(BWD_CL_MIN_THREADS, -(-groups * chan_blocks // 32) * 32)
+    if smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"K3 needs {smem_bytes} bytes of shared memory at md "
+                         f"{max_displacement}, stride {stride}, more than {SMEM_LIMIT}")
+    if threads > BWD_CL_MAX_THREADS:
+        raise ValueError(f"K3 needs {threads} threads per block at stride {stride}, "
+                         f"more than {BWD_CL_MAX_THREADS}")
+    grid = (-(-width // tile_x), height, batch * -(-all_blocks // chan_blocks))
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"K3's grid {grid} exceeds 65535 rows or chunks")
+    return {"tile_x": tile_x, "chan_blocks": chan_blocks, "cb_skew": cb_skew,
+            "rows_per_stage": rows_per_stage, "buffers": buffers, "threads": threads,
+            "smem_bytes": smem_bytes, "grid": grid}
+
+
 def _check(feats, other, max_displacement, stride, grad_out=None):
     """Raise unless the kernels take these: two feature maps [B,C,H,W] of
     one shape, ``grad_out`` [B,n^2,H,W] or None, an int md >= 0 and an int
@@ -63,11 +184,12 @@ class _CorrEntry:
     """One C entry of ``correlation.cu``, built at first use. ``launches``
     counts the launches this wrapper made."""
 
-    def __init__(self, name: str, entry: str):
+    def __init__(self, name: str, entry: str, n_launch_ints: int = 0):
         self.name = name
         self.launches = 0
         self.build_log = ""
         self._entry = entry
+        self._n_launch_ints = n_launch_ints
         self._fn = None
 
     def build(self):
@@ -75,20 +197,23 @@ class _CorrEntry:
         if self._fn is None:
             lib, self.build_log = load_library("correlation", ("correlation.cu",))
             fn = getattr(lib, self._entry)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + self._n_launch_ints)
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def _launch(self, first, second, out, feats_shape, max_displacement, stride):
+    def _launch(self, first, second, out, feats_shape, max_displacement, stride, launch=()):
         """Call the entry with the three pointers, the feature maps' shape,
-        md, stride and the current stream; raise on a CUDA error."""
+        md, stride, the ``launch`` ints and the current stream; raise on a
+        CUDA error."""
         fn = self.build()
         batch, channels, height, width = feats_shape
         with torch.cuda.device(out.device):
             stream = torch.cuda.current_stream(out.device).cuda_stream
             err = fn(first.data_ptr(), second.data_ptr(), out.data_ptr(),
-                     batch, channels, height, width, max_displacement, stride, stream)
+                     batch, channels, height, width, max_displacement, stride, *launch,
+                     stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {err}")
         self.launches += 1
@@ -127,12 +252,31 @@ class CorrGradKernel(_CorrEntry):
         dcr (K4), [B,C,H,W]."""
         grad_out = grad_out.contiguous()
         _check(feats, feats, max_displacement, stride, grad_out)
+        launch = self._plan(feats.shape, max_displacement, stride, feats.device)
         out = torch.empty_like(feats)
-        return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride)
+        return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride,
+                            launch)
+
+    def _plan(self, feats_shape, max_displacement, stride, device) -> tuple:
+        """The launch ints the entry takes after md and stride: none."""
+        return ()
+
+
+class CorrGradClKernel(CorrGradKernel):
+    """Launches K3, tiled by :func:`bwd_cl_plan`."""
+
+    def __init__(self):
+        super().__init__("K3", "xpt_corr_bwd_cl", 7)
+
+    def _plan(self, feats_shape, max_displacement, stride, device) -> tuple:
+        num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = bwd_cl_plan(*feats_shape, max_displacement, stride, num_sms)
+        return (plan["tile_x"], plan["chan_blocks"], plan["cb_skew"], plan["rows_per_stage"],
+                plan["buffers"], plan["threads"], plan["smem_bytes"])
 
 
 K2 = CorrKernel()
-K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl")
+K3 = CorrGradClKernel()
 K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr")
 
 

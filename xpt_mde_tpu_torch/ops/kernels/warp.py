@@ -22,6 +22,22 @@ SOURCE = "xpt_mde_tpu_torch/csrc/warp.cu"
 REPLACES = "xpt_mde_tpu/ops/pallas/warp.py:135"
 REPLACES_BWD = "xpt_mde_tpu/ops/pallas/warp.py:288"
 
+# K1's launch: 128 pixels per warp; the block shrinks from 256 threads to
+# 128 or 64 until the grid has at least two blocks per SM (csrc/warp.cu)
+WARP_PIXELS = 128
+FWD_THREADS = (256, 128, 64)
+
+
+def fwd_threads(planes: int, hw: int, num_sms: int) -> int:
+    """K1's threads per block for ``planes`` (B*N) planes of ``hw``
+    pixels on a card with ``num_sms`` SMs: the largest of 256, 128 and 64
+    that still gives two blocks per SM, else 64."""
+    for threads in FWD_THREADS:
+        block_pixels = threads // 32 * WARP_PIXELS
+        if -(-hw // block_pixels) * planes >= 2 * num_sms:
+            return threads
+    return FWD_THREADS[-1]
+
 
 def _check(image, pixel_coords, valid_mask, grad_out=None):
     """Raise unless the tensors are what the kernels take: image
@@ -60,12 +76,13 @@ class _WarpEntry:
     """One C entry of ``warp.cu``, built at first use. ``launches``
     counts the launches this wrapper made."""
 
-    def __init__(self, name: str, entry: str, n_pointers: int):
+    def __init__(self, name: str, entry: str, n_pointers: int, n_ints: int):
         self.name = name
         self.launches = 0
         self.build_log = ""
         self._entry = entry
         self._n_pointers = n_pointers
+        self._n_ints = n_ints
         self._fn = None
 
     def build(self):
@@ -73,15 +90,15 @@ class _WarpEntry:
         if self._fn is None:
             lib, self.build_log = load_library("warp", ("warp.cu",))
             fn = getattr(lib, self._entry)
-            fn.argtypes = ([ctypes.c_void_p] * self._n_pointers + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * self._n_pointers
+                           + [ctypes.c_int] * self._n_ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def _launch(self, image, pixel_coords, *tensors) -> None:
-        """Call the entry with the tensors' pointers, the shapes and the
-        current stream; raise on a non-zero CUDA error."""
+    def _launch(self, image, pixel_coords, *tensors, launch=()) -> None:
+        """Call the entry with the tensors' pointers, the shapes, the
+        ``launch`` ints and the current stream; raise on a CUDA error."""
         fn = self.build()
         batch, numsrc, height, width, channels = image.shape
         pointers = [None if t is None else t.data_ptr() for t in tensors]
@@ -89,7 +106,7 @@ class _WarpEntry:
             stream = torch.cuda.current_stream(image.device).cuda_stream
             err = fn(image.data_ptr(), pixel_coords.data_ptr(), *pointers,
                      batch, numsrc, height, width, channels, pixel_coords.shape[2],
-                     stream)
+                     *launch, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {err}")
         self.launches += 1
@@ -99,7 +116,7 @@ class WarpKernel(_WarpEntry):
     """Launches K1."""
 
     def __init__(self):
-        super().__init__("K1", "xpt_warp_const_src_fwd", 4)
+        super().__init__("K1", "xpt_warp_const_src_fwd", 4, 7)
 
     def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
                  valid_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -111,8 +128,14 @@ class WarpKernel(_WarpEntry):
         if torch.is_grad_enabled() and pixel_coords.requires_grad:
             raise ValueError("K1 called directly drops the coordinate gradient: "
                              "use WarpConstSrc.apply (ops.warp.bilinear_sample)")
+        batch, numsrc, height, width, _ = image.shape
+        if batch * numsrc > 65535:
+            raise ValueError(f"K1 takes B*N <= 65535 (one grid row per plane), "
+                             f"got {batch * numsrc}")
         out = torch.empty_like(image)
-        self._launch(image, pixel_coords, valid_mask, out)
+        num_sms = torch.cuda.get_device_properties(image.device).multi_processor_count
+        threads = fwd_threads(batch * numsrc, height * width, num_sms)
+        self._launch(image, pixel_coords, valid_mask, out, launch=(threads,))
         return out
 
 
@@ -120,7 +143,7 @@ class WarpBwdKernel(_WarpEntry):
     """Launches K1-bwd."""
 
     def __init__(self):
-        super().__init__("K1-bwd", "xpt_warp_const_src_bwd", 5)
+        super().__init__("K1-bwd", "xpt_warp_const_src_bwd", 5, 6)
 
     def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
                  valid_mask: torch.Tensor | None,
