@@ -149,7 +149,7 @@ FLOW_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/flowL2": (1e-3, 0.0),
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the kernels redesigned after their first port, and in which pull request
-REDESIGNED = {"K1": "PR 4", "K3": "PR 4"}
+REDESIGNED = {"K1": "PR 4", "K3": "PR 4", "K2": "PR 5", "K4": "PR 5"}
 # run in an earlier checkout: its phases 2 and 8, then each kernel's
 # device ms per train step as one JSON line
 EARLIER_PHASES = """

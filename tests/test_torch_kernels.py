@@ -1,7 +1,7 @@
 """Kernels K1 and K1-bwd (``ops/kernels/warp.py`` + ``csrc/warp.cu``) and
 K2, K3 and K4 (``ops/kernels/correlation.py`` + ``csrc/correlation.cu``)
-against their plain PyTorch versions, and the launches of the rigid and
-flow train steps.
+against their plain PyTorch versions, their launch plans, and the
+launches of the rigid and flow train steps.
 
 This file imports torch and numpy only, so it also runs on a GPU machine
 without JAX. Tests marked ``gpu`` need a CUDA card and skip without one;
@@ -112,26 +112,26 @@ def test_k3_plan_fits_at_pwc_levels(level):
     one stage for all displacement rows where it fits."""
     md, stride = level_displacement(level)
     chans, height, width = ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level
-    plan = kcorr.bwd_cl_plan(32, chans, height, width, md, stride)
+    plan = kcorr.bwd_plan(32, chans, height, width, md, stride)
     n = kcorr.num_displacements(md, stride)
-    groups = plan["tile_x"] // kcorr.BWD_CL_PIX
+    groups = plan["tile_x"] // kcorr.PIX
     chunks = plan["grid"][2] // 32
-    assert plan["tile_x"] % (kcorr.BWD_CL_PIX * stride) == 0
+    assert plan["tile_x"] % (kcorr.PIX * stride) == 0
     assert plan["tile_x"] >= width and plan["grid"] == (1, height, 32 * chunks)
     assert height * 32 * chunks >= 2 * kcorr.H100_SMS
-    assert chunks * plan["chan_blocks"] * kcorr.BWD_CL_CHAN >= chans
-    assert max(groups * plan["chan_blocks"], kcorr.BWD_CL_MIN_THREADS) <= plan["threads"]
-    assert plan["threads"] <= kcorr.BWD_CL_MAX_THREADS
+    assert chunks * plan["chan_blocks"] * kcorr.BWD_CHAN >= chans
+    assert max(groups * plan["chan_blocks"], kcorr.MIN_THREADS) <= plan["threads"]
+    assert plan["threads"] <= kcorr.MAX_THREADS
     assert plan["threads"] % 32 == 0
-    assert plan["smem_bytes"] == kcorr.bwd_cl_smem_bytes(
+    assert plan["smem_bytes"] == kcorr.bwd_smem_bytes(
         plan["tile_x"], plan["chan_blocks"], n, stride, plan["cb_skew"],
         plan["rows_per_stage"], plan["buffers"])
     assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
     # levels 4-6 stage every in-frame displacement row at once; 2-3 one a
     # stage, double-buffered
-    rows_max = kcorr.bwd_cl_rows_max(n, stride, height)
+    rows_max = kcorr.rows_max(n, stride, height)
     assert (plan["rows_per_stage"], plan["buffers"]) == ((rows_max, 1) if level >= 4 else (1, 2))
-    assert kcorr.bwd_cl_bank_conflicts(plan["tile_x"], plan["chan_blocks"], n, stride,
+    assert kcorr.bwd_bank_conflicts(plan["tile_x"], plan["chan_blocks"], n, stride,
                                        plan["cb_skew"]) <= 2
 
 
@@ -143,11 +143,11 @@ def test_k3_plan_fits_at_pwc_levels(level):
     ((1, 300, 4, 128), 4, 1, 132, (1, 38)),  # one channel block each, to fill 132 SMs
 ])
 def test_k3_plan_at_edge_shapes(shape, md, stride, num_sms, tiles):
-    plan = kcorr.bwd_cl_plan(*shape, md, stride, num_sms)
+    plan = kcorr.bwd_plan(*shape, md, stride, num_sms)
     batch, chans, height, width = shape
     assert (plan["grid"][0], plan["grid"][2] // batch) == tiles
     assert plan["grid"][0] * plan["tile_x"] >= width
-    assert plan["grid"][2] // batch * plan["chan_blocks"] * kcorr.BWD_CL_CHAN >= chans
+    assert plan["grid"][2] // batch * plan["chan_blocks"] * kcorr.BWD_CHAN >= chans
     assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
 
 
@@ -156,9 +156,187 @@ def test_k3_plan_refuses_what_cannot_fit():
     needs more than 256 threads: the plan raises, and so the wrapper
     does before it launches."""
     with pytest.raises(ValueError, match="shared memory"):
-        kcorr.bwd_cl_plan(1, 8, 4, 64, 2000, 1)
+        kcorr.bwd_plan(1, 8, 4, 64, 2000, 1)
     with pytest.raises(ValueError, match="threads"):
-        kcorr.bwd_cl_plan(1, 8, 4, 64, 300, 300)
+        kcorr.bwd_plan(1, 8, 4, 64, 300, 300)
+
+
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_k2_plan_fits_at_pwc_levels(level):
+    """K2's tiling at the flow stage's shapes: one block per image row
+    and tile covering it, at most 256 threads with every channel group
+    non-empty, at most 2-way bank conflicts; levels 4-6 stage every
+    in-frame displacement row at once with two blocks per SM of an H100,
+    levels 2-3 one row a stage with four."""
+    md, stride = level_displacement(level)
+    chans, height, width = ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level
+    plan = kcorr.fwd_plan(32, chans, height, width, md, stride)
+    n = kcorr.num_displacements(md, stride)
+    per_group = -(-chans // plan["chan_groups"])
+    assert plan["tile_x"] % (kcorr.PIX * stride) == 0
+    assert plan["tile_x"] >= width and plan["grid"] == (1, height, 32)
+    assert (plan["chan_groups"] - 1) * per_group < chans <= plan["chan_groups"] * per_group
+    working = plan["tile_x"] // kcorr.PIX * plan["rows_per_stage"] * plan["chan_groups"]
+    assert max(working, kcorr.MIN_THREADS) <= plan["threads"] <= kcorr.MAX_THREADS
+    assert plan["threads"] % 32 == 0
+    assert plan["smem_bytes"] == kcorr.fwd_smem_bytes(
+        plan["tile_x"], n, stride, plan["chan_groups"], per_group, plan["rows_per_stage"],
+        plan["skew"], plan["slot_skew"])
+    rows, per_sm = (kcorr.rows_max(n, stride, height), 2) if level >= 4 else (1, 4)
+    assert plan["rows_per_stage"] == rows
+    assert per_sm * (plan["smem_bytes"] + 1024) <= kcorr.SMEM_PER_SM
+    assert kcorr.fwd_bank_conflicts(plan["tile_x"], n, stride, plan["chan_groups"], per_group,
+                                    plan["rows_per_stage"], plan["skew"],
+                                    plan["slot_skew"]) <= 2
+
+
+@pytest.mark.parametrize("shape,md,stride,tiles,rows", [
+    ((1, 5, 5, 7), 4, 3, 1, 2),         # a stride that does not divide md
+    ((2, 8, 3, 130), 0, 1, 2, 1),       # md 0; two x tiles
+    ((1, 300, 4, 128), 4, 1, 2, 1),     # narrower tiles, to fit 227 KB
+    ((1, 2000, 4, 64), 8, 1, 16, 1),    # the narrowest tile, one cluster
+    ((1, 13, 3, 4), 4, 1, 1, 3),        # H and W below 2 * md + 1
+    ((1, 12, 6, 20), 8, 1, 1, 6),       # n = 17: displacements 9 at a time
+])
+def test_k2_plan_at_edge_shapes(shape, md, stride, tiles, rows):
+    plan = kcorr.fwd_plan(*shape, md, stride)
+    batch, chans, height, width = shape
+    assert plan["grid"] == (tiles, height, batch)
+    assert plan["grid"][0] * plan["tile_x"] >= width
+    assert plan["rows_per_stage"] == rows
+    assert plan["chan_groups"] * -(-chans // plan["chan_groups"]) >= chans
+    assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
+
+
+def test_k2_plan_refuses_what_cannot_fit():
+    """A cl tile and one cr row over 227 KB even at the narrowest tile, a
+    stride whose pixel cluster needs more than 256 threads, or no channel:
+    the plan raises, and so the wrapper does before it launches."""
+    with pytest.raises(ValueError, match="shared memory"):
+        kcorr.fwd_plan(1, 512, 4, 64, 64, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        kcorr.fwd_plan(1, 4000, 4, 64, 8, 1)
+    with pytest.raises(ValueError, match="threads"):
+        kcorr.fwd_plan(1, 8, 4, 64, 300, 300)
+    with pytest.raises(ValueError, match="channel"):
+        kcorr.fwd_plan(1, 0, 4, 64, 4, 1)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3, 4, 8])
+def test_pixel_groups_tile_the_row(stride):
+    """The threads' pixels x0 + p * stride (p < 4) over the tile's groups
+    cover each column of the tile once."""
+    tile_x = kcorr.PIX * stride * 3
+    cols = sorted(kcorr._group_x0(gi, stride) + p * stride
+                  for gi in range(tile_x // kcorr.PIX) for p in range(kcorr.PIX))
+    assert cols == list(range(tile_x))
+
+
+def _emulate_k2(cl, cr, md, stride, tile_x):
+    """K2's staging in numpy, block by block (csrc/correlation.cu::
+    corr_fwd_kernel): the cl tile, each in-frame displacement row's cr row
+    from column xt - md with the frame's outside zero, zero planes for the
+    other rows."""
+    batch, chans, height, width = cl.shape
+    n = kcorr.num_displacements(md, stride)
+    row_len = tile_x + (n - 1) * stride
+    out = np.full((batch, n * n, height, width), np.nan, np.float32)
+    for b in range(batch):
+        for y in range(height):
+            i_lo = -(-(md - y) // stride) if md > y else 0
+            i_hi = min(n - 1, (height - 1 - y + md) // stride)
+            for xt in range(0, width, tile_x):
+                x_hi = min(tile_x, width - xt)
+                l_lo, l_hi = max(0, md - xt), min(row_len, width - xt + md)
+                tile = np.zeros((chans, tile_x), np.float32)
+                tile[:, :x_hi] = cl[b, :, y, xt:xt + x_hi]
+                out[b, :, y, xt:xt + x_hi] = 0
+                for i in range(i_lo, i_hi + 1):
+                    win = np.zeros((chans, row_len), np.float32)
+                    win[:, l_lo:l_hi] = cr[b, :, y - md + i * stride, xt - md + l_lo:xt - md + l_hi]
+                    for j in range(n):
+                        vals = (tile * win[:, j * stride:j * stride + tile_x]).sum(0) / chans
+                        out[b, i * n + j, y, xt:xt + x_hi] = vals[:x_hi]
+    return out
+
+
+def _emulate_bwd(g, feats, md, stride, tile_x, dcr):
+    """K3's (dcr False) or K4's (True) staging in numpy, block by block
+    (csrc/correlation.cu::corr_bwd_kernel): the feature row from column
+    xt - lead, the g rows (K4: slot m holds row j = n - 1 - m from column
+    x' - o_j), the frame's outside zero; pixel x at slot m reads window
+    column x + m * stride."""
+    batch, chans, height, width = feats.shape
+    n = kcorr.num_displacements(md, stride)
+    row_len = tile_x + (n - 1) * stride
+    lead = (n - 1) * stride - md if dcr else md
+    out = np.zeros_like(feats)
+    for b in range(batch):
+        for y in range(height):
+            if dcr:
+                i_lo = -(-(y + md - height + 1) // stride) if y + md > height - 1 else 0
+                i_hi = min(n - 1, (y + md) // stride)
+            else:
+                i_lo = -(-(md - y) // stride) if md > y else 0
+                i_hi = min(n - 1, (height - 1 - y + md) // stride)
+            for xt in range(0, width, tile_x):
+                x_hi = min(tile_x, width - xt)
+                l_lo, l_hi = max(0, lead - xt), min(row_len, width - xt + lead)
+                acc = np.zeros((chans, tile_x), np.float32)
+                for i in range(i_lo, i_hi + 1):
+                    row = y + md - i * stride if dcr else y - md + i * stride
+                    win = np.zeros((chans, row_len), np.float32)
+                    win[:, l_lo:l_hi] = feats[b, :, row, xt - lead + l_lo:xt - lead + l_hi]
+                    gs = np.zeros((n, tile_x), np.float32)
+                    for m in range(n):
+                        if dcr:
+                            o = (n - 1 - m) * stride - md
+                            lo, hi = max(0, o - xt), min(x_hi, width - xt + o)
+                            if hi > lo:
+                                gs[m, lo:hi] = g[b, i * n + n - 1 - m, row, xt - o + lo:xt - o + hi]
+                        else:
+                            gs[m, :x_hi] = g[b, i * n + m, y, xt:xt + x_hi]
+                    for m in range(n):
+                        acc += gs[m] * win[:, m * stride:m * stride + tile_x]
+                out[b, :, y, xt:xt + x_hi] = acc[:, :x_hi] / chans
+    return out
+
+
+# the card tests' edge shapes, and levels 2 and 6 of the flow stage cut to
+# two pairs
+EDGE_SHAPES = [
+    ((1, 5, 5, 7), 4, 3),      # a stride that does not divide md, batch 1
+    ((2, 8, 3, 130), 0, 1),    # md 0, two x tiles
+    ((1, 13, 3, 4), 4, 1),     # H and W below 2 * md + 1
+    ((2, 20, 6, 24), 6, 2),    # C not a multiple of 8
+    ((1, 12, 6, 20), 8, 1),    # n = 17: displacements 9 at a time
+    ((2, 16, 5, 34), 8, 4),    # W % 4 != 0 at stride 4: the scalar paths
+]
+
+
+@pytest.mark.parametrize("shape,md,stride", EDGE_SHAPES + [
+    ((2, 32, 32, 128), 32, 8), ((2, 196, 2, 8), 2, 1)])
+def test_k2_k3_k4_tilings_match_plain_on_the_cpu(shape, md, stride):
+    """The index math of the three kernels' staging (row ranges, window
+    origins, K4's per-row g windows), emulated in numpy with each plan's
+    tile, against the plain versions: the arithmetic the card then does
+    on those staged rows is checked by the gpu tests."""
+    rng = np.random.RandomState(sum(shape))
+    cl, cr = (rng.uniform(-1, 1, shape).astype(np.float32) for _ in range(2))
+    n2 = corr.correlation_channels(md, stride)
+    g = rng.uniform(-1, 1, (shape[0], n2) + shape[2:]).astype(np.float32)
+    t_cl, t_cr, t_g = (torch.from_numpy(a) for a in (cl, cr, g))
+    k2_tile = kcorr.fwd_plan(*shape, md, stride)["tile_x"]
+    bwd_tile = kcorr.bwd_plan(*shape, md, stride)["tile_x"]
+    got = {"K2": _emulate_k2(cl, cr, md, stride, k2_tile),
+           "K3": _emulate_bwd(g, cr, md, stride, bwd_tile, dcr=False),
+           "K4": _emulate_bwd(g, cl, md, stride, bwd_tile, dcr=True)}
+    ref = {"K2": corr.correlation_cost_plain(t_cl, t_cr, md, stride),
+           "K3": corr.correlation_grad_cl_plain(t_g, t_cr, md, stride),
+           "K4": corr.correlation_grad_cr_plain(t_g, t_cl, md, stride)}
+    for name in ("K2", "K3", "K4"):
+        r = ref[name].numpy()
+        assert float(np.abs(got[name] - r).max()) <= 1e-5 * float(np.abs(r).max()), name
 
 
 def test_nvcc_missing_is_reported(monkeypatch, tmp_path):
@@ -267,6 +445,38 @@ def test_k3_matches_plain_at_edge_shapes(cuda, shape, md, stride):
     assert float((got - ref).abs().max()) <= 1e-5 * scale
     assert float((got - autograd).abs().max()) <= 1e-5 * scale
     assert torch.equal(got, shifted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,md,stride", EDGE_SHAPES + [
+    ((2, 300, 4, 40), 4, 1),   # several channel chunks (K4), many channel groups (K2)
+    ((1, 300, 4, 128), 4, 1),  # K2: narrower tiles, one row a stage
+    ((2, 24, 6, 40), 8, 4),    # stride, md and W multiples of 4: the float4 paths
+])
+def test_k2_k4_match_plain_at_edge_shapes(cuda, shape, md, stride):
+    """K2 against the plain cost volume, K4 against the plain gradient and
+    the plain cost volume's autograd, on aligned inputs and on views
+    offset by one float (the scalar staging path): the same bits."""
+    generator = torch.Generator().manual_seed(sum(shape) + 1)
+    cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1).to(cuda) for _ in range(2))
+    n2 = corr.correlation_channels(md, stride)
+    g = (torch.rand((shape[0], n2) + shape[2:], generator=generator) * 2 - 1).to(cuda)
+    ref = {"K2": corr.correlation_cost_plain(cl, cr, md, stride),
+           "K4": corr.correlation_grad_cr_plain(g, cl, md, stride)}
+    leaf = cr.clone().requires_grad_(True)
+    (autograd,) = torch.autograd.grad(
+        corr.correlation_cost_plain(cl, leaf, md, stride), leaf, g)
+    before = _corr_counts()
+    got = {"K2": kcorr.K2(cl, cr, md, stride), "K4": kcorr.K4(g, cl, md, stride)}
+    shifted = {"K2": kcorr.K2(_offset_copy(cl, 1), _offset_copy(cr, 1), md, stride),
+               "K4": kcorr.K4(_offset_copy(g, 1), _offset_copy(cl, 1), md, stride)}
+    assert _corr_counts() == (before[0] + 2, before[1], before[2] + 2)
+    torch.cuda.synchronize()
+    for name in ("K2", "K4"):
+        scale = float(ref[name].abs().max())
+        assert float((got[name] - ref[name]).abs().max()) <= 1e-5 * scale, name
+        assert torch.equal(got[name], shifted[name]), name
+    assert float((got["K4"] - autograd).abs().max()) <= 1e-5 * float(ref["K4"].abs().max())
 
 
 @pytest.mark.gpu

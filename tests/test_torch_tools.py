@@ -3,7 +3,9 @@
 import pytest
 import torch
 
-from xpt_mde_tpu_torch.tools import profile_steps
+from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+from xpt_mde_tpu_torch.ops.kernels import correlation as kcorr
+from xpt_mde_tpu_torch.tools import corr_sweep, profile_steps
 
 
 def test_busy_time_is_the_union_of_intervals():
@@ -28,3 +30,25 @@ def test_profile_steps_builds_the_flow_steps_on_the_batches_device():
                                        [{"image5d": torch.zeros(1)}])
     assert list(steps) == ["flow-train", "flow-predict"]
     assert all(label == "PWCNet" and callable(step) for label, step in steps.values())
+
+
+def test_corr_sweep_fails_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert corr_sweep.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_corr_sweep_variants_hold_each_plan(level):
+    """At every PWC level the K2 and K4 variants include the kernel's own
+    plan, and every variant fits 227 KB and 256 threads."""
+    md, stride = level_displacement(level)
+    shape = (32, ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level)
+    for variants, plan, keys in (
+            (list(corr_sweep.k2_variants(*shape[1:], md, stride)),
+             kcorr.fwd_plan(*shape, md, stride), kcorr.FWD_LAUNCH_KEYS),
+            (list(corr_sweep.k4_variants(*shape, md, stride)),
+             kcorr.bwd_plan(*shape, md, stride), kcorr.BWD_LAUNCH_KEYS)):
+        assert any(all(v[k] == plan[k] for k in keys) for v in variants)
+        assert all(v["smem_bytes"] <= kcorr.SMEM_LIMIT for v in variants)
+        assert all(v["threads"] <= kcorr.MAX_THREADS for v in variants)

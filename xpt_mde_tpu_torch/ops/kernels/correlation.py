@@ -9,12 +9,38 @@ autograd, up to the order of the float32 sums. :class:`Correlation` joins
 them into one differentiable op. The TPU's routing gate (``_pallas_pays``),
 its VMEM gates and the dy-row pre-slicing of its backward are not ported:
 every level takes these kernels.
+
+The three are tiled for Hopper, and their launch plans are computed here
+so that CPU tests can check them: a CUDA block owns one image row and a
+tile of up to 128 columns, stages the rows it needs into shared memory
+with ``cp.async``, and a thread owns 4 pixels one stride apart, so that
+each staged value feeds several FMAs from a register.
+
+- K2 (:func:`fwd_plan`): the block stages its cl tile once and, per
+  stage, the cr rows y + dy_i of its in-frame displacement rows i with
+  their dx halo; a thread owns 4 pixels times the displacements j of one
+  row i and walks a group of channels; the block's channel groups are
+  summed through shared memory in a fixed order and the outputs go out
+  as whole rows (float4 where aligned). Displacement rows outside the
+  frame are written as zero planes without compute.
+- K3 and K4 (:func:`bwd_plan`, one plan for both): the block also owns a
+  chunk of channels and walks its in-frame displacement rows; a stage
+  holds the feature rows (cr for K3, cl for K4) with their halo and the
+  n g rows of the row (for K4 each from its own column window x' - dx_j
+  and in reversed order, so the two kernels share one inner loop); a
+  thread owns 4 pixels times 8 channels.
+
+Each C entry recomputes its plan's layout and refuses a plan that does
+not match; a shape that no plan fits raises ``ValueError`` here, before
+any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from xpt_mde_tpu_torch.ops.kernels.build import load_library
@@ -31,19 +57,34 @@ def num_displacements(max_displacement: int, stride: int) -> int:
     return len(range(-max_displacement, max_displacement + 1, stride))
 
 
-# K3's tiling (csrc/correlation.cu::corr_bwd_cl_kernel): a thread owns
-# BWD_CL_PIX pixels one stride apart times BWD_CL_CHAN channels; a CUDA
-# block one row of BWD_CL_TILE_X columns or fewer and a chunk of channels,
-# split over more blocks until the grid has two blocks per SM. A stage
-# copies one or more displacement rows' g and cr rows into shared memory:
-# all of a block's in-frame rows at once where they fit BWD_CL_STAGE_BYTES,
-# else one row per stage, double-buffered.
-BWD_CL_PIX, BWD_CL_CHAN, BWD_CL_DISP = 4, 8, 9
-BWD_CL_TILE_X = 128
-BWD_CL_MIN_THREADS, BWD_CL_MAX_THREADS = 128, 256
-BWD_CL_STAGE_BYTES = 80 * 1024
 SMEM_LIMIT = 232448  # 227 KB, the most one block of an H100 may take
+SMEM_PER_SM = 233472  # 228 KB per SM, of which each resident block takes 1 KB more
 H100_SMS = 132
+# a thread's pixels (one stride apart) and the displacements it takes at once
+PIX, DISP = 4, 9
+TILE_X = 128
+MIN_THREADS, MAX_THREADS = 128, 256
+
+# K3's and K4's tiling (csrc/correlation.cu::corr_bwd_kernel): a thread
+# owns PIX pixels times BWD_CHAN channels; a CUDA block one row of TILE_X
+# columns or fewer and a chunk of channels, split over more blocks until
+# the grid has two blocks per SM. A stage copies one or more displacement
+# rows' g and feature rows into shared memory: all of a block's in-frame
+# rows at once where they fit BWD_STAGE_BYTES, else one row per stage,
+# double-buffered.
+BWD_CHAN = 8
+BWD_STAGE_BYTES = 80 * 1024
+# K2's tiling (csrc/correlation.cu::corr_fwd_kernel): every in-frame
+# displacement row in one stage where the block fits FWD_SMEM_BYTES (two
+# blocks an SM), else one row a stage within FWD_ROW_SMEM_BYTES (four
+# blocks an SM, which beat two at levels 2 and 3)
+FWD_SMEM_BYTES = SMEM_PER_SM // 2 - 1024
+FWD_ROW_SMEM_BYTES = SMEM_PER_SM // 4 - 1024
+# the launch ints of the C entries, after md and stride
+FWD_LAUNCH_KEYS = ("tile_x", "rows_per_stage", "chan_groups", "skew", "slot_skew", "threads",
+                   "smem_bytes")
+BWD_LAUNCH_KEYS = ("tile_x", "chan_blocks", "cb_skew", "rows_per_stage", "buffers", "threads",
+                   "smem_bytes")
 
 
 def _padded(col: int, stride: int) -> int:
@@ -53,74 +94,108 @@ def _padded(col: int, stride: int) -> int:
     return col + (col >> 5) * (stride & 31)
 
 
-def _bwd_cl_layout(tile_x: int, chan_blocks: int, n: int, stride: int, cb_skew: int):
-    """(cr row pitch, channel-block pitch, g row pitch, floats per slot),
-    as ``bwd_cl_layout`` in csrc/correlation.cu."""
-    cr_pitch = _padded(tile_x + (n - 1) * stride - 1, stride) + 1
-    cb_pitch = BWD_CL_CHAN * cr_pitch + cb_skew
-    g_pitch = _padded(tile_x - 1, stride) + 1
-    slot = -(-(chan_blocks * cb_pitch + n * g_pitch) // 4) * 4
-    return cr_pitch, cb_pitch, g_pitch, slot
+def _round4(floats: int) -> int:
+    return -(-floats // 4) * 4
 
 
-def bwd_cl_rows_max(n: int, stride: int, height: int) -> int:
+def _row_pitch(cols: int, stride: int) -> int:
+    """Floats of one staged row of ``cols`` columns, padding included."""
+    return _padded(cols - 1, stride) + 1
+
+
+def _cluster_tile(width: int, stride: int) -> tuple[int, int]:
+    """(cluster, tile_x): a thread's 4 pixels one stride apart make
+    clusters of 4 * stride columns; the tile is the fewest clusters that
+    cover min(width, TILE_X)."""
+    cluster = PIX * stride
+    return cluster, cluster * -(-min(width, TILE_X) // cluster)
+
+
+def rows_max(n: int, stride: int, height: int) -> int:
     """The most in-frame displacement rows one image row can have."""
     return min(n, -(-height // stride))
 
 
-def bwd_cl_smem_bytes(tile_x: int, chan_blocks: int, n: int, stride: int,
-                      cb_skew: int = 0, rows_per_stage: int = 1, buffers: int = 2) -> int:
-    """Shared memory of one K3 block: ``buffers`` buffers of
+def _group_x0(gi: int, stride: int) -> int:
+    """Pixel group ``gi``'s first column: groups tile the row in clusters
+    of 4 * stride columns, ``stride`` groups per cluster."""
+    return (gi // stride) * (PIX * stride) + gi % stride
+
+
+def _bwd_layout(tile_x: int, chan_blocks: int, n: int, stride: int, cb_skew: int):
+    """(feature row pitch, channel-block pitch, g row pitch, floats per
+    slot), as ``bwd_layout`` in csrc/correlation.cu."""
+    feat_pitch = _row_pitch(tile_x + (n - 1) * stride, stride)
+    cb_pitch = BWD_CHAN * feat_pitch + cb_skew
+    g_pitch = _row_pitch(tile_x, stride)
+    slot = _round4(chan_blocks * cb_pitch + n * g_pitch)
+    return feat_pitch, cb_pitch, g_pitch, slot
+
+
+def bwd_smem_bytes(tile_x: int, chan_blocks: int, n: int, stride: int,
+                   cb_skew: int = 0, rows_per_stage: int = 1, buffers: int = 2) -> int:
+    """Shared memory of one K3 or K4 block: ``buffers`` buffers of
     ``rows_per_stage`` slots."""
-    slot = _bwd_cl_layout(tile_x, chan_blocks, n, stride, cb_skew)[3]
+    slot = _bwd_layout(tile_x, chan_blocks, n, stride, cb_skew)[3]
     return buffers * rows_per_stage * slot * 4
 
 
-def bwd_cl_bank_conflicts(tile_x: int, chan_blocks: int, n: int, stride: int,
-                          cb_skew: int) -> int:
-    """The most distinct shared-memory words that the first warp's lanes
-    read from one bank in one load of their cr window (the kernel's
-    ``row_q[w_addr[m]]``, any m): 1 means conflict-free."""
-    _, cb_pitch, _, _ = _bwd_cl_layout(tile_x, chan_blocks, n, stride, cb_skew)
-    groups = tile_x // BWD_CL_PIX
-    lanes = [(t % groups, t // groups) for t in range(min(32, groups * chan_blocks))]
+def _conflicts(addresses: np.ndarray) -> int:
+    """The most distinct shared-memory words that one load's lanes read
+    from one bank: ``addresses`` [loads, lanes]; 1 means conflict-free."""
     worst = 1
-    for m in range(BWD_CL_DISP + BWD_CL_PIX - 1):
-        banks: dict[int, set] = {}
-        for gi, cb in lanes:
-            x0 = (gi // stride) * (BWD_CL_PIX * stride) + gi % stride
-            addr = cb * cb_pitch + _padded(x0 + m * stride, stride)
-            banks.setdefault(addr % 32, set()).add(addr)
-        worst = max(worst, max(len(words) for words in banks.values()))
+    for row in addresses:
+        words = np.unique(row)
+        worst = max(worst, int(np.bincount(words % 32, minlength=32).max()))
     return worst
 
 
-def bwd_cl_plan(batch: int, channels: int, height: int, width: int,
-                max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
-    """K3's launch for these shapes: ``tile_x`` (a multiple of 4 * stride
-    covering up to 128 columns), ``chan_blocks`` (blocks of 8 channels per
-    CUDA block: as many as 256 threads and 227 KB allow, fewer where the
-    grid would have under two blocks per SM), ``cb_skew`` (the spacing of
-    the channel blocks in shared memory with the fewest bank conflicts),
-    ``rows_per_stage`` and ``buffers`` (every in-frame displacement row in
-    one buffer where that fits BWD_CL_STAGE_BYTES, else one row per stage
-    in two), ``threads``, ``smem_bytes`` and ``grid``. Narrows
+def bwd_bank_conflicts(tile_x: int, chan_blocks: int, n: int, stride: int,
+                       cb_skew: int) -> int:
+    """The most distinct shared-memory words that the first warp's lanes
+    read from one bank in one load of their feature window (the kernel's
+    ``row_q[w_addr[m]]``, any m): 1 means conflict-free."""
+    _, cb_pitch, _, _ = _bwd_layout(tile_x, chan_blocks, n, stride, cb_skew)
+    groups = tile_x // PIX
+    lanes = [(t % groups, t // groups) for t in range(min(32, groups * chan_blocks))]
+    return _conflicts(np.array([
+        [cb * cb_pitch + _padded(_group_x0(gi, stride) + m * stride, stride)
+         for gi, cb in lanes] for m in range(DISP + PIX - 1)]))
+
+
+def bwd_plan(batch: int, channels: int, height: int, width: int,
+             max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+    """K3's and K4's launch for these shapes: ``tile_x`` (a multiple of
+    4 * stride covering up to 128 columns), ``chan_blocks`` (blocks of 8
+    channels per CUDA block: as many as 256 threads and 227 KB allow, fewer
+    where the grid would have under two blocks per SM), ``cb_skew`` (the
+    spacing of the channel blocks in shared memory with the fewest bank
+    conflicts), ``rows_per_stage`` and ``buffers`` (every in-frame
+    displacement row in one buffer where that fits BWD_STAGE_BYTES, else
+    one row per stage in two), ``threads``, ``smem_bytes`` and ``grid``.
+    The two kernels read the same layout, so one plan serves both. Narrows
     the channels, then the tile, until one row per stage fits 227 KB;
     raises ValueError where even one cluster of one channel block does not,
-    or the grid is too large."""
+    or the grid is too large. Computed once per shape: the wrappers ask
+    at every launch."""
+    return dict(_bwd_plan(batch, channels, height, width, max_displacement, stride, num_sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(batch: int, channels: int, height: int, width: int, max_displacement: int,
+              stride: int, num_sms: int) -> tuple:
     n = num_displacements(max_displacement, stride)
-    cluster = BWD_CL_PIX * stride
-    tile_x = cluster * -(-min(width, BWD_CL_TILE_X) // cluster)
-    all_blocks = -(-channels // BWD_CL_CHAN)
-    rows_max = bwd_cl_rows_max(n, stride, height)
+    cluster, tile_x = _cluster_tile(width, stride)
+    all_blocks = -(-channels // BWD_CHAN)
+    most_rows = rows_max(n, stride, height)
 
     def smem(chan_blocks, cb_skew=31, rows=1):  # skew 31: room for any skew
-        buffers = 1 if rows >= rows_max else 2
-        return bwd_cl_smem_bytes(tile_x, chan_blocks, n, stride, cb_skew, rows, buffers)
+        buffers = 1 if rows >= most_rows else 2
+        return bwd_smem_bytes(tile_x, chan_blocks, n, stride, cb_skew, rows, buffers)
 
     while True:
-        groups = tile_x // BWD_CL_PIX
-        chan_blocks = min(all_blocks, max(1, BWD_CL_MAX_THREADS // groups))
+        groups = tile_x // PIX
+        chan_blocks = min(all_blocks, max(1, MAX_THREADS // groups))
         while chan_blocks > 1 and smem(chan_blocks) > SMEM_LIMIT:
             chan_blocks -= 1
         if smem(chan_blocks) <= SMEM_LIMIT or tile_x == cluster:
@@ -132,24 +207,162 @@ def bwd_cl_plan(batch: int, channels: int, height: int, width: int,
         chan_blocks = -(-all_blocks // chunks)
     skews = range(0, 32, 4) if stride % 4 == 0 else range(32)
     cb_skew = min(skews, key=lambda k: (
-        bwd_cl_bank_conflicts(tile_x, chan_blocks, n, stride, k), k))
-    rows_per_stage = next((r for r in range(rows_max, 0, -1)
-                           if smem(chan_blocks, cb_skew, r) <= BWD_CL_STAGE_BYTES), 1)
-    buffers = 1 if rows_per_stage >= rows_max else 2
+        bwd_bank_conflicts(tile_x, chan_blocks, n, stride, k), k))
+    rows_per_stage = next((r for r in range(most_rows, 0, -1)
+                           if smem(chan_blocks, cb_skew, r) <= BWD_STAGE_BYTES), 1)
+    buffers = 1 if rows_per_stage >= most_rows else 2
     smem_bytes = smem(chan_blocks, cb_skew, rows_per_stage)
-    threads = max(BWD_CL_MIN_THREADS, -(-groups * chan_blocks // 32) * 32)
+    threads = max(MIN_THREADS, -(-groups * chan_blocks // 32) * 32)
     if smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"K3 needs {smem_bytes} bytes of shared memory at md "
+        raise ValueError(f"K3/K4 need {smem_bytes} bytes of shared memory at md "
                          f"{max_displacement}, stride {stride}, more than {SMEM_LIMIT}")
-    if threads > BWD_CL_MAX_THREADS:
-        raise ValueError(f"K3 needs {threads} threads per block at stride {stride}, "
-                         f"more than {BWD_CL_MAX_THREADS}")
+    if threads > MAX_THREADS:
+        raise ValueError(f"K3/K4 need {threads} threads per block at stride {stride}, "
+                         f"more than {MAX_THREADS}")
     grid = (-(-width // tile_x), height, batch * -(-all_blocks // chan_blocks))
     if grid[1] > 65535 or grid[2] > 65535:
-        raise ValueError(f"K3's grid {grid} exceeds 65535 rows or chunks")
-    return {"tile_x": tile_x, "chan_blocks": chan_blocks, "cb_skew": cb_skew,
-            "rows_per_stage": rows_per_stage, "buffers": buffers, "threads": threads,
-            "smem_bytes": smem_bytes, "grid": grid}
+        raise ValueError(f"K3/K4's grid {grid} exceeds 65535 rows or chunks")
+    return (("tile_x", tile_x), ("chan_blocks", chan_blocks), ("cb_skew", cb_skew),
+            ("rows_per_stage", rows_per_stage), ("buffers", buffers), ("threads", threads),
+            ("smem_bytes", smem_bytes), ("grid", grid))
+
+
+def _fwd_layout(tile_x: int, n: int, stride: int, chan_groups: int, chans_per_group: int,
+                rows_per_stage: int, skew: int, slot_skew: int) -> dict:
+    """K2's shared memory in floats, as ``fwd_layout`` in
+    csrc/correlation.cu: the cl tile (one row of ``cl_pitch`` per
+    channel), then the stage slots (one per displacement row: one cr row
+    of ``cr_pitch`` per channel, its dx halo included), then, from a
+    float4 boundary, the channel groups' partial sums (``part_pitch`` per
+    output row)."""
+    chans = chan_groups * chans_per_group
+    cl_pitch = _row_pitch(tile_x, stride) + skew
+    cr_pitch = _row_pitch(tile_x + (n - 1) * stride, stride) + skew
+    return {"cl_pitch": cl_pitch, "cr_pitch": cr_pitch, "cl_area": _round4(chans * cl_pitch),
+            "slot": _round4(chans * cr_pitch) + slot_skew,
+            "part_pitch": _row_pitch(tile_x, stride),
+            "part": chan_groups * rows_per_stage * n * _row_pitch(tile_x, stride)}
+
+
+def fwd_smem_bytes(tile_x: int, n: int, stride: int, chan_groups: int, chans_per_group: int,
+                   rows_per_stage: int, skew: int = 0, slot_skew: int = 0) -> int:
+    """Shared memory of one K2 block."""
+    lay = _fwd_layout(tile_x, n, stride, chan_groups, chans_per_group, rows_per_stage,
+                      skew, slot_skew)
+    return (_round4(lay["cl_area"] + rows_per_stage * lay["slot"]) + lay["part"]) * 4
+
+
+def fwd_bank_conflicts(tile_x: int, n: int, stride: int, chan_groups: int,
+                       chans_per_group: int, rows_per_stage: int, skew: int,
+                       slot_skew: int) -> int:
+    """The most distinct shared-memory words that one warp's lanes read
+    from one bank in one load of K2's inner loop (its cl values and its
+    cr window, any warp of the block): 1 means conflict-free."""
+    lay = _fwd_layout(tile_x, n, stride, chan_groups, chans_per_group, rows_per_stage,
+                      skew, slot_skew)
+    groups = tile_x // PIX
+    working = groups * rows_per_stage * chan_groups
+    t = np.arange(working)
+    x0 = _group_x0(t % groups, stride)
+    row = t // groups % rows_per_stage
+    chan = t // (groups * rows_per_stage) * chans_per_group
+    loads = [chan * lay["cl_pitch"] + _padded(x0 + p * stride, stride) for p in range(PIX)]
+    loads += [row * lay["slot"] + chan * lay["cr_pitch"] + _padded(x0 + m * stride, stride)
+              for m in range(DISP + PIX - 1)]
+    loads = np.stack(loads)
+    return max(_conflicts(loads[:, w:w + 32]) for w in range(0, working, 32))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(batch: int, channels: int, height: int, width: int, max_displacement: int,
+              stride: int) -> tuple:
+    if min(channels, width) < 1:
+        raise ValueError(f"K2 needs at least one channel and one column, got {channels} "
+                         f"and {width}")
+    n = num_displacements(max_displacement, stride)
+    cluster, tile_x = _cluster_tile(width, stride)
+    most_rows = rows_max(n, stride, height)
+
+    def smem(rows, chan_groups):
+        return fwd_smem_bytes(tile_x, n, stride, chan_groups, -(-channels // chan_groups),
+                              rows)
+
+    # the widest tile whose cl tile and one displacement row fit 227 KB
+    while smem(1, 1) > SMEM_LIMIT and tile_x > cluster:
+        tile_x -= cluster
+    groups = tile_x // PIX
+    if smem(1, 1) > SMEM_LIMIT:
+        raise ValueError(f"K2 needs {smem(1, 1)} bytes of shared memory for {channels} "
+                         f"channels at md {max_displacement}, stride {stride}, more than "
+                         f"{SMEM_LIMIT}")
+    if groups > MAX_THREADS:
+        raise ValueError(f"K2 needs {groups} threads per block at stride {stride}, more "
+                         f"than {MAX_THREADS}")
+    # every in-frame row in one stage where two blocks still fit an SM, with
+    # as many channel groups as 256 threads and that budget allow; else one
+    # row a stage and as many groups as 128 threads and four blocks an SM
+    # allow
+    if smem(most_rows, 1) <= FWD_SMEM_BYTES:
+        rows, budget, threads = most_rows, FWD_SMEM_BYTES, MAX_THREADS
+    else:
+        rows, budget, threads = 1, max(FWD_ROW_SMEM_BYTES, smem(1, 1)), MIN_THREADS
+    chan_groups = next((c for c in range(min(channels, threads // (groups * rows)), 0, -1)
+                        if smem(rows, c) <= budget), 1)
+    launch = fwd_launch(channels, height, width, max_displacement, stride, tile_x, rows,
+                        chan_groups, budget)
+    grid = (-(-width // tile_x), height, batch)
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"K2's grid {grid} exceeds 65535 rows or images")
+    return tuple(launch.items()) + (("grid", grid),)
+
+
+def fwd_launch(channels: int, height: int, width: int, max_displacement: int, stride: int,
+               tile_x: int, rows_per_stage: int, chan_groups: int,
+               budget: int = SMEM_LIMIT) -> dict:
+    """K2's launch ints for a chosen tile, rows per stage and channel
+    groups (:func:`fwd_plan`'s choice, or another one to time): the
+    groups evened out so that none is empty, the skews with the fewest
+    bank conflicts that keep the block within ``budget`` bytes,
+    ``threads`` and ``smem_bytes``, in the C entry's order."""
+    n = num_displacements(max_displacement, stride)
+    rows = rows_per_stage
+    per_group = -(-channels // chan_groups)
+    chan_groups = -(-channels // per_group)  # no group left empty
+    steps = range(0, 32, 4) if stride % 4 == 0 else range(32)
+
+    def smem(skew, slot_skew):
+        return fwd_smem_bytes(tile_x, n, stride, chan_groups, per_group, rows, skew, slot_skew)
+
+    def best(candidates):
+        return min((k for k in candidates if smem(*k) <= max(budget, smem(0, 0))),
+                   key=lambda k: (fwd_bank_conflicts(tile_x, n, stride, chan_groups,
+                                                     per_group, rows, *k), k))
+
+    skew = best((k, 0) for k in steps)[0]
+    slot_skew = best((skew, k) for k in steps)[1] if rows > 1 else 0
+    working = tile_x // PIX * rows * chan_groups
+    threads = max(MIN_THREADS, -(-working // 32) * 32)
+    return {"tile_x": tile_x, "rows_per_stage": rows, "chan_groups": chan_groups,
+            "skew": skew, "slot_skew": slot_skew, "threads": threads,
+            "smem_bytes": smem(skew, slot_skew)}
+
+
+def fwd_plan(batch: int, channels: int, height: int, width: int,
+             max_displacement: int, stride: int) -> dict:
+    """K2's launch for these shapes: ``tile_x`` (a multiple of 4 * stride
+    covering up to 128 columns, narrower where the cl tile and one cr row
+    would not fit 227 KB), ``rows_per_stage`` (every in-frame
+    displacement row where the block then still fits FWD_SMEM_BYTES, so
+    two blocks share an SM, else one), ``chan_groups`` (the thread groups
+    that split the channel sum: as many as 256 threads and that budget
+    allow, or with one row a stage 128 threads and FWD_ROW_SMEM_BYTES, so
+    four blocks share an SM), ``skew`` and
+    ``slot_skew`` (padding of the channel rows and of the stage slots with
+    the fewest bank conflicts), ``threads``, ``smem_bytes`` and ``grid``.
+    Raises ValueError where even one cluster of columns does not fit, or
+    the grid is too large. Computed once per shape: the wrapper asks at
+    every launch."""
+    return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride))
 
 
 def _check(feats, other, max_displacement, stride, grad_out=None):
@@ -184,7 +397,7 @@ class _CorrEntry:
     """One C entry of ``correlation.cu``, built at first use. ``launches``
     counts the launches this wrapper made."""
 
-    def __init__(self, name: str, entry: str, n_launch_ints: int = 0):
+    def __init__(self, name: str, entry: str, n_launch_ints: int):
         self.name = name
         self.launches = 0
         self.build_log = ""
@@ -203,7 +416,7 @@ class _CorrEntry:
             self._fn = fn
         return self._fn
 
-    def _launch(self, first, second, out, feats_shape, max_displacement, stride, launch=()):
+    def _launch(self, first, second, out, feats_shape, max_displacement, stride, launch):
         """Call the entry with the three pointers, the feature maps' shape,
         md, stride, the ``launch`` ints and the current stream; raise on a
         CUDA error."""
@@ -221,10 +434,10 @@ class _CorrEntry:
 
 
 class CorrKernel(_CorrEntry):
-    """Launches K2."""
+    """Launches K2, tiled by :func:`fwd_plan`."""
 
     def __init__(self):
-        super().__init__("K2", "xpt_corr_fwd")
+        super().__init__("K2", "xpt_corr_fwd", len(FWD_LAUNCH_KEYS))
 
     def __call__(self, cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
                  stride: int) -> torch.Tensor:
@@ -238,12 +451,25 @@ class CorrKernel(_CorrEntry):
         n = num_displacements(max_displacement, stride)
         batch, _, height, width = cl.shape
         out = torch.empty((batch, n * n, height, width), dtype=cl.dtype, device=cl.device)
-        return self._launch(cl, cr, out, cl.shape, max_displacement, stride)
+        if out.numel() == 0:
+            return out
+        plan = fwd_plan(*cl.shape, max_displacement, stride)
+        return self.launch(cl, cr, out, max_displacement, stride, plan)
+
+    def launch(self, cl, cr, out, max_displacement, stride, plan):
+        """Launch K2 with ``plan`` (:func:`fwd_plan`'s or
+        :func:`fwd_launch`'s keys) on checked inputs and ``out``."""
+        launch = tuple(plan[k] for k in FWD_LAUNCH_KEYS)
+        return self._launch(cl, cr, out, cl.shape, max_displacement, stride, launch)
 
 
 class CorrGradKernel(_CorrEntry):
     """Launches K3 (the gradient of the left features, from the right
-    ones) or K4 (the gradient of the right features, from the left ones)."""
+    ones) or K4 (the gradient of the right features, from the left ones),
+    both tiled by :func:`bwd_plan`."""
+
+    def __init__(self, name: str, entry: str):
+        super().__init__(name, entry, len(BWD_LAUNCH_KEYS))
 
     def __call__(self, grad_out: torch.Tensor, feats: torch.Tensor,
                  max_displacement: int, stride: int) -> torch.Tensor:
@@ -252,31 +478,23 @@ class CorrGradKernel(_CorrEntry):
         dcr (K4), [B,C,H,W]."""
         grad_out = grad_out.contiguous()
         _check(feats, feats, max_displacement, stride, grad_out)
-        launch = self._plan(feats.shape, max_displacement, stride, feats.device)
-        out = torch.empty_like(feats)
+        if feats.numel() == 0:
+            return torch.empty_like(feats)
+        num_sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
+        plan = bwd_plan(*feats.shape, max_displacement, stride, num_sms)
+        return self.launch(grad_out, feats, torch.empty_like(feats), max_displacement, stride,
+                           plan)
+
+    def launch(self, grad_out, feats, out, max_displacement, stride, plan):
+        """Launch with ``plan`` (:func:`bwd_plan`'s keys) on checked
+        inputs and ``out``."""
+        launch = tuple(plan[k] for k in BWD_LAUNCH_KEYS)
         return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride,
                             launch)
 
-    def _plan(self, feats_shape, max_displacement, stride, device) -> tuple:
-        """The launch ints the entry takes after md and stride: none."""
-        return ()
-
-
-class CorrGradClKernel(CorrGradKernel):
-    """Launches K3, tiled by :func:`bwd_cl_plan`."""
-
-    def __init__(self):
-        super().__init__("K3", "xpt_corr_bwd_cl", 7)
-
-    def _plan(self, feats_shape, max_displacement, stride, device) -> tuple:
-        num_sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = bwd_cl_plan(*feats_shape, max_displacement, stride, num_sms)
-        return (plan["tile_x"], plan["chan_blocks"], plan["cb_skew"], plan["rows_per_stage"],
-                plan["buffers"], plan["threads"], plan["smem_bytes"])
-
 
 K2 = CorrKernel()
-K3 = CorrGradClKernel()
+K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl")
 K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr")
 
 
