@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rigid predict, eval and train paths and its
-flow predict and train paths once on one NVIDIA GPU.
+"""Drive the PyTorch port once on one NVIDIA GPU: its rigid predict, eval
+and train steps, its flow predict and train steps, its joint train step,
+and its entry point, the plan driver (train by plan over a rigid, a flow
+and a joint row on synthetic shards, then predict and evaluate).
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -58,9 +60,32 @@ one compiler per source started together, and prints one line per phase:
     128x512: checked as in phase 7 (FLOW_LOSS_TOL);
 12. timings, each tagged with the card's name and power limit, and the
     flow train step's device busy time, kernels per step and idle share
-    (``tools/profile_steps.py``).
+    (``tools/profile_steps.py``);
+13. joint train: EfficientNetB5 + PoseNetImproved + PWCNet, JOINT_RECIPE
+    at the T1 scale weights, Adam at 1e-4 with the flownet frozen,
+    JOINT_TRAIN_STEPS steps over the uint8-coded batches: finite losses,
+    per step JOINT_PER_STEP launches (K2 forward only, K1 for the 4
+    synthesis and the 4 flow warps, K1-bwd for the synthesis warps, no K3
+    or K4), the flownet's parameters bit-unchanged; images/s and peak
+    memory;
+14. one joint train step on the card, on the CPU and on the CPU in
+    float64 (the pose head at CHECK_TWIST, the flow heads at CHECK_FLOW),
+    checked as in phase 7 (JOINT_LOSS_TOL);
+15. the plan: synthetic shards at 128x512 (PLAN_SNIPPETS per split,
+    written by the port's ``ShardWriter`` in the schema of the JAX
+    package's ``ShardMaker("synthetic")``) in a temporary directory under
+    ``build/``; ``train_by_plan`` through the native shard loader over a
+    rigid, a flow and a joint row of one epoch of 4 steps at batch 8
+    (first the two pretraining rows, then the whole plan): history.csv's
+    3 rows, every row's "latest" and "ep{NN}" files, the joint row
+    starting from the rigid row's depth and pose weights, its flownet
+    bit-equal to the flow row's before and after it, and a third call
+    that skips every row and launches nothing; then ``predict_by_plan``
+    and ``evaluate_by_plan`` over the test split with the joint nets:
+    finite Eigen depth metrics and pose errors. Every kernel must launch
+    in this run, which is the slice's main path; images/s per row.
 
-Then a JSON line with each kernel's launches on its train path, error,
+Then a JSON line with each kernel's launches on the plan run, error,
 device time, bound, the plain version's, the nearest library call's and
 the earlier checkout's times (``redesigned_in`` names the pull request
 that redesigned a kernel), the ``nvidia-smi`` name/power line, and last
@@ -73,14 +98,19 @@ imported, or when any phase fails. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 BATCH, HEIGHT, WIDTH, NUM_BATCHES = 8, 128, 512, 3
 SCALES = (1, 2, 4, 8)
@@ -144,6 +174,29 @@ CORR_RTOL = 1e-5
 # sums the squares of the same weights in another order
 FLOW_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/flowL2": (1e-3, 0.0),
                  "loss/flow_reg": (1e-5, 0.0)}
+# the joint stage (the bench's build_stage("joint")): the combined loss,
+# the flownet frozen; per step K2 runs forward only, K1 for the 4
+# synthesis and the 4 flow warps, K1-bwd for the synthesis warps alone
+# (the flow warps' coordinates need no gradient), K3 and K4 never
+JOINT_RECIPE = {"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0}
+JOINT_TRAIN_STEPS = 6
+JOINT_PER_STEP = {"K1": 8, "K1-bwd": 4, "K2": 5, "K3": 0, "K4": 0}
+# GPU vs CPU joint losses, as LOSS_TOL: the combined losses are means of
+# millions of terms like L1 and SSIM (a pixel whose static and flow errors
+# tie within the devices' rounding may count on one and not the other, a
+# few parts per million of the terms)
+JOINT_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/cmbL1": (1e-3, 0.0),
+                  "loss/cmbSSIM": (1e-3, 0.0), "loss/smoothe": (1e-2, 1e-9)}
+# the joint loss's gradient at the same predictions, GPU vs CPU: a pixel
+# whose static and flow errors tie within the warps' rounding (~1e-7) may
+# count on one device and not the other, and its gradient then differs by
+# its whole value; a few such pixels in millions move the gradient's norm
+# by ~sqrt(their share), so (relative error, share of elements off by
+# more than 1e-3 of the largest)
+JOINT_LOSS_GRAD_RULE = (1e-2, 1e-4)
+# the plan's synthetic shards (snippets per split) and its rows' epochs;
+# at batch 8 each row trains 4 steps and validates 1
+PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
 # device memory and for float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -377,19 +430,21 @@ def _check_losses(gpu, cpu, label, tol=LOSS_TOL):
     return losses, rel
 
 
-def _loss_grad_diff(loss, preds, feats, device, pred_keys):
+def _loss_grad_diff(loss, preds, feats, device, pred_keys, fixed_keys=()):
     """GPU vs CPU gradient of the loss with respect to the same predictions
-    (``pred_keys``: the depths and twists, or the flows): (relative error
-    of the whole gradient, number of elements, number off by more than
-    1e-3 of the largest |gradient|). It separates the loss and warp from
-    the networks' backward."""
+    (``pred_keys``: the depths and twists, or the flows; ``fixed_keys``:
+    predictions the loss reads but does not differentiate, the frozen
+    flownet's flows): (relative error of the whole gradient, number of
+    elements, number off by more than 1e-3 of the largest |gradient|). It
+    separates the loss and warp from the networks' backward."""
     import torch
 
     from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
 
     grads = []
     for dev in (device, torch.device("cpu")):
-        leaves, inputs = [], {}
+        leaves = []
+        inputs = {key: [t.detach().to(dev) for t in preds[key]] for key in fixed_keys}
         for key in pred_keys:
             tensors = preds[key] if isinstance(preds[key], list) else [preds[key]]
             tensors = [t.detach().to(dev).requires_grad_(True) for t in tensors]
@@ -430,11 +485,21 @@ def _set_flow_heads(model, device):
                 module.Conv_5.Conv_0.bias.copy_(torch.tensor(CHECK_FLOW, device=device))
 
 
+def _set_pose_and_flow_heads(model, device):
+    """The joint nets: the pose head at CHECK_TWIST, the flow heads at CHECK_FLOW."""
+    _set_pose_twist(model, device)
+    _set_flow_heads(model, device)
+
+
 def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
-                       pred_keys, loss_tol, step_kwargs=None):
-    """Phases 7 and 11: one train step from the same seeded weights
-    (``prepare`` sets the head's bias), no augmentation, on the card, on
-    the CPU, and on the CPU in float64 as the reference."""
+                       pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
+                       loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
+    """Phases 7, 11 and 14: one train step from the same seeded weights
+    (``prepare`` sets the heads' biases), no augmentation, on the card, on
+    the CPU, and on the CPU in float64 as the reference. The gradients of
+    frozen nets' parameters (None) are not compared. ``loss_grad_rule``:
+    (relative error, share of elements off by more than 1e-3 of the
+    largest) allowed for the loss's gradient at the same predictions."""
     import numpy as np
     import torch
 
@@ -452,7 +517,8 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
         step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model),
                                **(step_kwargs or {}))
         metrics = step({k: v.to(dev, dtype) for k, v in feats.items()})
-        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+                 if p.grad is not None}
         stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))}
         results[dev_label] = (metrics, grads, stats, model, initial)
@@ -463,7 +529,8 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
     model.load_state_dict(initial)
     with torch.no_grad():
         preds = model.train()({"image5d": feats["image5d"]})
-    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device, pred_keys)
+    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device, pred_keys,
+                                               fixed_keys)
 
     ref = results["cpu f64"][1]
     errors = {dev_label: _rel_errors(results[dev_label][1], ref) for dev_label in ("gpu", "cpu")}
@@ -481,13 +548,14 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
     batch = feats["image5d"].shape[0]
     print(f"phase {phase_no} {label} cross-check: one step at batch {batch}, GPU vs CPU "
           f"losses rel diff {json.dumps(rel)} (GPU {json.dumps(losses)}); loss gradient at "
-          f"the same predictions: rel error {loss_rel:.3g} <= {LOSS_GRAD_RTOL} ({n_off} of "
+          f"the same predictions: rel error {loss_rel:.3g} <= {loss_grad_rule[0]} ({n_off} of "
           f"{n_elems} elements off by > 1e-3 of the largest); parameter gradients against "
           f"the CPU's float64 step ({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median "
           f"relative error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
           f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}; {bn_note}", flush=True)
-    if not loss_rel <= LOSS_GRAD_RTOL:
-        raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}")
+    if not (loss_rel <= loss_grad_rule[0] and n_off <= loss_grad_rule[1] * n_elems):
+        raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}, "
+                             f"{n_off} of {n_elems} elements off")
     if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
         raise AssertionError(f"GPU gradients further from float64 than the CPU's: "
                              f"{median['gpu']:.3g} vs {median['cpu']:.3g}")
@@ -495,6 +563,163 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
         raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g}")
     if not worst_stat <= BN_TOL[1]:
         raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
+
+
+def write_synthetic_shards(shard_root, height, width, counts):
+    """Shards of the port's synthetic snippets in the schema of the JAX
+    package's ``ShardMaker("synthetic")``: under ``shard_root``, one
+    ``synthetic_{split}`` directory of ``n`` examples per ``{split: n}`` of
+    ``counts``, each example {depth_gt [H, W, 1] float32, image [5H, W, 3]
+    uint8 (the frames stacked vertically, target last), intrinsic [3, 3]
+    float32, pose_gt [4, 4, 4] float32}. Split i draws its snippets from
+    seed i."""
+    import numpy as np
+
+    from xpt_mde_tpu_torch.config import SNIPPET_LEN
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.data.shard_io import ShardWriter
+
+    for seed, (split, n) in enumerate(counts.items()):
+        with ShardWriter(Path(shard_root) / f"synthetic_{split}") as writer:
+            for batch in SyntheticDataset(batch_size=n, height=height, width=width,
+                                          num_batches=1, seed=seed):
+                images = ((np.clip(batch["image5d"], -1, 1) + 1) / 2 * 255).astype(np.uint8)
+                for i in range(n):
+                    writer.write({"image": images[i].reshape(SNIPPET_LEN * height, width, 3),
+                                  "intrinsic": batch["intrinsic"][i],
+                                  "depth_gt": batch["depth_gt"][i],
+                                  "pose_gt": batch["pose_gt"][i]})
+            writer.write_config({"dataset": "synthetic", "split": split,
+                                 "imshape": [SNIPPET_LEN, height, width, 3]})
+
+
+def _build_dir() -> Path:
+    """The checkout's ``build/`` (listed in ``.gitignore``)."""
+    path = Path(__file__).resolve().parent / "build"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and prints it too."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _plan_phase(workdir, device, counts, zero_counts, tag):
+    """Phase 15 in ``workdir``: returns (kernel launches of the plan run,
+    a summary line)."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.config import (FLOW_NET, JOINT_NET, RIGID_NET, SCALE_WEIGHT_T1,
+                                          Config, TestStage, TrainStage)
+    from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+    from xpt_mde_tpu_torch.training.trainer import default_dataset_factory, train_by_plan
+
+    t0 = time.perf_counter()
+    write_synthetic_shards(Path(workdir) / "shards", HEIGHT, WIDTH, PLAN_SNIPPETS)
+    shard_s = time.perf_counter() - t0
+    plan = [TrainStage(RIGID_NET, "synthetic", 1, LR, RECIPE, SCALE_WEIGHT_T1),
+            TrainStage(FLOW_NET, "synthetic", 1, LR, FLOW_RECIPE, SCALE_WEIGHT_T1),
+            TrainStage(JOINT_NET, "synthetic", 1, LR, JOINT_RECIPE, SCALE_WEIGHT_T1)]
+    cfg = Config(stereo=False, per_replica_batch=BATCH, datapath=str(workdir),
+                 ckpt_name="smoke", pretrained_weight=False, training_plan=plan,
+                 test_plan=[TestStage(JOINT_NET, "synthetic", ["depth", "pose"], "smoke")])
+    loader_kind = default_dataset_factory(cfg)("synthetic", "train", BATCH).kind
+    if loader_kind != "native":
+        raise AssertionError(f"make_loader gave the {loader_kind} loader, not the native one")
+    ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
+
+    def load(name):
+        return torch.load(ckpt / name, map_location="cpu", weights_only=True)
+
+    def same(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    def run(plan_rows):
+        run_cfg = copy.copy(cfg)
+        run_cfg.training_plan = plan_rows
+        t_start = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout)) as log:
+            train_by_plan(run_cfg, device=device)
+        return log.getvalue(), time.perf_counter() - t_start
+
+    zero_counts()
+    # the two pretraining rows, then the whole plan, so the joint row runs
+    # alone in the second call and its start can be checked
+    _, pre_s = run(plan[:2])
+    for net in ("depthnet", "posenet"):
+        if not same(load(f"{net}_latest.pt"), load(f"{net}_ep01.pt")):
+            raise AssertionError(f"the flow row changed {net}_latest.pt")
+    flow_row = load("flownet_ep02.pt")
+    if not same(load("flownet_latest.pt"), flow_row):
+        raise AssertionError("flownet_latest.pt is not the flow row's flownet")
+    rigid_row = {net: load(f"{net}_ep01.pt") for net in ("depthnet", "posenet")}
+    log, joint_s = run(plan)
+    joint_log = log[log.index("[train_stage] stage 2"):]
+    for net in ("depthnet", "posenet", "flownet"):
+        if f"[ckpt] loaded {net} from {net}_latest.pt" not in joint_log:
+            raise AssertionError(f"the joint row did not start from {net}_latest.pt")
+    for name in ("flownet_latest.pt", "flownet_ep03.pt"):
+        if not same(load(name), flow_row):
+            raise AssertionError(f"{name} differs from the flow row's flownet")
+    if any(same(load(f"{net}_ep03.pt"), rigid_row[net]) for net in rigid_row):
+        raise AssertionError("the joint row did not train the depth and pose nets")
+    files = {"ep01": ("depthnet", "posenet"), "ep02": ("flownet",),
+             "ep03": ("depthnet", "posenet", "flownet"),
+             "latest": ("depthnet", "posenet", "flownet")}
+    missing = [f"{net}_{sfx}.pt" for sfx, nets in files.items() for net in nets + ("trainstate",)
+               if not (ckpt / f"{net}_{sfx}.pt").is_file()]
+    if missing:
+        raise AssertionError(f"missing checkpoints {missing}")
+    history = (ckpt / "history.csv").read_text().strip().splitlines()
+    header = history[0].split(",")
+    rows = [dict(zip(header, line.split(","))) for line in history[1:]]
+    if [r["epoch"] for r in rows] != ["0", "1", "2"]:
+        raise AssertionError(f"history.csv has epochs {[r['epoch'] for r in rows]}")
+    before = counts()
+    log, skip_s = run(plan)
+    if counts() != before or log.count("already done") != len(plan):
+        raise AssertionError(f"a finished plan ran again: {counts()} vs {before}")
+
+    t0 = time.perf_counter()
+    predict_by_plan(cfg, device=device)
+    evaluate_by_plan(cfg)
+    eval_s = time.perf_counter() - t0
+    npz = np.load(Path(cfg.datapath_prd) / "smoke" / "synthetic_latest.npz")
+    n_test = PLAN_SNIPPETS["test"]
+    if npz["depth"].shape != (n_test, HEIGHT, WIDTH, 1) or npz["pose"].shape != (n_test, 4, 6):
+        raise AssertionError(f"predictions {npz['depth'].shape}, {npz['pose'].shape}")
+    summary_file = Path(cfg.datapath_evl) / "smoke" / "summary_synthetic_latest.csv"
+    summary = {k: float(v) for k, v in (line.split(",") for line in
+                                        summary_file.read_text().strip().splitlines()[1:])}
+    want = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "trj_abs_err",
+            "trj_rel_err", "rot_err"}
+    if set(summary) != want or not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"evaluation summary {summary}")
+    rates = {r["epoch"]: PLAN_SNIPPETS["train"] / float(r["train_sec_per_epoch"]) for r in rows}
+    print(f"timing plan rows (train epoch of {PLAN_SNIPPETS['train']} snippets at batch "
+          f"{BATCH}, {HEIGHT}x{WIDTH}): rigid {rates['0']:.2f}, flow {rates['1']:.2f}, joint "
+          f"{rates['2']:.2f} images/s; calls: shards {shard_s:.1f} s, pretraining rows "
+          f"{pre_s:.1f} s, joint row {joint_s:.1f} s, finished plan {skip_s:.2f} s, predict + "
+          f"evaluate {eval_s:.1f} s {tag}", flush=True)
+    note = (f"{loader_kind} loader; history.csv epochs 0-2 with train_loss "
+            f"{[round(float(r['train_loss']), 6) for r in rows]}; the joint row started from "
+            f"the rigid row's depthnet/posenet and the flow row's flownet, which stayed "
+            f"bit-equal to flownet_ep02.pt; a third call skipped all {len(plan)} rows with no "
+            f"launch; evaluate_by_plan on {n_test} test snippets: "
+            f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
+    return counts(), note
 
 
 def _valid_terms(height, width, max_displacement, stride):
@@ -600,8 +825,8 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 1
     try:
-        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, NUM_SRC, RIGID_NET,
-                                              SCALE_WEIGHT_T1)
+        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, NUM_SRC,
+                                              RIGID_NET, SCALE_WEIGHT_T1)
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
@@ -883,9 +1108,92 @@ def main(argv=()) -> int:
                       flush=True)
             for line in profile_step("flow-train (PWCNet)", flow_train, train_batches):
                 print(f"profile {line} {tag}", flush=True)
+            # the rigid and flow models go before the joint one is built
+            del (model, optimizer, train_step, predict_step, eval_step, cpu_model, flow_model,
+                 flow_optimizer, flow_train, flow_predict, step, opt, opt_model, state,
+                 init_state, flow_init, preds, flow_ms)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 13. joint train: its counts read from zero
+            phase = "joint train"
+            joint_model = ModelFactory(keys, JOINT_NET, stereo=False, device=device,
+                                       seed=0).get_model()
+            flow_before = copy.deepcopy(joint_model.flownet.state_dict())
+
+            def make_joint_loss(batch_size):
+                return loss_factory(keys, JOINT_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                    batch_size=batch_size)
+
+            joint_train = make_train_step(
+                joint_model, make_joint_loss(BATCH),
+                optimizer_factory("adam_constant", LR, joint_model, frozen_nets=["flownet"]),
+                frozen_nets=["flownet"])
+            zero_counts()
+            joint_losses = []
+            for i in range(JOINT_TRAIN_STEPS):
+                before = counts()
+                metrics = joint_train(train_batches[i % NUM_BATCHES])
+                delta = {k: v - before[k] for k, v in counts().items()}
+                if delta != JOINT_PER_STEP:
+                    raise AssertionError(f"joint train step {i} launched {delta}, "
+                                         f"want {JOINT_PER_STEP}")
+                values = {k: float(v) for k, v in metrics.items()}
+                if not all(np.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"non-finite joint train metrics at step {i}: {values}")
+                joint_losses.append({k: round(v, 6) for k, v in values.items()
+                                     if k.startswith("loss")})
+            joint_counts = counts()
+            flow_after = joint_model.flownet.state_dict()
+            changed = [k for k in flow_before if not torch.equal(flow_before[k], flow_after[k])]
+            if changed:
+                raise AssertionError(f"the frozen flownet changed: {changed[:5]}")
+            print(f"phase 13 joint train: {JOINT_TRAIN_STEPS} steps, launches "
+                  f"{json.dumps(joint_counts)} ({json.dumps(JOINT_PER_STEP)} per step), the "
+                  f"flownet's {len(flow_before)} tensors bit-unchanged, losses "
+                  f"{json.dumps(joint_losses)}", flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            rates = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    joint_train(train_batches[i % NUM_BATCHES])
+                torch.cuda.synchronize()
+                rates.append(steps * BATCH / (time.perf_counter() - t0))
+            rates.sort()
+            median = rates[rounds // 2]
+            print(f"timing joint train B5+PWCNet batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN "
+                  f"heuristics): median {median:.2f} images/s ({1000 * BATCH / median:.2f} "
+                  f"ms/step), min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
+                  f"{steps} steps; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB {tag}", flush=True)
+            del joint_model, joint_train
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 14. one joint train step on the card and on the CPU
+            phase = "joint train cross-check"
+            _train_cross_check(14, "joint train", JOINT_NET, keys,
+                               {k: torch.from_numpy(v[:CHECK_BATCH])
+                                for k, v in batches[0].items()},
+                               device, make_joint_loss(CHECK_BATCH), _set_pose_and_flow_heads,
+                               ("depth_ms", "pose"), JOINT_LOSS_TOL,
+                               {"frozen_nets": ["flownet"]}, fixed_keys=("flow_ms",),
+                               loss_grad_rule=JOINT_LOSS_GRAD_RULE)
+
+            # 15. the plan: the slice's main path, its counts read from zero
+            phase = "plan"
+            with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+                plan_counts, plan_note = _plan_phase(workdir, device, counts, zero_counts,
+                                                     tag)
+            missing = [k for k, v in plan_counts.items() if v == 0]
+            if missing:
+                raise AssertionError(f"the plan never launched {missing}: {plan_counts}")
+            print(f"phase 15 plan: {plan_note}; launches {json.dumps(plan_counts)}", flush=True)
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
-            # summed over the scales or levels; launches: the train path's
+            # summed over the scales or levels; launches: the plan run's
             report = []
             for kname, full_name, replaces in (
                     ("K1", "K1 warp_const_src_fwd", kernels.REPLACES),
@@ -893,10 +1201,12 @@ def main(argv=()) -> int:
                 s = kstats[kname]
                 report.append({
                     "name": full_name, "route": "cuda", "source": kernels.SOURCE,
-                    "replaces": replaces, "launches": train_counts[kname],
+                    "replaces": replaces, "launches": plan_counts[kname],
                     "launches_by_path": {"predict+eval": eval_counts[kname],
                                          "train": train_counts[kname],
-                                         "flow train": flow_train_counts[kname]},
+                                         "flow train": flow_train_counts[kname],
+                                         "joint train": joint_counts[kname],
+                                         "plan": plan_counts[kname]},
                     "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
@@ -908,9 +1218,11 @@ def main(argv=()) -> int:
                 report.append({
                     "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
                     "replaces": corr_kernels.REPLACES[kname],
-                    "launches": flow_train_counts[kname],
+                    "launches": plan_counts[kname],
                     "launches_by_path": {"flow predict": flow_predict_counts[kname],
-                                         "flow train": flow_train_counts[kname]},
+                                         "flow train": flow_train_counts[kname],
+                                         "joint train": joint_counts[kname],
+                                         "plan": plan_counts[kname]},
                     "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],

@@ -635,3 +635,32 @@ def test_cuda_flow_steps_launch_every_kernel(cuda):
     assert counts() == tuple(c + n for c, n in zip(before, (4, 4, 5, 5, 5)))
     assert set(metrics) == {"loss", "loss/flowL2", "loss/flow_reg"}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.gpu
+def test_cuda_joint_train_step_launches_no_flow_backward(cuda):
+    """EfficientNetB0 + PoseNetImproved + PWCNet at 64x128, batch 2, the
+    flownet frozen: a joint train step launches K2 5 times (forward
+    only), K1 8 times (4 synthesis and 4 flow warps) and K1-bwd 4 times
+    (the synthesis warps), never K3 or K4; the flownet stays unchanged."""
+    dataset = SyntheticDataset(batch_size=2, height=64, width=128, num_batches=1, seed=0)
+    keys = dataset.config_keys()
+    nets = {"depth": "EfficientNetB0", "camera": "PoseNetImproved", "flow": "PWCNet"}
+    model = ModelFactory(keys, nets, stereo=False, device=cuda).get_model()
+    loss = loss_factory(keys, {"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0},
+                        SCALE_WEIGHT_T1, stereo=False, batch_size=2)
+    features = {k: torch.from_numpy(v).to(cuda) for k, v in next(iter(dataset)).items()}
+    flow_before = {k: v.clone() for k, v in model.flownet.state_dict().items()}
+    step = make_train_step(
+        model, loss, optimizer_factory("adam_constant", 1e-4, model, frozen_nets=["flownet"]),
+        frozen_nets=["flownet"])
+
+    def counts():
+        return (k1.K1.launches, k1.K1_BWD.launches) + _corr_counts()
+
+    before = counts()
+    metrics = step(features)
+    assert counts() == tuple(c + n for c, n in zip(before, (8, 4, 5, 0, 0)))
+    assert {"loss/cmbL1", "loss/cmbSSIM"} <= set(metrics)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(torch.equal(v, model.flownet.state_dict()[k]) for k, v in flow_before.items())

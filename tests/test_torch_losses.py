@@ -127,9 +127,12 @@ def test_factory_drops_like_jax_and_raises_on_unported():
     got = ttotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     ref = jtotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     assert list(got.loss_weights.items()) == list(ref.loss_weights.items())
-    for name in ("cmbL1", "md2SSIM", "md2cmbL1"):
+    for name in ("md2SSIM", "md2cmbL1"):
         with pytest.raises(NotImplementedError, match=name):
             ttotal.loss_factory(mono, {name: 1.0}, SCALE_WEIGHT_T1)
+    with pytest.raises(NotImplementedError, match="moaL1"):
+        ttotal.loss_factory(mono + ["image_R", "intrinsic_R", "stereo_T_LR"], {"moaL1": 1.0},
+                            SCALE_WEIGHT_T1)
     stereo_keys = mono + ["image_R", "intrinsic_R"]
     for name in ("L1_R", "smoothe_R"):
         assert ttotal.check_loss_dependency(name, stereo_keys)

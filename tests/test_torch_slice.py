@@ -134,11 +134,12 @@ def test_metrics_match_jax():
 
 
 def test_port_runs_with_jax_blocked():
-    """The port must not need JAX: import every module of the port and
-    chip_smoke, then run the rigid slice (predict, eval and an augmented
-    train step) and the flow slice (predict and a regularized train step)
-    at a tiny size, with jax/flax/optax and the JAX package itself made
-    unimportable."""
+    """The port must not need JAX: import every module of the port (the
+    entry scripts too) and chip_smoke, then run the rigid slice (predict,
+    eval and an augmented train step), the flow slice (predict and a
+    regularized train step) and the entry point (a one-row plan on
+    shards, predict and evaluate) at a tiny size, with jax/flax/optax and
+    the JAX package itself made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
@@ -148,6 +149,7 @@ def test_port_runs_with_jax_blocked():
         for info in pkgutil.walk_packages(xpt_mde_tpu_torch.__path__, "xpt_mde_tpu_torch."):
             importlib.import_module(info.name)
         import torch
+        torch.set_num_threads(2)  # the test workers beside it share the cores
         from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, SCALE_WEIGHT_T1
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
@@ -187,6 +189,29 @@ def test_port_runs_with_jax_blocked():
         metrics = flow_step(flow_feats)
         assert set(metrics) == {"loss", "loss/flowL2", "loss/flow_reg"}
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        # the entry point: shards, a one-row plan, predict, evaluate
+        import tempfile
+        from pathlib import Path
+        from xpt_mde_tpu_torch.config import Config, TestStage, TrainStage
+        from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+        from xpt_mde_tpu_torch.scripts import evaluate_main, train_main
+        from xpt_mde_tpu_torch.training.trainer import train_by_plan
+        assert train_main.load_user_config().compute_dtype == "float32"
+        assert callable(train_main.main) and callable(evaluate_main.main)
+        rigid = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+        with tempfile.TemporaryDirectory() as root:
+            chip_smoke.write_synthetic_shards(Path(root) / "shards", 32, 64,
+                                              {"train": 1, "test": 1})
+            cfg = Config(stereo=False, per_replica_batch=1, datapath=root,
+                         pretrained_weight=False,
+                         training_plan=[TrainStage(rigid, "synthetic", 1, 1e-4,
+                                                   {"L1": 1.0}, SCALE_WEIGHT_T1)],
+                         test_plan=[TestStage(rigid, "synthetic", ["depth"], "mde01")])
+            train_by_plan(cfg, device="cpu")
+            predict_by_plan(cfg, device="cpu")
+            evaluate_by_plan(cfg)
+            summary = Path(root, "evaluation", "mde01", "summary_synthetic_latest.csv")
+            assert "abs_rel" in summary.read_text()
         assert all(sys.modules.get(m) is None
                    for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
         print("JAX-FREE OK")

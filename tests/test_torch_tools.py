@@ -32,6 +32,12 @@ def test_profile_steps_builds_the_flow_steps_on_the_batches_device():
     assert all(label == "PWCNet" and callable(step) for label, step in steps.values())
 
 
+def test_profile_steps_builds_the_joint_step_with_the_flownet_frozen():
+    (label, step), = profile_steps._build_steps(["joint-train"],
+                                                [{"image5d": torch.zeros(1)}]).values()
+    assert "flownet frozen" in label and callable(step)
+
+
 def test_corr_sweep_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert corr_sweep.main([]) != 0

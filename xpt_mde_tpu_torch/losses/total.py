@@ -1,5 +1,5 @@
-"""Loss orchestration for the rigid and flow stages (port of part of
-``xpt_mde_tpu.losses.total``).
+"""Loss orchestration for the rigid, flow and joint stages (port of part
+of ``xpt_mde_tpu.losses.total``).
 
 Contracts kept:
 - every loss maps (features, predictions, augm_data) -> [batch];
@@ -10,9 +10,9 @@ Contracts kept:
   over the GLOBAL batch, divides by it and weights it by the recipe;
 - the factory drops losses whose required features the dataset lacks.
 
-Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2`` and ``flow_reg``. A
-recipe that keeps any other loss raises, naming it; nothing is dropped
-silently.
+Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2``, ``flow_reg``, ``cmbL1``
+and ``cmbSSIM``. A recipe that keeps any other loss raises, naming it;
+nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
 from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
-from xpt_mde_tpu_torch.utils.image import multi_scale_like
+from xpt_mde_tpu_torch.utils.image import multi_scale_like, resize_image
 
 LossFn = Callable[[Mapping[str, Any], Mapping[str, Any], Mapping[str, Any]],
                   torch.Tensor]
@@ -51,6 +51,32 @@ class PhotometricLossMultiScale:
         target_ms = augm_data["target_ms" + self.sfx]
         synth_ms = augm_data["synth_target_ms" + self.sfx]
         losses = [self.photo(s, t) for s, t in zip(synth_ms, target_ms)]
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
+class CombinedLossMultiScale:
+    """The static (view-synthesis) loss at full resolution, masked where
+    it is not below the optical-flow loss: each scale's synthesized views
+    and the finest flow-warped views are resized bilinearly to the
+    target's size, and a pixel counts only where its static error is
+    smaller than its flow error."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        synth_ms = augm_data["synth_target_ms" + self.sfx]
+        warped_ms = augm_data["warped_target_ms" + self.sfx]
+        target = augm_data["target" + self.sfx]
+        ho, wo = target.shape[1:3]
+        flow_loss = self.photo(resize_image(warped_ms[0], ho, wo), target, reduce=False)
+        losses = []
+        for synth in synth_ms:
+            static = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            static = static * (static < flow_loss).to(static.dtype)
+            losses.append(torch.mean(static, dim=(1, 2, 3, 4)))
         return _merge_multi_scale(losses, self.scale_weights)
 
 
@@ -213,6 +239,8 @@ def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
                                              image_gradient_factor),
         "flowL2": FlowWarpLossMultiScale("L2", scale_weights),
         "flow_reg": L2Regularizer(),
+        "cmbL1": CombinedLossMultiScale("L1", scale_weights),
+        "cmbSSIM": CombinedLossMultiScale("SSIM", scale_weights),
     }
     losses, weights = {}, {}
     for name, weight in loss_weights.items():

@@ -1,0 +1,19 @@
+"""User configuration template: copy to ``user_config.py`` beside this
+file, set the paths and pick a plan. The entry scripts take no flags.
+
+The port runs float32 only (``compute_dtype``) and reads shards that the
+JAX package's ``scripts/create_shards_main.py`` (or the port's
+``ShardWriter``) wrote under ``{datapath}/shards/{dataset}_{split}``.
+"""
+
+from xpt_mde_tpu_torch.config import RIGID_NET, Config, TestStage, training_plan_28
+
+cfg = Config(
+    stereo=False,
+    high_res=False,
+    per_replica_batch=8,
+    datapath="/data/xpt_mde_tpu",
+    ckpt_name="mde01",
+    training_plan=training_plan_28(),
+    test_plan=[TestStage(RIGID_NET, "kitti_raw", ["depth"], "mde01", "latest")],
+)

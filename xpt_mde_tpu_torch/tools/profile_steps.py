@@ -8,9 +8,11 @@ Usage, from the repository root on a machine with a CUDA card:
 ``--steps`` is a comma-separated subset of ``predict,eval,train`` (the
 rigid stage: EfficientNetB5 + PoseNetImproved with the loss of
 ``chip_smoke.py``; the train step with the default augmentation from a
-seeded generator) and ``flow-predict,flow-train`` (the flow stage:
-PWC-Net alone, ``{"flowL2": 1.0, "flow_reg": 4e-7}``, ``regularize_net=
-"flownet"``); all five by default. Every step runs at batch 8, 128x512,
+seeded generator), ``flow-predict,flow-train`` (the flow stage: PWC-Net
+alone, ``{"flowL2": 1.0, "flow_reg": 4e-7}``, ``regularize_net=
+"flownet"``) and ``joint-train`` (the joint stage: the three nets,
+``{"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0}``, the flownet frozen,
+no augmentation); all six by default. Every step runs at batch 8, 128x512,
 seeded random weights, with Adam at 1e-4 and uint8-coded batches for the
 train steps. For each step:
 
@@ -38,7 +40,8 @@ import torch
 
 RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
 FLOW_RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}  # LOSS_FLOW without flowL2_R
-STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train")
+JOINT_RECIPE = {"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0}
+STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train", "joint-train")
 BATCH, HEIGHT, WIDTH = 8, 128, 512
 STEPS = 5  # timed steps, and as many profiled
 TOP = 20  # operators and kernels listed per step
@@ -95,7 +98,8 @@ def profile_step(label: str, step, batches) -> list[str]:
 
 def _build_steps(names, batches):
     """{name: (label, step)} for the requested step names."""
-    from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, RIGID_NET, SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, RIGID_NET,
+                                          SCALE_WEIGHT_T1)
     from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
@@ -125,6 +129,14 @@ def _build_steps(names, batches):
         steps["flow-train"] = ("PWCNet", make_train_step(
             model, flow_loss, optimizer_factory("adam_constant", 1e-4, model),
             regularize_net="flownet"))
+    if "joint-train" in names:
+        model = ModelFactory(keys, JOINT_NET, stereo=False, device=device, seed=0).get_model()
+        joint_loss = loss_factory(keys, JOINT_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                  batch_size=BATCH)
+        steps["joint-train"] = ("B5 + PoseNetImproved + PWCNet, flownet frozen", make_train_step(
+            model, joint_loss,
+            optimizer_factory("adam_constant", 1e-4, model, frozen_nets=["flownet"]),
+            frozen_nets=["flownet"]))
     return {name: steps[name] for name in names}
 
 

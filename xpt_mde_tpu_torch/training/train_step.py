@@ -33,6 +33,15 @@ def decode_image_features(features: Mapping[str, torch.Tensor]) -> dict:
     return out
 
 
+def features_to_device(batch: Mapping, device: torch.device) -> dict:
+    """A loader's numpy batch as tensors on ``device``; to a card through
+    pinned host memory, without waiting for the copy."""
+    if device.type == "cuda":
+        return {key: torch.as_tensor(value).pin_memory().to(device, non_blocking=True)
+                for key, value in batch.items()}
+    return {key: torch.as_tensor(value).to(device) for key, value in batch.items()}
+
+
 def _compute_metrics(preds, features, loss, loss_by_type) -> dict:
     metrics = {"loss": loss}
     metrics.update({f"loss/{k}": v for k, v in loss_by_type.items()})
