@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one NVIDIA GPU: its rigid predict, eval
 and train steps, its flow predict and train steps, its joint train step,
-and its entry point, the plan driver (train by plan over a rigid, a flow
-and a joint row on synthetic shards, then predict and evaluate).
+its entry point, the plan driver (train by plan over a rigid, a flow and a
+joint row on synthetic shards, then predict and evaluate), and the stereo
+("MS") path: the stereo train, joint and flow steps and the plan on
+stereo shards.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -23,7 +25,8 @@ one compiler per source started together, and prints one line per phase:
    headline scales (8 x 4 sources x {128x512, 64x256, 32x128, 16x64} x 3),
    on coordinates reprojected from synthetic depth and pose plus a band of
    out-of-frame and border-exact ones, with a depth mask; K1-bwd also
-   against the autograd of the plain sampler;
+   against the autograd of the plain sampler; then both at the stereo
+   cross-synthesis shape (8 x 1 source, through inv(T_LR)) at each scale;
 3. predict: EfficientNetB5 + PoseNetImproved, seeded random weights,
    batch 8, 128x512, on 3 synthetic batches: shapes and finiteness;
 4. eval: the same batches through the eval step (L1 + SSIM + smoothness
@@ -83,13 +86,36 @@ one compiler per source started together, and prints one line per phase:
     that skips every row and launches nothing; then ``predict_by_plan``
     and ``evaluate_by_plan`` over the test split with the joint nets:
     finite Eigen depth metrics and pose errors. Every kernel must launch
-    in this run, which is the slice's main path; images/s per row.
+    in this run; images/s per row;
+16. stereo train: EfficientNetB5 + PoseNetImproved on stereo snippets
+    (the keys of the kitti_raw shards), STEREO_RECIPE (the published MS
+    recipe) at the T1 scale weights, the default augmentation,
+    STEREO_TRAIN_STEPS uint8-coded steps of STEREO_PER_STEP launches
+    each (K1 and K1-bwd for the left and right temporal synthesis and
+    both cross-syntheses); images/s and peak memory;
+17. one stereo train step on the card, on the CPU and on the CPU in
+    float64 (the pose head at CHECK_TWIST, the extrinsic at CHECK_T_LR),
+    checked as in phase 7 (STEREO_LOSS_TOL);
+18. stereo joint train: the three nets under LOSS_RIGID_COMB, the flownet
+    frozen, STEREO_JOINT_PER_STEP launches a step, the flownet
+    bit-unchanged; images/s and peak memory;
+19. the stereo flow row's step: PWC-Net under LOSS_FLOW in full,
+    STEREO_FLOW_PER_STEP launches a step;
+20. the stereo plan, this slice's main path: stereo shards at 128x512 in
+    the kitti_raw schema (``write_stereo_shards``; STEREO_PLAN_SNIPPETS),
+    ``train_by_plan`` over a flow row (LOSS_FLOW), a rigid row
+    (LOSS_RIGID_T2) and a joint row (LOSS_RIGID_COMB), one epoch each,
+    the joint row starting from the rows before and keeping the flownet;
+    then ``predict_by_plan`` and ``evaluate_by_plan`` with the joint nets:
+    finite metrics. Every kernel must launch in this run; images/s per
+    row and the phase's seconds.
 
-Then a JSON line with each kernel's launches on the plan run, error,
-device time, bound, the plain version's, the nearest library call's and
-the earlier checkout's times (``redesigned_in`` names the pull request
-that redesigned a kernel), the ``nvidia-smi`` name/power line, and last
-the result line
+Then a JSON line with each kernel's launches on the stereo plan run (and
+on every path), error, device time (K1 and K1-bwd also at N = 1), bound,
+the plain version's, the nearest library call's and the earlier
+checkout's times (``redesigned_in`` names the pull request that
+redesigned a kernel), the ``nvidia-smi`` name/power line, and last the
+result line
 ``{"ok": true, "device": {...}}``. It exits non-zero and prints no result
 line when there is no CUDA card, when the repository's packages cannot be
 imported, or when any phase fails. It imports nothing of JAX.
@@ -197,6 +223,41 @@ JOINT_LOSS_GRAD_RULE = (1e-2, 1e-4)
 # the plan's synthetic shards (snippets per split) and its rows' epochs;
 # at batch 8 each row trains 4 steps and validates 1
 PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
+# the stereo ("MS") path runs on snippets of STEREO_KEYS (the keys of the
+# JAX package's kitti_raw shards) under STEREO_RECIPE, both from
+# tools/profile_steps.py
+STEREO_TRAIN_STEPS = 4
+# launches per step. Rigid: K1 and K1-bwd for the left and the right
+# temporal synthesis and the two cross-syntheses, at 4 scales each. Joint:
+# those 16, and K1 for the 4 flow warps of each side; K2 for the flownet's
+# 5 levels on each side, no K3 or K4 (the flownet is frozen). Flow row:
+# flowL2 and flowL2_R, each 4 warps forward and back and 5 levels of K2,
+# K3 and K4
+STEREO_PER_STEP = {"K1": 16, "K1-bwd": 16, "K2": 0, "K3": 0, "K4": 0}
+STEREO_JOINT_PER_STEP = {"K1": 24, "K1-bwd": 16, "K2": 10, "K3": 0, "K4": 0}
+STEREO_FLOW_PER_STEP = {"K1": 8, "K1-bwd": 8, "K2": 10, "K3": 10, "K4": 10}
+# GPU vs CPU stereo losses, (rtol, atol) per term, as LOSS_TOL: the _R
+# terms and the cross-synthesis terms are means of millions of photometric
+# errors like L1 and SSIM; smoothe_R is as near-flat as smoothe; stereoPose
+# is the mean squared difference of the predicted stereo twists (~0.1, from
+# the posenet) from T_LR's, a float32 chain as short as the pose's, rtol
+# 1e-3 as the losses that follow the same ~130 layers
+STEREO_LOSS_TOL = dict(LOSS_TOL, **{"loss/L1_R": (1e-3, 0.0), "loss/SSIM_R": (1e-3, 0.0),
+                                    "loss/smoothe_R": (1e-2, 1e-9),
+                                    "loss/stereoL1": (1e-3, 0.0),
+                                    "loss/stereoSSIM": (1e-3, 0.0),
+                                    "loss/stereoPose": (1e-3, 0.0)})
+# the stereo cross-check's extrinsic (right -> left). The synthetic rig is
+# a pure x translation, so the cross-synthesis maps each row onto itself:
+# the reprojected v is an integer or a rounding away from one, and the
+# warp takes a pixel whose floor and ceil coincide as invalid; which pixels
+# do depends on each device's rounding. A 13 mm vertical offset, as real
+# calibrations have, moves v off the integers (as CHECK_TWIST does for the
+# temporal warps)
+CHECK_T_LR = [[1.0, 0.0, 0.0, 0.3], [0.0, 1.0, 0.0, 0.013], [0.0, 0.0, 1.0, 0.0],
+              [0.0, 0.0, 0.0, 1.0]]
+# the stereo plan's shards, as PLAN_SNIPPETS
+STEREO_PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
 # device memory and for float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -291,29 +352,39 @@ def _earlier_kernels(checkout: str, tag: str) -> dict:
     return result
 
 
-def _warp_case(batch, scale, device, rng):
+def _warp_case(batch, scale, device, rng, cross=False):
     """Sources, coords and mask of one headline scale: coords reprojected
     from the batch's depth and pose, with rows 0..h/8 replaced by
-    out-of-frame and border-exact (u, v) values; 10% of the mask zeroed."""
+    out-of-frame and border-exact (u, v) values; 10% of the mask zeroed.
+    ``cross``: the stereo cross-synthesis instead, one source (the right
+    target) through inv(CHECK_T_LR), N = 1: the batch's pure-x extrinsic
+    would put v on the integers, where the warp zeroes the pixel."""
     import numpy as np
     import torch
 
     from xpt_mde_tpu_torch.ops.camera import reproject_pixel_coords, scale_intrinsics
+    from xpt_mde_tpu_torch.utils import se3
     from xpt_mde_tpu_torch.utils.image import resize_image
 
-    b, s = BATCH, batch["image5d"].shape[1]
+    b = BATCH
     h, w = HEIGHT // scale, WIDTH // scale
-    image5d = torch.from_numpy(batch["image5d"]).to(device)
     depth = resize_image(torch.from_numpy(batch["depth_gt"]).to(device), h, w, "nearest")
     intrinsic = scale_intrinsics(torch.from_numpy(batch["intrinsic"]).to(device), float(scale))
-    pose = torch.from_numpy(batch["pose_gt"]).to(device)
-    src = resize_image(image5d[:, :-1].reshape(b * (s - 1), HEIGHT, WIDTH, 3), h, w)
-    src = src.reshape(b, s - 1, h, w, 3).contiguous()
+    if cross:
+        sources = torch.from_numpy(batch["image5d_R"][:, -1:]).to(device)
+        t_lr = torch.tensor([CHECK_T_LR] * b, dtype=torch.float32, device=device)
+        pose = se3.invert_matrix(t_lr)[:, None]
+    else:
+        sources = torch.from_numpy(batch["image5d"][:, :-1]).to(device)
+        pose = torch.from_numpy(batch["pose_gt"]).to(device)
+    n = sources.shape[1]
+    src = resize_image(sources.reshape(b * n, HEIGHT, WIDTH, 3), h, w)
+    src = src.reshape(b, n, h, w, 3).contiguous()
     coords = reproject_pixel_coords(depth, pose, intrinsic).contiguous()
     rows = max(1, h // 8)
     u_vals = np.array([-3.2, -1.0, -0.5, 0.0, 0.5, w - 1.5, w - 1.0, w - 0.25, w + 2.0])
     v_vals = np.array([-2.0, -0.5, 0.0, 1.25, h - 1.5, h - 1.0, h - 0.5, h + 3.0])
-    band = (b, s - 1, rows * w)
+    band = (b, n, rows * w)
     coords[:, :, 0, :rows * w] = torch.from_numpy(
         rng.choice(u_vals, band).astype(np.float32)).to(device)
     coords[:, :, 1, :rows * w] = torch.from_numpy(
@@ -332,6 +403,63 @@ def _nchw_grid(src, coords):
     grid = torch.stack([coords[:, :, 0] / (w - 1) * 2 - 1,
                         coords[:, :, 1] / (h - 1) * 2 - 1], dim=-1)
     return image, grid.reshape(b * n, h, w, 2).contiguous()
+
+
+def _warp_work(src, coords, mask, g):
+    """{kernel: (bytes, flops)} of one K1 and one K1-bwd launch. Bytes:
+    each input read once, each output written once; flops per target
+    pixel and channel: K1 4 products + 3 sums after 4 weight products per
+    pixel, K1-bwd 2 lerps, 2 differences and 2 multiply-adds per channel."""
+    n_pix, chans = coords.shape[0] * coords.shape[1] * coords.shape[3], src.shape[-1]
+    io = src.numel() + coords.numel() + mask.numel()
+    return {"K1": ((io + src.numel()) * 4, n_pix * (4 + 7 * chans)),
+            "K1-bwd": ((io + g.numel() + coords.numel()) * 4, n_pix * (2 + 16 * chans))}
+
+
+def _cross_warp_check(stereo_batch, device, rng, tag):
+    """Phase 2, the stereo cross-synthesis shape (one source, B*1 = 8
+    planes a scale): K1 and K1-bwd against their plain versions at each
+    scale, and their device times. Returns (max errors, the times summed
+    over the four scales: one direction of one cross-synthesis)."""
+    import torch
+
+    from xpt_mde_tpu_torch.ops.kernels.warp import K1, K1_BWD
+    from xpt_mde_tpu_torch.ops.warp import bilinear_sample_plain, warp_coord_grad_plain
+
+    errs = {"K1": 0.0, "K1-bwd": 0.0}
+    times = dict.fromkeys(("K1", "K1-bwd", "K1 plain", "K1-bwd plain", "K1 bound",
+                           "K1-bwd bound"), 0.0)
+    generator = torch.Generator().manual_seed(3)
+    lines = []
+    for scale in SCALES:
+        src, coords, mask = _warp_case(stereo_batch, scale, device, rng, cross=True)
+        g = (torch.rand(src.shape, generator=generator) * 2 - 1).to(device)
+        got, ref = K1(src, coords, mask), bilinear_sample_plain(src, coords, mask)
+        d_got, d_ref = K1_BWD(src, coords, mask, g), warp_coord_grad_plain(src, coords, mask, g)
+        torch.cuda.synchronize()
+        err, err_bwd = float((got - ref).abs().max()), float((d_got - d_ref).abs().max())
+        invalid = float((ref == 0).all(dim=-1).float().mean())
+        if not (err <= K1_ATOL and err_bwd <= K1_BWD_ATOL):
+            raise AssertionError(f"K1 / K1-bwd at N = 1 differ from plain by {err} / {err_bwd} "
+                                 f"at 1/{scale}")
+        errs["K1"], errs["K1-bwd"] = max(errs["K1"], err), max(errs["K1-bwd"], err_bwd)
+        run = {"K1": lambda: K1(src, coords, mask),
+               "K1 plain": lambda: bilinear_sample_plain(src, coords, mask),
+               "K1-bwd": lambda: K1_BWD(src, coords, mask, g),
+               "K1-bwd plain": lambda: warp_coord_grad_plain(src, coords, mask, g)}
+        now = {name: _graph_ms(fn) for name, fn in run.items()}
+        now.update({f"{name} bound": _bound(*work)[0]
+                    for name, work in _warp_work(src, coords, mask, g).items()})
+        for name, value in now.items():
+            times[name] += value
+        lines.append(f"1/{scale} {tuple(src.shape)} K1 {now['K1']:.4f} ms (plain "
+                     f"{now['K1 plain']:.4f}, bound {now['K1 bound']:.4f}), K1-bwd "
+                     f"{now['K1-bwd']:.4f} ms (plain {now['K1-bwd plain']:.4f}, bound "
+                     f"{now['K1-bwd bound']:.4f}), err {err:.3g} / {err_bwd:.3g}, invalid "
+                     f"{invalid:.3f}")
+    print(f"phase 2 cross-synthesis (N = 1) kernels vs plain, device (graph replay): "
+          f"{'; '.join(lines)} {tag}", flush=True)
+    return errs, times
 
 
 def _warp_phase(batches, device, rng, tag):
@@ -375,14 +503,7 @@ def _warp_phase(batches, device, rng, tag):
             notes.append(f"1/{scale} {label} err {err:.3g} / {err_bwd:.3g} "
                          f"invalid {invalid:.3f}")
 
-        # bytes: each input read once, each output written once; flops per
-        # target pixel and channel: K1 4 products + 3 sums after 4 weight
-        # products per pixel, K1-bwd 2 lerps, 2 differences and 2
-        # multiply-adds per channel
-        n_pix, chans = coords.shape[0] * coords.shape[1] * coords.shape[3], src.shape[-1]
-        io = src.numel() + coords.numel() + mask.numel()
-        work = {"K1": ((io + src.numel()) * 4, n_pix * (4 + 7 * chans)),
-                "K1-bwd": ((io + g.numel() + coords.numel()) * 4, n_pix * (2 + 16 * chans))}
+        work = _warp_work(src, coords, mask, g)
         image_nchw, grid = _nchw_grid(src, coords)
         g_nchw = g.reshape(image_nchw.shape[0], *g.shape[2:]).permute(0, 3, 1, 2).contiguous()
         runs = {"K1": (lambda: K1(src, coords, mask),
@@ -450,8 +571,9 @@ def _loss_grad_diff(loss, preds, feats, device, pred_keys, fixed_keys=()):
             tensors = [t.detach().to(dev).requires_grad_(True) for t in tensors]
             leaves += tensors
             inputs[key] = tensors if isinstance(preds[key], list) else tensors[0]
-        if "depth_ms" in inputs:
-            inputs["disp_ms"] = safe_reciprocal_ms(inputs["depth_ms"])
+        for sfx in ("", "_R"):
+            if "depth_ms" + sfx in inputs:
+                inputs["disp_ms" + sfx] = safe_reciprocal_ms(inputs["depth_ms" + sfx])
         total, _ = loss(inputs, {k: v.to(dev) for k, v in feats.items()})
         grads.append(torch.cat([g.reshape(-1).double().cpu()
                                 for g in torch.autograd.grad(total, leaves)]))
@@ -494,7 +616,7 @@ def _set_pose_and_flow_heads(model, device):
 def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
                        pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
                        loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
-    """Phases 7, 11 and 14: one train step from the same seeded weights
+    """Phases 7, 11, 14 and 17: one train step from the same seeded weights
     (``prepare`` sets the heads' biases), no augmentation, on the card, on
     the CPU, and on the CPU in float64 as the reference. The gradients of
     frozen nets' parameters (None) are not compared. ``loss_grad_rule``:
@@ -528,7 +650,7 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
     model, initial = results["cpu"][3], results["cpu"][4]
     model.load_state_dict(initial)
     with torch.no_grad():
-        preds = model.train()({"image5d": feats["image5d"]})
+        preds = model.train()(feats)
     loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device, pred_keys,
                                                fixed_keys)
 
@@ -565,6 +687,33 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
         raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
 
 
+def _write_shards(shard_root, dataset, height, width, counts, keys, **options):
+    """Under ``shard_root``, one ``{dataset}_{split}`` directory of ``n``
+    examples per ``{split: n}`` of ``counts``: the port's synthetic
+    snippets (``SyntheticDataset(**options)``; split i from seed i), each
+    example holding ``keys`` of a loader's features, the images as
+    ``[5H, W, 3]`` uint8 (the frames stacked vertically, target last)."""
+    import numpy as np
+
+    from xpt_mde_tpu_torch.config import SNIPPET_LEN
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.data.shard_io import ShardWriter
+
+    for seed, (split, n) in enumerate(counts.items()):
+        with ShardWriter(Path(shard_root) / f"{dataset}_{split}") as writer:
+            for batch in SyntheticDataset(batch_size=n, height=height, width=width,
+                                          num_batches=1, seed=seed, **options):
+                for key in ("image5d", "image5d_R"):
+                    if key in batch:
+                        batch[key] = ((np.clip(batch[key], -1, 1) + 1) / 2 * 255).astype(
+                            np.uint8).reshape(n, SNIPPET_LEN * height, width, 3)
+                for i in range(n):
+                    writer.write({key: batch[key.replace("image", "image5d")][i]
+                                  for key in keys})
+            writer.write_config({"dataset": dataset, "split": split,
+                                 "imshape": [SNIPPET_LEN, height, width, 3]})
+
+
 def write_synthetic_shards(shard_root, height, width, counts):
     """Shards of the port's synthetic snippets in the schema of the JAX
     package's ``ShardMaker("synthetic")``: under ``shard_root``, one
@@ -573,24 +722,24 @@ def write_synthetic_shards(shard_root, height, width, counts):
     uint8 (the frames stacked vertically, target last), intrinsic [3, 3]
     float32, pose_gt [4, 4, 4] float32}. Split i draws its snippets from
     seed i."""
-    import numpy as np
+    _write_shards(shard_root, "synthetic", height, width, counts,
+                  ("image", "intrinsic", "depth_gt", "pose_gt"))
 
-    from xpt_mde_tpu_torch.config import SNIPPET_LEN
-    from xpt_mde_tpu_torch.data import SyntheticDataset
-    from xpt_mde_tpu_torch.data.shard_io import ShardWriter
 
-    for seed, (split, n) in enumerate(counts.items()):
-        with ShardWriter(Path(shard_root) / f"synthetic_{split}") as writer:
-            for batch in SyntheticDataset(batch_size=n, height=height, width=width,
-                                          num_batches=1, seed=seed):
-                images = ((np.clip(batch["image5d"], -1, 1) + 1) / 2 * 255).astype(np.uint8)
-                for i in range(n):
-                    writer.write({"image": images[i].reshape(SNIPPET_LEN * height, width, 3),
-                                  "intrinsic": batch["intrinsic"][i],
-                                  "depth_gt": batch["depth_gt"][i],
-                                  "pose_gt": batch["pose_gt"][i]})
-            writer.write_config({"dataset": "synthetic", "split": split,
-                                 "imshape": [SNIPPET_LEN, height, width, 3]})
+def write_stereo_shards(shard_root, height, width, counts):
+    """Shards of the port's synthetic STEREO snippets (a textured plane seen
+    by a stereo rig stepping in x; the data are synthetic, not KITTI) in
+    the schema of the JAX package's ``DEFAULT_DATA_KEYS["kitti_raw"]``,
+    under the dataset name ``kitti_raw``, so that the published plans'
+    rows read them unchanged: one ``kitti_raw_{split}`` directory of ``n``
+    examples per ``{split: n}`` of ``counts``, each example {image,
+    image_R [5H, W, 3] uint8 (the frames stacked vertically, target
+    last), intrinsic, intrinsic_R [3, 3], depth_gt [H, W, 1], pose_gt [4,
+    4, 4], stereo_T_LR [4, 4], float32}. Split i draws its snippets from
+    seed i."""
+    from xpt_mde_tpu_torch.tools.profile_steps import STEREO_KEYS
+
+    _write_shards(shard_root, "kitti_raw", height, width, counts, STEREO_KEYS, stereo=True)
 
 
 def _build_dir() -> Path:
@@ -722,6 +871,98 @@ def _plan_phase(workdir, device, counts, zero_counts, tag):
     return counts(), note
 
 
+def _stereo_plan_phase(workdir, device, counts, zero_counts, tag):
+    """Phase 20 in ``workdir``: the stereo plan. Returns (kernel launches of
+    its run, a summary line)."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.config import (FLOW_NET, JOINT_NET, LOSS_FLOW, LOSS_RIGID_COMB,
+                                          LOSS_RIGID_T2, RIGID_NET, SCALE_WEIGHT_T1, Config,
+                                          TestStage, TrainStage)
+    from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+    from xpt_mde_tpu_torch.training.trainer import train_by_plan
+
+    t0 = time.perf_counter()
+    write_stereo_shards(Path(workdir) / "shards", HEIGHT, WIDTH, STEREO_PLAN_SNIPPETS)
+    shard_s = time.perf_counter() - t0
+    # a flow row (LOSS_FLOW in full), row 2 of training_plan_30 and its row 4
+    plan = [TrainStage(FLOW_NET, "kitti_raw", 1, LR, LOSS_FLOW, SCALE_WEIGHT_T1),
+            TrainStage(RIGID_NET, "kitti_raw", 1, LR, LOSS_RIGID_T2, SCALE_WEIGHT_T1),
+            TrainStage(JOINT_NET, "kitti_raw", 1, LR, LOSS_RIGID_COMB, SCALE_WEIGHT_T1)]
+    cfg = Config(per_replica_batch=BATCH, datapath=str(workdir), ckpt_name="stereo",
+                 pretrained_weight=False, training_plan=plan,
+                 test_plan=[TestStage(JOINT_NET, "kitti_raw", ["depth", "pose"], "stereo")])
+    if not cfg.stereo:
+        raise AssertionError("Config.stereo is off by default")
+    ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout)) as log:
+        train_by_plan(cfg, device=device)
+    train_s = time.perf_counter() - t0
+    joint_log = log.getvalue()[log.getvalue().index("[train_stage] stage 2"):]
+    for net in ("depthnet", "posenet", "flownet"):
+        if f"[ckpt] loaded {net} from {net}_latest.pt" not in joint_log:
+            raise AssertionError(f"the stereo joint row did not start from {net}_latest.pt")
+    flow_row = torch.load(ckpt / "flownet_ep01.pt", map_location="cpu", weights_only=True)
+    joint_flow = torch.load(ckpt / "flownet_ep03.pt", map_location="cpu", weights_only=True)
+    if not all(torch.equal(flow_row[k], joint_flow[k]) for k in flow_row):
+        raise AssertionError("the stereo joint row changed the frozen flownet")
+    history = (ckpt / "history.csv").read_text().strip().splitlines()
+    header = history[0].split(",")
+    rows = [dict(zip(header, line.split(","))) for line in history[1:]]
+    if [r["epoch"] for r in rows] != ["0", "1", "2"]:
+        raise AssertionError(f"history.csv has epochs {[r['epoch'] for r in rows]}")
+    terms = {f"train_loss_{k}" for recipe in (LOSS_FLOW, LOSS_RIGID_T2, LOSS_RIGID_COMB)
+             for k in recipe}
+    if not terms <= set(header):
+        raise AssertionError(f"history.csv lacks {sorted(terms - set(header))}")
+    t0 = time.perf_counter()
+    predict_by_plan(cfg, device=device)
+    evaluate_by_plan(cfg)
+    eval_s = time.perf_counter() - t0
+    npz = np.load(Path(cfg.datapath_prd) / "stereo" / "kitti_raw_latest.npz")
+    n_test = STEREO_PLAN_SNIPPETS["test"]
+    if npz["depth"].shape != (n_test, HEIGHT, WIDTH, 1) or npz["pose"].shape != (n_test, 4, 6):
+        raise AssertionError(f"predictions {npz['depth'].shape}, {npz['pose'].shape}")
+    summary_file = Path(cfg.datapath_evl) / "stereo" / "summary_kitti_raw_latest.csv"
+    summary = {k: float(v) for k, v in (line.split(",") for line in
+                                        summary_file.read_text().strip().splitlines()[1:])}
+    want = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "trj_abs_err",
+            "trj_rel_err", "rot_err"}
+    if set(summary) != want or not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"stereo evaluation summary {summary}")
+    rates = {r["epoch"]: STEREO_PLAN_SNIPPETS["train"] / float(r["train_sec_per_epoch"])
+             for r in rows}
+    print(f"timing stereo plan rows (train epoch of {STEREO_PLAN_SNIPPETS['train']} stereo "
+          f"snippets at batch {BATCH}, {HEIGHT}x{WIDTH}): flow {rates['0']:.2f}, rigid "
+          f"{rates['1']:.2f}, joint {rates['2']:.2f} images/s; calls: shards {shard_s:.1f} s, "
+          f"three rows {train_s:.1f} s, predict + evaluate {eval_s:.1f} s {tag}", flush=True)
+    note = (f"history.csv epochs 0-2 with train_loss "
+            f"{[round(float(r['train_loss']), 6) for r in rows]}, every stereo term logged; "
+            f"the joint row started from the flow row's flownet and kept it bit-equal; "
+            f"evaluate_by_plan on {n_test} stereo test snippets: "
+            f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
+    return counts(), note
+
+
+def _timed_rounds(step, step_batches, rounds, steps):
+    """Images/s of ``rounds`` rounds of ``steps`` steps each (host clock
+    around a synchronize), sorted, and the peak memory over them."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(step_batches[i % len(step_batches)])
+        torch.cuda.synchronize()
+        rates.append(steps * BATCH / (time.perf_counter() - t0))
+    return sorted(rates), torch.cuda.max_memory_allocated()
+
+
 def _valid_terms(height, width, max_displacement, stride):
     """The (pixel, displacement) pairs of one [height, width] plane whose
     displaced position lies in the frame: the terms K2, K3 and K4 compute
@@ -825,14 +1066,16 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 1
     try:
-        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, NUM_SRC,
-                                              RIGID_NET, SCALE_WEIGHT_T1)
+        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, LOSS_FLOW,
+                                              LOSS_RIGID_COMB, NUM_SRC, RIGID_NET,
+                                              SCALE_WEIGHT_T1)
         from xpt_mde_tpu_torch.data import SyntheticDataset
         from xpt_mde_tpu_torch.losses import loss_factory
         from xpt_mde_tpu_torch.models import ModelFactory
         from xpt_mde_tpu_torch.ops.kernels import correlation as corr_kernels
         from xpt_mde_tpu_torch.ops.kernels import warp as kernels
-        from xpt_mde_tpu_torch.tools.profile_steps import profile_step
+        from xpt_mde_tpu_torch.tools.profile_steps import (STEREO_KEYS, STEREO_RECIPE,
+                                                           profile_step, uint8_coded)
         from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
                                                 make_predict_step, make_train_step,
                                                 optimizer_factory)
@@ -888,13 +1131,20 @@ def main(argv=()) -> int:
                       f"{json.dumps(earlier)} {tag}", flush=True)
 
             keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+            # stereo snippets in the kitti_raw schema; their left views are
+            # the mono snippets of the same seed
             dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
-                                       num_batches=NUM_BATCHES, seed=0)
-            batches = list(dataset)
+                                       num_batches=NUM_BATCHES, stereo=True, seed=0)
+            stereo_feature_keys = ["image5d", "intrinsic", "depth_gt", "pose_gt", "image5d_R",
+                                   "intrinsic_R", "stereo_T_LR"]
+            stereo_batches = [{k: b[k] for k in stereo_feature_keys} for b in dataset]
+            batches = [{k: b[k] for k in stereo_feature_keys[:4]} for b in stereo_batches]
 
             # 2. the kernels against their plain versions, and their times
             phase = "kernels vs plain"
             kstats = _warp_phase(batches, device, np.random.RandomState(0), tag)
+            n1_errs, n1_times = _cross_warp_check(stereo_batches[0], device,
+                                                  np.random.RandomState(1), tag)
 
             # 3. predict, 4. eval: one path, its counts read from zero
             phase = "predict"
@@ -967,8 +1217,7 @@ def main(argv=()) -> int:
                                          augmenter=augmentation_factory(AUGMENT_PROBS))
             generator = torch.Generator().manual_seed(0)
             # the loaders ship uint8 snippets; the step decodes them
-            train_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5)
-                                  .to(torch.uint8)) for b in gpu_batches]
+            train_batches = [uint8_coded(b) for b in gpu_batches]
             zero_counts()
             train_losses = []
             for i in range(TRAIN_STEPS):
@@ -1152,22 +1401,12 @@ def main(argv=()) -> int:
                   f"{json.dumps(joint_counts)} ({json.dumps(JOINT_PER_STEP)} per step), the "
                   f"flownet's {len(flow_before)} tensors bit-unchanged, losses "
                   f"{json.dumps(joint_losses)}", flush=True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(device)
-            rates = []
-            for _ in range(rounds):
-                t0 = time.perf_counter()
-                for i in range(steps):
-                    joint_train(train_batches[i % NUM_BATCHES])
-                torch.cuda.synchronize()
-                rates.append(steps * BATCH / (time.perf_counter() - t0))
-            rates.sort()
+            rates, peak = _timed_rounds(joint_train, train_batches, rounds, steps)
             median = rates[rounds // 2]
             print(f"timing joint train B5+PWCNet batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN "
                   f"heuristics): median {median:.2f} images/s ({1000 * BATCH / median:.2f} "
                   f"ms/step), min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
-                  f"{steps} steps; max_memory_allocated "
-                  f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB {tag}", flush=True)
+                  f"{steps} steps; max_memory_allocated {peak / 2**30:.3f} GiB {tag}", flush=True)
             del joint_model, joint_train
             gc.collect()
             torch.cuda.empty_cache()
@@ -1192,8 +1431,129 @@ def main(argv=()) -> int:
                 raise AssertionError(f"the plan never launched {missing}: {plan_counts}")
             print(f"phase 15 plan: {plan_note}; launches {json.dumps(plan_counts)}", flush=True)
 
+            # 16. stereo train: the MS recipe, its counts read from zero
+            phase = "stereo train"
+            stereo_gpu = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                          for b in stereo_batches]
+            stereo_train_batches = [uint8_coded(b) for b in stereo_gpu]
+
+            def make_stereo_loss(recipe, batch_size):
+                return loss_factory(STEREO_KEYS, recipe, SCALE_WEIGHT_T1, batch_size=batch_size)
+
+            def run_steps(label, step, per_step, n_steps, args=()):
+                """``n_steps`` steps from zero counts, each launching ``per_step``."""
+                zero_counts()
+                losses = []
+                for i in range(n_steps):
+                    before = counts()
+                    metrics = step(stereo_train_batches[i % NUM_BATCHES], *args)
+                    delta = {k: v - before[k] for k, v in counts().items()}
+                    if delta != per_step:
+                        raise AssertionError(f"{label} step {i} launched {delta}, "
+                                             f"want {per_step}")
+                    values = {k: float(v) for k, v in metrics.items()}
+                    if not all(np.isfinite(v) for v in values.values()):
+                        raise AssertionError(f"non-finite {label} metrics at step {i}: {values}")
+                    losses.append({k: round(v, 6) for k, v in values.items()
+                                   if k.startswith("loss")})
+                return counts(), losses
+
+            def report_rate(label, step, args=()):
+                rates, peak = _timed_rounds(lambda f: step(f, *args), stereo_train_batches,
+                                            rounds, steps)
+                median = rates[rounds // 2]
+                print(f"timing {label} batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN heuristics): "
+                      f"median {median:.2f} images/s ({1000 * BATCH / median:.2f} ms/step), min "
+                      f"{rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of {steps} steps; "
+                      f"max_memory_allocated {peak / 2**30:.3f} GiB {tag}", flush=True)
+
+            stereo_model = ModelFactory(STEREO_KEYS, RIGID_NET, device=device, seed=0).get_model()
+            if not (stereo_model.stereo and stereo_model.stereo_pose):
+                raise AssertionError("the stereo keys did not build the stereo model")
+            stereo_train = make_train_step(
+                stereo_model, make_stereo_loss(STEREO_RECIPE, BATCH),
+                optimizer_factory("adam_constant", LR, stereo_model),
+                augmenter=augmentation_factory(AUGMENT_PROBS))
+            stereo_generator = torch.Generator().manual_seed(0)
+            stereo_counts, stereo_losses = run_steps("stereo train", stereo_train,
+                                                     STEREO_PER_STEP, STEREO_TRAIN_STEPS,
+                                                     (stereo_generator,))
+            print(f"phase 16 stereo train (EfficientNetB5 + PoseNetImproved, MS recipe, default "
+                  f"augmentation): {STEREO_TRAIN_STEPS} steps, launches "
+                  f"{json.dumps(stereo_counts)} ({json.dumps(STEREO_PER_STEP)} per step), "
+                  f"losses {json.dumps(stereo_losses)}", flush=True)
+            report_rate("stereo train B5 MS recipe", stereo_train, (stereo_generator,))
+            del stereo_model, stereo_train
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 17. one stereo train step on the card and on the CPU
+            phase = "stereo train cross-check"
+            check_feats = {k: torch.from_numpy(v[:CHECK_BATCH])
+                           for k, v in stereo_batches[0].items()}
+            check_feats["stereo_T_LR"] = torch.tensor([CHECK_T_LR] * CHECK_BATCH)
+            _train_cross_check(17, "stereo train", RIGID_NET, STEREO_KEYS, check_feats, device,
+                               make_stereo_loss(STEREO_RECIPE, CHECK_BATCH), _set_pose_twist,
+                               ("depth_ms", "pose", "depth_ms_R", "pose_R", "pose_LR",
+                                "pose_RL"), STEREO_LOSS_TOL)
+
+            # 18. stereo joint train: LOSS_RIGID_COMB, the flownet frozen
+            phase = "stereo joint train"
+            stereo_joint = ModelFactory(STEREO_KEYS, JOINT_NET, device=device, seed=0).get_model()
+            flow_before = copy.deepcopy(stereo_joint.flownet.state_dict())
+            stereo_joint_train = make_train_step(
+                stereo_joint, make_stereo_loss(LOSS_RIGID_COMB, BATCH),
+                optimizer_factory("adam_constant", LR, stereo_joint, frozen_nets=["flownet"]),
+                frozen_nets=["flownet"])
+            stereo_joint_counts, joint_losses = run_steps(
+                "stereo joint train", stereo_joint_train, STEREO_JOINT_PER_STEP,
+                STEREO_TRAIN_STEPS)
+            flow_after = stereo_joint.flownet.state_dict()
+            if any(not torch.equal(flow_before[k], flow_after[k]) for k in flow_before):
+                raise AssertionError("the stereo joint step changed the frozen flownet")
+            print(f"phase 18 stereo joint train (B5 + PoseNetImproved + PWCNet, "
+                  f"LOSS_RIGID_COMB, flownet frozen): {STEREO_TRAIN_STEPS} steps, launches "
+                  f"{json.dumps(stereo_joint_counts)} ({json.dumps(STEREO_JOINT_PER_STEP)} per "
+                  f"step), the flownet bit-unchanged, losses {json.dumps(joint_losses)}",
+                  flush=True)
+            report_rate("stereo joint train B5+PWCNet LOSS_RIGID_COMB", stereo_joint_train)
+            del stereo_joint, stereo_joint_train, flow_before, flow_after
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 19. the stereo flow row's step: LOSS_FLOW in full
+            phase = "stereo flow train"
+            stereo_flow = ModelFactory(STEREO_KEYS, FLOW_NET, device=device, seed=0).get_model()
+            stereo_flow_train = make_train_step(
+                stereo_flow, make_stereo_loss(LOSS_FLOW, BATCH),
+                optimizer_factory("adam_constant", LR, stereo_flow), regularize_net="flownet")
+            stereo_flow_counts, flow_losses = run_steps(
+                "stereo flow train", stereo_flow_train, STEREO_FLOW_PER_STEP, 2)
+            print(f"phase 19 stereo flow train (PWCNet, LOSS_FLOW): 2 steps, launches "
+                  f"{json.dumps(stereo_flow_counts)} ({json.dumps(STEREO_FLOW_PER_STEP)} per "
+                  f"step), losses {json.dumps(flow_losses)}", flush=True)
+            del stereo_flow, stereo_flow_train
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 20. the stereo plan: this slice's main path, its counts read from zero
+            phase = "stereo plan"
+            with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+                stereo_plan_counts, stereo_note = _stereo_plan_phase(
+                    workdir, device, counts, zero_counts, tag)
+            missing = [k for k, v in stereo_plan_counts.items() if v == 0]
+            if missing:
+                raise AssertionError(f"the stereo plan never launched {missing}: "
+                                     f"{stereo_plan_counts}")
+            print(f"phase 20 stereo plan: {stereo_note}; launches "
+                  f"{json.dumps(stereo_plan_counts)}", flush=True)
+            stereo_paths = {"stereo train": stereo_counts, "stereo joint train":
+                            stereo_joint_counts, "stereo flow train": stereo_flow_counts,
+                            "stereo plan": stereo_plan_counts}
+
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
-            # summed over the scales or levels; launches: the plan run's
+            # summed over the scales or levels; launches: the stereo plan
+            # run's (this slice's main path)
             report = []
             for kname, full_name, replaces in (
                     ("K1", "K1 warp_const_src_fwd", kernels.REPLACES),
@@ -1201,13 +1561,17 @@ def main(argv=()) -> int:
                 s = kstats[kname]
                 report.append({
                     "name": full_name, "route": "cuda", "source": kernels.SOURCE,
-                    "replaces": replaces, "launches": plan_counts[kname],
+                    "replaces": replaces, "launches": stereo_plan_counts[kname],
                     "launches_by_path": {"predict+eval": eval_counts[kname],
                                          "train": train_counts[kname],
                                          "flow train": flow_train_counts[kname],
                                          "joint train": joint_counts[kname],
-                                         "plan": plan_counts[kname]},
-                    "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                                         "plan": plan_counts[kname]}
+                    | {path: c[kname] for path, c in stereo_paths.items()},
+                    "max_abs_err": max(s["err"], n1_errs[kname]), "ms": s["ms"],
+                    "plain_ms": s["plain_ms"],
+                    "n1_ms": n1_times[kname], "n1_plain_ms": n1_times[f"{kname} plain"],
+                    "n1_bound_ms": n1_times[f"{kname} bound"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
                     "library_ms": s["library_ms"], "earlier_ms": earlier.get(kname)}
@@ -1218,11 +1582,12 @@ def main(argv=()) -> int:
                 report.append({
                     "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
                     "replaces": corr_kernels.REPLACES[kname],
-                    "launches": plan_counts[kname],
+                    "launches": stereo_plan_counts[kname],
                     "launches_by_path": {"flow predict": flow_predict_counts[kname],
                                          "flow train": flow_train_counts[kname],
                                          "joint train": joint_counts[kname],
-                                         "plan": plan_counts[kname]},
+                                         "plan": plan_counts[kname]}
+                    | {path: c[kname] for path, c in stereo_paths.items()},
                     "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],

@@ -44,6 +44,27 @@ def _features(seed, batch=2, height=12, width=20):
             "pose_gt": pose}
 
 
+def _stereo(feats):
+    """``feats`` with right views: other images, intrinsics, GT depth and
+    poses, and a stereo extrinsic with a rotation."""
+    rng = np.random.RandomState(9)
+    out = dict(feats)
+    for key in ("image5d", "intrinsic", "depth_gt", "pose_gt"):
+        value = np.asarray(feats[key])
+        noise = rng.uniform(-0.1, 0.1, value.shape).astype(np.float32)
+        if key == "image5d":
+            noise = rng.uniform(-1, 1, value.shape).astype(np.float32) - value
+        right = (value + noise).astype(np.float32)
+        out[key + "_R"] = torch.from_numpy(right) if isinstance(feats[key], torch.Tensor) \
+            else right
+    t_lr = np.tile(np.eye(4, dtype=np.float32), (value.shape[0], 1, 1))
+    t_lr[:, :3, :] += rng.uniform(-0.1, 0.1, (value.shape[0], 3, 4)).astype(np.float32)
+    t_lr[:, 0, 3] = 0.54
+    out["stereo_T_LR"] = torch.from_numpy(t_lr) if isinstance(feats["image5d"], torch.Tensor) \
+        else t_lr
+    return out
+
+
 def _box32(box):
     return tuple(float(np.float32(b)) for b in box)
 
@@ -126,5 +147,60 @@ def test_chain_factory_and_defaults():
     assert all(bool(torch.isfinite(v).all()) for v in a.values())
     with pytest.raises(ValueError, match="Wrong augmentation"):
         taug.augmentation_factory({"Rotate": 0.5})
-    with pytest.raises(NotImplementedError, match="Stereo"):
-        chain(dict(feats, image5d_R=feats["image5d"]))
+    # a stereo batch: the left views come out as the mono chain gives them
+    stereo = _stereo(feats)
+    c = chain(dict(stereo), torch.Generator().manual_seed(5))
+    for key in feats:
+        assert torch.equal(a[key], c[key]), key
+    assert set(c) == set(stereo)
+
+
+@pytest.mark.parametrize("box", BOXES[2:])
+def test_stereo_crop_uses_one_box_for_both_views(box):
+    """CropAndResize crops the right views with the left views' box,
+    adjusts intrinsic_R and crops depth_gt_R, as the JAX package does."""
+    feats = _stereo(_features(5))
+    jbox = jnp.asarray(box, jnp.float32)
+    out = taug.CropAndResize().apply({k: torch.from_numpy(v) for k, v in feats.items()},
+                                     _box32(box))
+    for sfx in ("", "_R"):
+        ref_image = np.asarray(jaug._crop_resize_5d(jnp.asarray(feats["image5d" + sfx]), jbox))
+        ref_k = np.asarray(jaug.CropAndResize._adjust_intrinsic(
+            jnp.asarray(feats["intrinsic" + sfx]), jbox, 12, 20))
+        ref_depth = np.asarray(jaug._crop_nearest(jnp.asarray(feats["depth_gt" + sfx]), jbox))
+        # 1e-6, as the mono crop above
+        np.testing.assert_allclose(out["image5d" + sfx].numpy(), ref_image, atol=1e-6,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(out["intrinsic" + sfx].numpy(), ref_k, atol=1e-6, rtol=1e-6)
+        np.testing.assert_array_equal(out["depth_gt" + sfx].numpy(), ref_depth)
+    for key in ("pose_gt", "pose_gt_R", "stereo_T_LR"):
+        np.testing.assert_array_equal(out[key].numpy(), feats[key])
+
+
+def test_stereo_flip_matches_jax():
+    """HorizontalFlip mirrors both views and both intrinsics and conjugates
+    pose_gt, pose_gt_R and stereo_T_LR; it does not swap the views."""
+    feats = _stereo(_features(6))
+    ref = jaug.HorizontalFlip()._flip({k: jnp.asarray(v) for k, v in feats.items()})
+    out = taug.HorizontalFlip().apply({k: torch.from_numpy(v) for k, v in feats.items()}, True)
+    assert set(out) == set(ref) == set(feats)
+    for key in feats:
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=1e-6,
+                                   rtol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(out["image5d_R"].numpy(), feats["image5d_R"][..., ::-1, :])
+
+
+def test_stereo_jitter_matches_jax():
+    """ColorJitter jitters both views with the same gamma and saturation."""
+    gamma, saturation = float(np.float32(1.21)), float(np.float32(0.77))
+    feats = _stereo(_features(7))
+    out = taug.ColorJitter().apply({k: torch.from_numpy(v) for k, v in feats.items()}, True,
+                                   gamma, saturation)
+    for key in ("image5d", "image5d_R"):
+        ref = np.asarray(jaug.ColorJitter._jitter(jnp.asarray(feats[key]), jnp.float32(gamma),
+                                                  jnp.float32(saturation)))
+        # as test_jitter_matches_jax
+        np.testing.assert_allclose(out[key].numpy(), ref, atol=1e-6, rtol=2e-6, err_msg=key)
+    unjittered = taug.ColorJitter().apply({k: torch.from_numpy(v) for k, v in feats.items()},
+                                          False, gamma, saturation)
+    np.testing.assert_array_equal(unjittered["image5d_R"].numpy(), feats["image5d_R"])

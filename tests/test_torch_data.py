@@ -30,6 +30,10 @@ def test_max_displacement_matches_jax():
     dict(seed=3, batch_size=3, height=16, width=40, num_batches=2),
     dict(seed=7, batch_size=1, height=64, width=128, num_batches=1),
     dict(seed=1, height=9, width=13, num_batches=3),
+    # the stereo world: right views, their copies of K and the poses, T_LR
+    dict(stereo=True),
+    dict(stereo=True, seed=4, batch_size=3, height=16, width=40, num_batches=2,
+         baseline_m=0.54),
 ])
 def test_synthetic_batches_match_jax(options):
     ours = SyntheticDataset(**options)

@@ -104,6 +104,21 @@ def test_k1_block_size_fills_the_card(height, width, threads):
     assert blocks >= 2 * 132 or threads == 64
 
 
+@pytest.mark.parametrize("height,width,threads", [(128, 512, 256), (64, 256, 64),
+                                                  (32, 128, 64), (16, 64, 64)])
+def test_k1_block_size_at_the_cross_synthesis_shape(height, width, threads):
+    """The stereo cross-synthesis warps one source per sample: 8 planes at
+    batch 8. The finest scale still gives two 256-thread blocks per SM;
+    the coarser ones take the 64-thread floor, whose grid covers each
+    plane whole."""
+    hw = height * width
+    assert k1.fwd_threads(8, hw, 132) == threads
+    per_block = threads // 32 * k1.WARP_PIXELS
+    blocks = -(-hw // per_block) * 8
+    assert blocks >= 2 * 132 or threads == 64
+    assert blocks * per_block >= 8 * hw
+
+
 @pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
 def test_k3_plan_fits_at_pwc_levels(level):
     """K3's tiling at the flow stage's shapes: one block per image row
@@ -398,6 +413,7 @@ def _offset_copy(t, offset):
     (1, 4, 5, 7, 2, 3),      # H*W % 4 != 0: the scalar path
     (2, 3, 3, 130, 3, 3),    # H*W % 4 != 0, 3 coord rows
     (1, 1, 16, 64, 2, 3),    # batch 1, one source
+    (8, 1, 32, 128, 2, 3),   # the stereo cross-synthesis: 8 planes of one source
     (3, 2, 9, 28, 3, 3),     # H*W % 4 == 0, a ragged last warp
     (2, 2, 8, 24, 2, 5),     # C other than 3, on the float4 path
     (2, 2, 8, 24, 2, 12),    # C above 8: the scalar path

@@ -214,8 +214,9 @@ def test_factory_seeds_device_and_unported():
                  {"depth": "ResNet50V2"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model()
-    with pytest.raises(NotImplementedError, match="stereo"):
-        ModelFactory(KEYS + ["image_R", "intrinsic_R"], RIGID_B0, device="cpu").get_model()
+    # stereo keys build the stereo model (test_torch_stereo.py checks it)
+    stereo = ModelFactory(KEYS + ["image_R", "intrinsic_R"], RIGID_B0, device="cpu").get_model()
+    assert stereo.stereo and not stereo.stereo_pose
 
 
 def test_factory_defaults_to_the_card(monkeypatch):

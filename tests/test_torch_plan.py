@@ -251,3 +251,24 @@ def test_inspect_model_prints_like_jax(capsys):
         assert ours == j_inspect_model(preds, features, step=step, steps_per_epoch=30)
         assert out == capsys.readouterr().out
         assert ("depth0" in out) == ours
+
+
+def test_inspect_model_prints_the_stereo_pose_like_jax(capsys):
+    """With stereo predictions the trace adds the predicted stereo twists
+    beside the extrinsic's translation, as the JAX package prints them."""
+    from xpt_mde_tpu.training.trainer import inspect_model as j_inspect_model
+    from xpt_mde_tpu_torch.training.trainer import inspect_model
+
+    rng = np.random.RandomState(1)
+    preds = {"pose": rng.randn(2, 4, 6), "pose_LR": rng.randn(2, 4, 6),
+             "pose_RL": rng.randn(2, 4, 6)}
+    t_lr = np.tile(np.eye(4), (2, 1, 1))
+    t_lr[:, 0, 3] = 0.54
+    features = {"pose_gt": np.tile(np.eye(4), (2, 4, 1, 1)), "stereo_T_LR": t_lr}
+    assert inspect_model({k: torch.from_numpy(v) for k, v in preds.items()},
+                         {k: torch.from_numpy(v) for k, v in features.items()},
+                         step=0, steps_per_epoch=3)
+    ours = capsys.readouterr().out
+    assert j_inspect_model(preds, features, step=0, steps_per_epoch=3)
+    assert ours == capsys.readouterr().out
+    assert "T_LR_pr" in ours and "T_LR_gt" in ours

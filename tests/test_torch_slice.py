@@ -223,6 +223,70 @@ def test_port_runs_with_jax_blocked():
     assert "JAX-FREE OK" in proc.stdout
 
 
+def test_stereo_path_runs_with_jax_blocked():
+    """The stereo path without JAX: an augmented stereo train step under
+    the MS recipe, then a three-row stereo plan (flow, rigid and joint
+    rows of the published stereo recipes) on stereo shards in the
+    kitti_raw schema, predict and evaluate, at a tiny size, with
+    jax/flax/optax and the JAX package made unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
+            sys.modules[name] = None
+        import tempfile
+        from pathlib import Path
+        import torch
+        torch.set_num_threads(2)  # the test workers beside it share the cores
+        import chip_smoke
+        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, LOSS_FLOW, LOSS_RIGID_COMB,
+                                              LOSS_RIGID_T2, SCALE_WEIGHT_T1, Config,
+                                              TestStage, TrainStage)
+        from xpt_mde_tpu_torch.data import SyntheticDataset
+        from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+        from xpt_mde_tpu_torch.losses import loss_factory
+        from xpt_mde_tpu_torch.models import ModelFactory
+        from xpt_mde_tpu_torch.tools import profile_steps
+        from xpt_mde_tpu_torch.training import (augmentation_factory, make_train_step,
+                                                optimizer_factory)
+        from xpt_mde_tpu_torch.training.trainer import train_by_plan
+        rigid = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+        ds = SyntheticDataset(batch_size=1, height=32, width=64, num_batches=1, stereo=True)
+        keys = ds.config_keys()
+        model = ModelFactory(keys, rigid, device="cpu").get_model()
+        loss = loss_factory(keys, profile_steps.STEREO_RECIPE, SCALE_WEIGHT_T1, batch_size=1)
+        step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                               augmenter=augmentation_factory(AUGMENT_PROBS))
+        feats = {k: torch.from_numpy(v) for k, v in next(iter(ds)).items()}
+        metrics = step(feats, torch.Generator().manual_seed(0))
+        assert {"loss/stereoL1", "loss/stereoSSIM", "loss/stereoPose", "loss/L1_R"} <= set(metrics)
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        joint = dict(rigid, flow="PWCNet")
+        with tempfile.TemporaryDirectory() as root:
+            chip_smoke.write_stereo_shards(Path(root) / "shards", 64, 128,
+                                           {"train": 1, "test": 1})
+            plan = [TrainStage({"flow": "PWCNet"}, "kitti_raw", 1, 1e-4, LOSS_FLOW,
+                               SCALE_WEIGHT_T1),
+                    TrainStage(rigid, "kitti_raw", 1, 1e-4, LOSS_RIGID_T2, SCALE_WEIGHT_T1),
+                    TrainStage(joint, "kitti_raw", 1, 1e-4, LOSS_RIGID_COMB, SCALE_WEIGHT_T1)]
+            cfg = Config(per_replica_batch=1, datapath=root, pretrained_weight=False,
+                         training_plan=plan,
+                         test_plan=[TestStage(joint, "kitti_raw", ["depth", "pose"], "mde01")])
+            train_by_plan(cfg, device="cpu")
+            predict_by_plan(cfg, device="cpu")
+            evaluate_by_plan(cfg)
+            summary = Path(root, "evaluation", "mde01", "summary_kitti_raw_latest.csv")
+            assert "trj_abs_err" in summary.read_text()
+        assert all(sys.modules.get(m) is None
+                   for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
+        print("STEREO JAX-FREE OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "STEREO JAX-FREE OK" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = chip_smoke.main()

@@ -58,3 +58,25 @@ def test_corr_sweep_variants_hold_each_plan(level):
         assert any(all(v[k] == plan[k] for k in keys) for v in variants)
         assert all(v["smem_bytes"] <= kcorr.SMEM_LIMIT for v in variants)
         assert all(v["threads"] <= kcorr.MAX_THREADS for v in variants)
+
+
+def test_profile_steps_builds_the_stereo_steps(monkeypatch):
+    """The stereo steps: the rigid nets under the MS recipe and the three
+    nets under LOSS_RIGID_COMB, on stereo models over the kitti_raw keys
+    (built here at EfficientNetB0, which the CPU builds in a few seconds)."""
+    from xpt_mde_tpu_torch import config
+
+    monkeypatch.setattr(config, "RIGID_NET", {"depth": "EfficientNetB0",
+                                              "camera": "PoseNetImproved"})
+    monkeypatch.setattr(config, "JOINT_NET", dict(config.RIGID_NET, flow="PWCNet"))
+    steps = profile_steps._build_steps(["stereo-train", "stereo-joint-train"],
+                                       [{"image5d": torch.zeros(1)}])
+    assert list(steps) == ["stereo-train", "stereo-joint-train"]
+    assert "MS recipe" in steps["stereo-train"][0]
+    assert "flownet frozen" in steps["stereo-joint-train"][0]
+    assert all(callable(step) for _, step in steps.values())
+    assert set(profile_steps.STEREO_RECIPE) == {
+        "L1", "SSIM", "smoothe", "L1_R", "SSIM_R", "smoothe_R", "stereoL1", "stereoSSIM",
+        "stereoPose"}
+    coded = profile_steps.uint8_coded({"image5d_R": torch.ones(1, 2), "intrinsic": torch.ones(1)})
+    assert coded["image5d_R"].dtype == torch.uint8 and coded["intrinsic"].dtype == torch.float32

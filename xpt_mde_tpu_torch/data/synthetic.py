@@ -2,11 +2,12 @@
 
 The default world of the reference's ``SyntheticDataset``: 5-frame
 snippets of a textured fronto-parallel plane 10 m away, seen by a camera
-stepping 0.5 m in x, with exact GT depth and target->source poses. Pure
-numpy, copied rather than imported so the port needs no JAX; for a given
-seed and size it yields the reference's batches bit for bit
-(``tests/test_torch_data.py``). The reference's other worlds (varying
-depth and motion, stereo, a moving object) have no caller in the port
+stepping 0.5 m in x, with exact GT depth and target->source poses, and
+with ``stereo=True`` a right camera ``baseline_m`` to the right of the
+left one. Pure numpy, copied rather than imported so the port needs no
+JAX; for a given seed and size it yields the reference's batches bit for
+bit (``tests/test_torch_data.py``). The reference's other worlds
+(varying depth and motion, a moving object) have no caller in the port
 and are not carried.
 
 Feature dict layout (numpy arrays, as the reference's loaders give):
@@ -14,6 +15,10 @@ Feature dict layout (numpy arrays, as the reference's loaders give):
     intrinsic    [B, 3, 3]
     depth_gt     [B, H, W, 1]
     pose_gt      [B, S - 1, 4, 4]  (target -> source)
+    with stereo=True:
+    image5d_R    [B, S, H, W, 3]   each left frame seen from +baseline
+    intrinsic_R, pose_gt_R         copies of the left ones
+    stereo_T_LR  [B, 4, 4]         identity with [0, 3] = baseline
 """
 
 from __future__ import annotations
@@ -54,15 +59,18 @@ def _render_plane(texture: np.ndarray, fx: float, cam_x: float,
 
 
 class SyntheticDataset:
-    """Iterable of monocular feature-dict batches with exact geometry."""
+    """Iterable of feature-dict batches with exact geometry."""
 
     def __init__(self, batch_size: int = 2, height: int = 32, width: int = 64,
-                 num_batches: int = 8, seed: int = 0):
+                 num_batches: int = 8, stereo: bool = False, seed: int = 0,
+                 baseline_m: float = 0.3):
         self.batch_size = batch_size
         self.height = height
         self.width = width
         self.num_batches = num_batches
+        self.stereo = stereo
         self.seed = seed
+        self.baseline_m = baseline_m
         self.depth_rows = np.full((height,), DEPTH_M, np.float32)
         fx = width * 0.6
         self.intrinsic = np.array(
@@ -72,7 +80,10 @@ class SyntheticDataset:
         return self.num_batches
 
     def config_keys(self):
-        return ["image", "intrinsic", "depth_gt", "pose_gt"]
+        keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+        if self.stereo:
+            keys += ["image_R", "intrinsic_R", "pose_gt_R", "stereo_T_LR"]
+        return keys
 
     def _make_example(self, rng: np.random.RandomState):
         texture = _texture(self.height, self.width, rng)
@@ -93,9 +104,27 @@ class SyntheticDataset:
         for _ in range(self.num_batches):
             images, depths, poses = zip(*(self._make_example(rng)
                                           for _ in range(self.batch_size)))
-            yield {
+            feats = {
                 "image5d": np.stack(images),
                 "intrinsic": np.tile(self.intrinsic, (self.batch_size, 1, 1)),
                 "depth_gt": np.stack(depths),
                 "pose_gt": np.stack(poses),
             }
+            if self.stereo:
+                feats.update(self._right_views(feats))
+            yield feats
+
+    def _right_views(self, feats: dict) -> dict:
+        """The right camera sits ``baseline_m`` to the right of the left
+        one: on a fronto-parallel plane each right frame is an exact
+        re-render of its left frame."""
+        fx = self.intrinsic[0, 0]
+        images_r = [np.stack([_render_plane(frame, fx, self.baseline_m, self.depth_rows)
+                              for frame in snippet])
+                    for snippet in feats["image5d"]]
+        t_lr = np.tile(np.eye(4, dtype=np.float32), (self.batch_size, 1, 1))
+        t_lr[:, 0, 3] = self.baseline_m  # right -> left: x_L = x_R + b
+        return {"image5d_R": np.stack(images_r).astype(np.float32),
+                "intrinsic_R": feats["intrinsic"].copy(),
+                "pose_gt_R": feats["pose_gt"].copy(),
+                "stereo_T_LR": t_lr}

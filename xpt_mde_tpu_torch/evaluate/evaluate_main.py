@@ -251,9 +251,10 @@ def predict_by_plan(cfg: Config, dataset_factory=None,
             print(f"[predict_by_plan] exists, skip: {out_file}")
             continue
         loader = dataset_factory(stage.dataset, "test", cfg.batch_size)
+        # the factory's default upsampling ("nearest"), whatever
+        # Config.depth_upsample_interp says, as the JAX predict_by_plan builds it
         model = ModelFactory(loader_keys(loader), stage.net_names, cfg.depth_activation,
                              stereo=cfg.stereo, high_res=cfg.high_res,
-                             upsample_interp=cfg.depth_upsample_interp,
                              compute_dtype=cfg.compute_dtype, device=device).get_model()
         ckpt = CheckpointManager(Path(cfg.datapath_ckp) / stage.ckpt_name)
         if not ckpt.restore_params(model, stage.weight_suffix):

@@ -1,18 +1,21 @@
-"""Loss orchestration for the rigid, flow and joint stages (port of part
-of ``xpt_mde_tpu.losses.total``).
+"""Loss orchestration for the rigid, flow, joint and stereo recipes (port of
+``xpt_mde_tpu.losses.total``).
 
 Contracts kept:
 - every loss maps (features, predictions, augm_data) -> [batch];
 - multi-scale losses combine per-scale batch losses by a scale-weight
   vector;
 - ``TotalLoss`` builds the shared data (source/target split, target
-  pyramids, synthesized and flow-warped views) once, then sums each loss
-  over the GLOBAL batch, divides by it and weights it by the recipe;
+  pyramids, synthesized and flow-warped views, and with stereo data the
+  same for the right views plus the left<->right cross-synthesis) once,
+  then sums each loss over the GLOBAL batch, divides by it and weights it
+  by the recipe;
 - the factory drops losses whose required features the dataset lacks.
 
-Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2``, ``flow_reg``, ``cmbL1``
-and ``cmbSSIM``. A recipe that keeps any other loss raises, naming it;
-nothing is dropped silently.
+Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2``, ``cmbL1``, ``cmbSSIM``
+and their ``_R`` twins, ``flow_reg``, ``stereoL1``, ``stereoSSIM`` and
+``stereoPose``. A recipe that keeps ``md2*``, ``md2cmb*`` or ``moa*``
+raises, naming it; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
 from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
+from xpt_mde_tpu_torch.utils import se3
 from xpt_mde_tpu_torch.utils.image import multi_scale_like, resize_image
 
 LossFn = Callable[[Mapping[str, Any], Mapping[str, Any], Mapping[str, Any]],
@@ -117,6 +121,35 @@ class SmoothenessLossMultiScale:
         return sx + sy
 
 
+class StereoDepthLoss:
+    """Photometric loss of the left<->right cross-synthesized views against
+    their targets, the left and right sides summed per scale."""
+
+    def __init__(self, method: str, scale_weights):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+
+    def __call__(self, features, predictions, augm_data):
+        sides = [[self.photo(s, t) for s, t in zip(augm_data["stereo_synth_ms" + sfx],
+                                                   augm_data["target_ms" + sfx])]
+                 for sfx in ("", "_R")]
+        return _merge_multi_scale([l + r for l, r in zip(*sides)], self.scale_weights)
+
+
+class StereoPoseLoss:
+    """Mean squared error of the predicted stereo twists against the
+    extrinsic's, both directions: ``pose_LR`` against T_LR and
+    ``pose_RL`` against its inverse."""
+
+    def __call__(self, features, predictions, augm_data):
+        t_lr = features["stereo_T_LR"][:, None]  # [B, 1, 4, 4]
+        pose_lr_true = se3.matrix_to_twist(t_lr)
+        pose_rl_true = se3.matrix_to_twist(se3.invert_matrix(t_lr))
+        loss = (torch.mean((pose_lr_true - predictions["pose_LR"]) ** 2, dim=-1)
+                + torch.mean((pose_rl_true - predictions["pose_RL"]) ** 2, dim=-1))
+        return torch.mean(loss, dim=1)
+
+
 class FlowWarpLossMultiScale:
     """Photometric loss of the flow-warped sources against the scaled
     target."""
@@ -160,10 +193,10 @@ class TotalLoss:
 
     def __call__(self, predictions, features):
         """:return: (total loss scalar, dict of per-loss scalars)"""
-        if self.stereo and "image5d_R" in features:
-            raise NotImplementedError(
-                "stereo losses are not ported yet (ROADMAP: 'Stereo slice')")
         augm_data = self.append_data(features, predictions)
+        if self.stereo and "image5d_R" in features:
+            augm_data.update(self.append_data(features, predictions, "_R"))
+            augm_data.update(self.synthesize_stereo(features, predictions, augm_data))
         global_batch = self.batch_size or features["image5d"].shape[0]
         total = 0.0
         loss_by_type = {}
@@ -191,6 +224,23 @@ class TotalLoss:
             augm["flow_target_ms" + suffix] = multi_scale_like(target, flow_ms)
             augm["warped_target_ms" + suffix] = flow_warp_multi_scale(source, flow_ms)
         return augm
+
+    def synthesize_stereo(self, features, predictions, augm_data):
+        """The left target synthesized from the right one (through
+        inv(T_LR) and the left depth) and the right from the left (T_LR,
+        the right depth), each a single-source synthesis at every scale.
+        Both directions use the LEFT intrinsic, as the JAX package does."""
+        if "stereo_T_LR" not in features or "depth_ms" not in predictions:
+            return {}
+        t_lr = features["stereo_T_LR"]  # [B, 4, 4]
+        intrinsic = features["intrinsic"]
+        return {
+            "stereo_synth_ms": synthesize_multi_scale(
+                augm_data["target_R"][:, None], intrinsic, predictions["depth_ms"],
+                se3.invert_matrix(t_lr)[:, None]),
+            "stereo_synth_ms_R": synthesize_multi_scale(
+                augm_data["target"][:, None], intrinsic, predictions["depth_ms_R"],
+                t_lr[:, None])}
 
 
 # ---------------------------------------------------------------------------
@@ -232,23 +282,27 @@ def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
     Losses with weight 0 or missing features are dropped, as in the JAX
     factory. A kept loss that is not ported raises NotImplementedError.
     """
-    pool: dict[str, LossFn] = {
-        "L1": PhotometricLossMultiScale("L1", scale_weights),
-        "SSIM": PhotometricLossMultiScale("SSIM", scale_weights),
-        "smoothe": SmoothenessLossMultiScale(scale_weights, "",
-                                             image_gradient_factor),
-        "flowL2": FlowWarpLossMultiScale("L2", scale_weights),
-        "flow_reg": L2Regularizer(),
-        "cmbL1": CombinedLossMultiScale("L1", scale_weights),
-        "cmbSSIM": CombinedLossMultiScale("SSIM", scale_weights),
-    }
+    pool: dict[str, LossFn] = {}
+    for sfx in ("", "_R"):
+        pool["L1" + sfx] = PhotometricLossMultiScale("L1", scale_weights, sfx)
+        pool["SSIM" + sfx] = PhotometricLossMultiScale("SSIM", scale_weights, sfx)
+        pool["cmbL1" + sfx] = CombinedLossMultiScale("L1", scale_weights, sfx)
+        pool["cmbSSIM" + sfx] = CombinedLossMultiScale("SSIM", scale_weights, sfx)
+        pool["smoothe" + sfx] = SmoothenessLossMultiScale(scale_weights, sfx,
+                                                          image_gradient_factor)
+        pool["flowL2" + sfx] = FlowWarpLossMultiScale("L2", scale_weights, sfx)
+    pool["stereoL1"] = StereoDepthLoss("L1", scale_weights)
+    pool["stereoSSIM"] = StereoDepthLoss("SSIM", scale_weights)
+    pool["stereoPose"] = StereoPoseLoss()
+    pool["flow_reg"] = L2Regularizer()
     losses, weights = {}, {}
     for name, weight in loss_weights.items():
         if weight == 0.0 or not check_loss_dependency(name, dataset_keys):
             continue
         if name not in pool:
             raise NotImplementedError(
-                f"loss {name!r} is not ported yet; ported: {sorted(pool)}")
+                f"loss {name!r} is not ported yet (ROADMAP: 'Breadth'); "
+                f"ported: {sorted(pool)}")
         losses[name] = pool[name]
         weights[name] = weight
     return TotalLoss(losses, weights, stereo, batch_size)

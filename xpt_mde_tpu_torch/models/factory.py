@@ -1,10 +1,13 @@
 """Model factory + composite model (port of ``xpt_mde_tpu.models.factory``).
 
 ``VodeModel(features)`` runs each sub-net on ``image5d`` and merges their
-prediction dicts, deriving ``disp_ms = 1 / depth_ms``. Ported so far: the
-monocular nets an EfficientNet ``DepthNetPretrained``, ``PoseNetImproved``
-and ``PWCNet``, in float32. Any other net, stereo and bfloat16 raise,
-naming the ROADMAP item that adds them.
+prediction dicts, deriving ``disp_ms = 1 / depth_ms``; with stereo data it
+runs them again on the ``_R`` views, and with a stereo extrinsic and a
+posenet it predicts the left<->right pose by feeding
+``[R_target] * numsrc + [L_target]`` snippets (and their mirror) to the
+posenet. Ported so far: an EfficientNet ``DepthNetPretrained``,
+``PoseNetImproved`` and ``PWCNet``, in float32. Any other net and
+bfloat16 raise, naming the ROADMAP item that adds them.
 
 Weights are drawn from an explicit ``torch.Generator`` on the CPU (the
 modules are built on the ``meta`` device first, so nothing is drawn
@@ -31,18 +34,32 @@ from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
 
 
 class VodeModel(nn.Module):
-    """Composite {depthnet, posenet, flownet} model (monocular)."""
+    """Composite {depthnet, posenet, flownet} model with stereo handling.
+
+    The nets run in a fixed order: depth, pose and flow on the left views,
+    then on the right, then the posenet on the L->R and the R->L
+    snippets. In train mode each call folds its batch statistics into the
+    BatchNorm running ones in turn, as flax's mutable ``batch_stats`` do,
+    so the order is part of the result."""
 
     def __init__(self, depthnet: nn.Module | None = None,
                  posenet: nn.Module | None = None,
-                 flownet: nn.Module | None = None):
+                 flownet: nn.Module | None = None,
+                 stereo: bool = False, stereo_pose: bool = False):
         super().__init__()
         self.depthnet = depthnet
         self.posenet = posenet
         self.flownet = flownet
+        self.stereo = stereo
+        self.stereo_pose = stereo_pose
 
     def forward(self, features: Mapping[str, torch.Tensor]) -> dict:
-        return self.predict_batch(features, "")
+        preds = self.predict_batch(features, "")
+        if self.stereo and "image5d_R" in features:
+            preds.update(self.predict_batch(features, "_R"))
+            if self.stereo_pose and self.posenet is not None:
+                preds.update(self.predict_stereo_pose(features))
+        return preds
 
     def predict_batch(self, features, suffix: str) -> dict:
         image5d = features["image5d" + suffix]
@@ -56,6 +73,19 @@ class VodeModel(nn.Module):
         if "depth_ms" in preds:
             preds["disp_ms"] = safe_reciprocal_ms(preds["depth_ms"])
         return {key + suffix: value for key, value in preds.items()}
+
+    def predict_stereo_pose(self, features) -> dict:
+        """``pose_LR`` / ``pose_RL`` [B, numsrc, 6]: the posenet on the
+        right target repeated as the sources of the left target, and the
+        mirror."""
+        left_target = features["image5d"][:, -1]
+        right_target = features["image5d_R"][:, -1]
+        numsrc = features["image5d"].shape[1] - 1
+        lr_input = torch.stack([right_target] * numsrc + [left_target], dim=1)
+        rl_input = torch.stack([left_target] * numsrc + [right_target], dim=1)
+        pose_lr = self.posenet(lr_input)["pose"]
+        pose_rl = self.posenet(rl_input)["pose"]
+        return {"pose_LR": pose_lr, "pose_RL": pose_rl}
 
 
 @torch.no_grad()
@@ -101,10 +131,6 @@ class ModelFactory:
         unported = set(self.net_names) - {"depth", "camera", "flow"}
         if unported:
             raise NotImplementedError(f"nets {sorted(unported)} are not ported yet")
-        if "stereo_T_LR" in self.dataset_keys or (
-                "image_R" in self.dataset_keys and self.stereo):
-            raise NotImplementedError(
-                "the stereo VodeModel is not ported yet (ROADMAP: 'Stereo slice')")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the model is built on the card "
                                "unless the caller passes device='cpu'")
@@ -116,7 +142,11 @@ class ModelFactory:
                 posenet = self.pose_net_factory(self.net_names["camera"])
             if "flow" in self.net_names:
                 flownet = self.flow_net_factory(self.net_names["flow"])
-            model = VodeModel(depthnet, posenet, flownet)
+            # the wrapper choice of the JAX factory: stereo pose wherever
+            # the data carry the extrinsic and a depth net is built
+            stereo_pose = "stereo_T_LR" in self.dataset_keys and depthnet is not None
+            stereo = stereo_pose or ("image_R" in self.dataset_keys and self.stereo)
+            model = VodeModel(depthnet, posenet, flownet, stereo, stereo_pose)
         model.to_empty(device="cpu")
         init_weights(model, torch.Generator().manual_seed(self.seed))
         return model.to(self.device)

@@ -4,12 +4,15 @@ file, set the paths and pick a plan. The entry scripts take no flags.
 The port runs float32 only (``compute_dtype``) and reads shards that the
 JAX package's ``scripts/create_shards_main.py`` (or the port's
 ``ShardWriter``) wrote under ``{datapath}/shards/{dataset}_{split}``.
+Stereo datasets (``kitti_raw``, ``kitti_odom``, ``cityscapes``,
+``driving_stereo``) train on their right views too, with the stereo
+losses of the published recipes.
 """
 
 from xpt_mde_tpu_torch.config import RIGID_NET, Config, TestStage, training_plan_28
 
 cfg = Config(
-    stereo=False,
+    stereo=True,
     high_res=False,
     per_replica_batch=8,
     datapath="/data/xpt_mde_tpu",

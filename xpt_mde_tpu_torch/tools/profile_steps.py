@@ -10,11 +10,15 @@ rigid stage: EfficientNetB5 + PoseNetImproved with the loss of
 ``chip_smoke.py``; the train step with the default augmentation from a
 seeded generator), ``flow-predict,flow-train`` (the flow stage: PWC-Net
 alone, ``{"flowL2": 1.0, "flow_reg": 4e-7}``, ``regularize_net=
-"flownet"``) and ``joint-train`` (the joint stage: the three nets,
+"flownet"``), ``joint-train`` (the joint stage: the three nets,
 ``{"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0}``, the flownet frozen,
-no augmentation); all six by default. Every step runs at batch 8, 128x512,
-seeded random weights, with Adam at 1e-4 and uint8-coded batches for the
-train steps. For each step:
+no augmentation), ``stereo-train`` (the rigid nets on stereo snippets
+under the published "MS" recipe, ``STEREO_RECIPE``, with the default
+augmentation) and ``stereo-joint-train`` (the three nets on stereo
+snippets under ``LOSS_RIGID_COMB``, the flownet frozen, no
+augmentation); all eight by default. Every step runs at batch 8,
+128x512, seeded random weights, with Adam at 1e-4 and uint8-coded
+batches for the train steps. For each step:
 
 - times 5 steps on the host clock around ``torch.cuda.synchronize()``,
   without the profiler (wall ms/step);
@@ -41,7 +45,15 @@ import torch
 RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
 FLOW_RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}  # LOSS_FLOW without flowL2_R
 JOINT_RECIPE = {"cmbL1": 5.0, "cmbSSIM": 0.5, "smoothe": 20.0}
-STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train", "joint-train")
+# the published "MS" (mono + stereo) recipe of the JAX bench's stereo stage
+STEREO_RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0,
+                 "L1_R": 0.5, "SSIM_R": 0.5, "smoothe_R": 20.0,
+                 "stereoL1": 0.5, "stereoSSIM": 0.5, "stereoPose": 1.0}
+# the stereo snippets' keys, in the schema of the kitti_raw shards
+STEREO_KEYS = ["image", "intrinsic", "depth_gt", "pose_gt", "image_R", "intrinsic_R",
+               "stereo_T_LR"]
+STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train", "joint-train",
+              "stereo-train", "stereo-joint-train")
 BATCH, HEIGHT, WIDTH = 8, 128, 512
 STEPS = 5  # timed steps, and as many profiled
 TOP = 20  # operators and kernels listed per step
@@ -98,8 +110,8 @@ def profile_step(label: str, step, batches) -> list[str]:
 
 def _build_steps(names, batches):
     """{name: (label, step)} for the requested step names."""
-    from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, RIGID_NET,
-                                          SCALE_WEIGHT_T1)
+    from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET,
+                                          LOSS_RIGID_COMB, RIGID_NET, SCALE_WEIGHT_T1)
     from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import (augmentation_factory, make_eval_step,
@@ -137,7 +149,32 @@ def _build_steps(names, batches):
             model, joint_loss,
             optimizer_factory("adam_constant", 1e-4, model, frozen_nets=["flownet"]),
             frozen_nets=["flownet"]))
+    if "stereo-train" in names:
+        model = ModelFactory(STEREO_KEYS, RIGID_NET, device=device, seed=0).get_model()
+        stereo_loss = loss_factory(STEREO_KEYS, STEREO_RECIPE, SCALE_WEIGHT_T1,
+                                   batch_size=BATCH)
+        stereo_train = make_train_step(model, stereo_loss,
+                                       optimizer_factory("adam_constant", 1e-4, model),
+                                       augmenter=augmentation_factory(AUGMENT_PROBS))
+        stereo_generator = torch.Generator().manual_seed(0)
+        steps["stereo-train"] = (f"{RIGID_NET['depth']} + {RIGID_NET['camera']}, MS recipe",
+                                 lambda features: stereo_train(features, stereo_generator))
+    if "stereo-joint-train" in names:
+        model = ModelFactory(STEREO_KEYS, JOINT_NET, device=device, seed=0).get_model()
+        comb_loss = loss_factory(STEREO_KEYS, LOSS_RIGID_COMB, SCALE_WEIGHT_T1,
+                                 batch_size=BATCH)
+        steps["stereo-joint-train"] = (
+            "B5 + PoseNetImproved + PWCNet, LOSS_RIGID_COMB, flownet frozen", make_train_step(
+                model, comb_loss,
+                optimizer_factory("adam_constant", 1e-4, model, frozen_nets=["flownet"]),
+                frozen_nets=["flownet"]))
     return {name: steps[name] for name in names}
+
+
+def uint8_coded(batch: dict) -> dict:
+    """The batch's snippets as the shard loaders ship them, uint8."""
+    return {k: torch.round((v + 1.0) * 127.5).to(torch.uint8) if k.startswith("image5d")
+            else v for k, v in batch.items()}
 
 
 def main(argv=None) -> int:
@@ -160,16 +197,20 @@ def main(argv=None) -> int:
 
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     device = torch.device("cuda", 0)
+    stereo = any(name.startswith("stereo") for name in names)
     dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
-                               num_batches=3, seed=0)
-    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in dataset]
-    uint8_batches = [dict(b, image5d=torch.round((b["image5d"] + 1.0) * 127.5).to(torch.uint8))
-                     for b in batches]
+                               num_batches=3, stereo=stereo, seed=0)
+    stereo_batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                      for b in dataset]
+    mono_keys = ("image5d", "intrinsic", "depth_gt", "pose_gt")
+    batches = [{k: b[k] for k in mono_keys} for b in stereo_batches]
     report = [f"{_device_line()}; batch {BATCH}, {HEIGHT}x{WIDTH}, float32 (TF32 off), "
               f"{STEPS} steps, cuDNN algorithms by "
               f"{'timing (benchmark)' if args.cudnn_benchmark else 'heuristics'}"]
     for name, (label, step) in _build_steps(names, batches).items():
-        step_batches = uint8_batches if name.endswith("train") else batches
+        step_batches = stereo_batches if name.startswith("stereo") else batches
+        if name.endswith("train"):
+            step_batches = [uint8_coded(b) for b in step_batches]
         report += profile_step(f"{name} ({label})", step, step_batches)
     text = "\n".join(report)
     print(text, flush=True)

@@ -3,16 +3,18 @@
 
 Semantics kept from the JAX package:
 
-- one decision and one parameter set per batch, shared by every sample;
+- one decision and one parameter set per batch, shared by every sample
+  and by the left and right views of a stereo batch;
 - CropAndResize crops a normalized box (y1, x1, y2, x2) and resizes it
   back to (H, W) as ``jax.image.scale_and_translate(method="linear")``
   does (half-pixel centres, triangle weights renormalized over in-frame
-  pixels, one separable weight matrix per axis), crops ``depth_gt``
-  nearest, and adjusts the intrinsics (cx' = (cx - x1 W) / (x2 - x1),
-  fx' = fx / (x2 - x1), likewise for y);
+  pixels, one separable weight matrix per axis), crops ``depth_gt`` and
+  ``depth_gt_R`` nearest, and adjusts the intrinsics (cx' = (cx - x1 W) /
+  (x2 - x1), fx' = fx / (x2 - x1), likewise for y);
 - HorizontalFlip mirrors the images, maps K to |[[0,0,W],0,0] - K| and
-  conjugates the poses by diag(-1, 1, 1, 1) (``depth_gt`` is not
-  mirrored, as in the JAX package);
+  conjugates the poses and ``stereo_T_LR`` by diag(-1, 1, 1, 1)
+  (``depth_gt`` is not mirrored and the left and right views are not
+  swapped, as in the JAX package);
 - ColorJitter blends towards the channel mean by ``saturation`` in [0.5,
   1.5] and applies ``gamma`` in [0.5, 1.5] on the [0, 1] image.
 
@@ -109,10 +111,13 @@ class CropAndResize:
     def apply(self, features: dict, box: Sequence[float]) -> dict:
         height, width = features["image5d"].shape[2:4]
         out = dict(features)
-        out["image5d"] = crop_resize_5d(features["image5d"], box)
-        out["intrinsic"] = self.adjust_intrinsic(features["intrinsic"], box, height, width)
-        if "depth_gt" in features:
-            out["depth_gt"] = crop_nearest(features["depth_gt"], box)
+        for sfx in ("", "_R"):
+            if "image5d" + sfx in features:
+                out["image5d" + sfx] = crop_resize_5d(features["image5d" + sfx], box)
+                out["intrinsic" + sfx] = self.adjust_intrinsic(features["intrinsic" + sfx],
+                                                               box, height, width)
+            if "depth_gt" + sfx in features:
+                out["depth_gt" + sfx] = crop_nearest(features["depth_gt" + sfx], box)
         return out
 
     @staticmethod
@@ -145,21 +150,25 @@ class HorizontalFlip:
 
     @staticmethod
     def flip(features: dict) -> dict:
-        """Mirror the snippet, its intrinsics and its poses (``_flip``)."""
+        """Mirror the snippets, their intrinsics and the poses (``_flip``)."""
         width = features["image5d"].shape[-2]
         out = dict(features)
-        out["image5d"] = torch.flip(features["image5d"], dims=[-2])
-        intrinsic = features["intrinsic"]
-        wh = torch.zeros(3, 3, dtype=intrinsic.dtype, device=intrinsic.device)
-        wh[0, 2] = width
-        out["intrinsic"] = torch.abs(wh - intrinsic)
-        if "pose_gt" in features:
-            # T P T with T = diag(-1, 1, 1, 1): flip the sign of row 0 and
-            # column 0 (the products with +-1 and 0 are exact)
-            pose = features["pose_gt"].clone()
-            pose[..., 0, :] *= -1.0
-            pose[..., :, 0] *= -1.0
-            out["pose_gt"] = pose
+        for sfx in ("", "_R"):
+            if "image5d" + sfx in features:
+                out["image5d" + sfx] = torch.flip(features["image5d" + sfx], dims=[-2])
+            if "intrinsic" + sfx in features:
+                intrinsic = features["intrinsic" + sfx]
+                wh = torch.zeros(3, 3, dtype=intrinsic.dtype, device=intrinsic.device)
+                wh[0, 2] = width
+                out["intrinsic" + sfx] = torch.abs(wh - intrinsic)
+        for key in ("pose_gt", "pose_gt_R", "stereo_T_LR"):
+            if key in features:
+                # T P T with T = diag(-1, 1, 1, 1): flip the sign of row 0
+                # and column 0 (the products with +-1 and 0 are exact)
+                pose = features[key].clone()
+                pose[..., 0, :] *= -1.0
+                pose[..., :, 0] *= -1.0
+                out[key] = pose
         return out
 
 
@@ -181,7 +190,9 @@ class ColorJitter:
               saturation: float) -> dict:
         out = dict(features)
         if do_jitter:
-            out["image5d"] = self.jitter(features["image5d"], gamma, saturation)
+            for key in ("image5d", "image5d_R"):
+                if key in features:
+                    out[key] = self.jitter(features[key], gamma, saturation)
         return out
 
     @staticmethod
@@ -201,9 +212,6 @@ class TotalAugment:
         self.augmenters = list(augmenters)
 
     def __call__(self, features: dict, generator=None) -> dict:
-        if "image5d_R" in features:
-            raise NotImplementedError(
-                "stereo augmentation is not ported yet (ROADMAP: 'Stereo slice')")
         for aug in self.augmenters:
             features = aug(features, generator)
         return features

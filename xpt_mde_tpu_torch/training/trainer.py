@@ -53,8 +53,8 @@ def _np(value) -> np.ndarray:
 
 
 def inspect_model(preds, features, step: int, steps_per_epoch: int) -> bool:
-    """Quantiles of the predicted depth and flow and the pose beside its
-    ground truth, at three steps per epoch.
+    """Quantiles of the predicted depth and flow, and the pose and the
+    stereo pose beside their ground truths, at three steps per epoch.
 
     :return: True when this step was inspected
     """
@@ -78,6 +78,11 @@ def inspect_model(preds, features, step: int, steps_per_epoch: int) -> bool:
     if "pose_gt" in features:
         gt = _np(features["pose_gt"])
         print("pose_gt", gt[0, 0, :3, 3], gt[0, 1, :3, 3])
+    if "pose_LR" in preds:
+        lr = _np(preds["pose_LR"])
+        print("T_LR_pr", lr[0, 0, :3], lr[0, 1, :3])
+        gt_lr = _np(features["stereo_T_LR"])
+        print("T_LR_gt", gt_lr[0, :3, 3], gt_lr[0, :3, 3])
     return True
 
 
