@@ -2,9 +2,12 @@
 """Drive the PyTorch port once on one NVIDIA GPU: its rigid predict, eval
 and train steps, its flow predict and train steps, its joint train step,
 its entry point, the plan driver (train by plan over a rigid, a flow and a
-joint row on synthetic shards, then predict and evaluate), and the stereo
+joint row on synthetic shards, then predict and evaluate), the stereo
 ("MS") path: the stereo train, joint and flow steps and the plan on
-stereo shards.
+stereo shards, all in float32 (the parity mode); then the bfloat16
+compute mode, the default of ``Config()``: the bfloat16 correlation
+kernels, the steps at full width, their cross-check against float32, and
+the stereo plan at the default ``Config()``.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -16,8 +19,9 @@ a subprocess on the same card, and their per-step kernel times become
 ``earlier_ms`` in the kernels line (else ``earlier_ms`` is null).
 
 It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) and
-K2, K3 and K4 (``xpt_mde_tpu_torch/csrc/correlation.cu``) with ``nvcc``,
-one compiler per source started together, and prints one line per phase:
+K2, K3 and K4 in float32 and bfloat16 (``xpt_mde_tpu_torch/csrc/
+correlation.cu``) with ``nvcc``, one compiler per source started
+together, and prints one line per phase:
 
 1. the device (name, count, power limit) and the kernels' register/spill
    report;
@@ -107,15 +111,36 @@ one compiler per source started together, and prints one line per phase:
     (LOSS_RIGID_T2) and a joint row (LOSS_RIGID_COMB), one epoch each,
     the joint row starting from the rows before and keeping the flownet;
     then ``predict_by_plan`` and ``evaluate_by_plan`` with the joint nets:
-    finite metrics. Every kernel must launch in this run; images/s per
-    row and the phase's seconds.
+    finite metrics. Every float32 kernel must launch in this run; images/s
+    per row and the phase's seconds;
+21. the bfloat16 K2, K3 and K4 against their plain versions on the same
+    bfloat16 inputs at the five PWC levels (and K3, K4 against the plain
+    autograd), within one bfloat16 ulp plus BF16_CORR_ATOL of the largest
+    value, and at the card tests' edge shapes (CORR_EDGE_SHAPES) on
+    aligned and offset inputs; their times per level and per flow step
+    beside the float32 kernels' of phase 8;
+22. the bfloat16 steps at full width: rigid predict, rigid train, flow
+    train, joint train and stereo train (MS), each with its launches per
+    step checked (the bfloat16 correlation kernels, never the float32
+    ones) and float32 outputs; images/s and peak memory beside the
+    float32 steps' of phases 12, 13 and 16;
+23. one bfloat16 step of the rigid, flow, joint and stereo stages on the
+    card against the float32 step of this call from the same weights and
+    batch, held to the CPU's bfloat16-vs-float32 distance at the same size
+    (BF16_MEDIAN_RATIO, BF16_MAX_RATIO): loss terms, parameter gradients,
+    BN statistics;
+24. the stereo plan of phase 20 at the default ``Config()``, bfloat16,
+    this slice's main path: K1, K1-bwd and the bfloat16 K2, K3 and K4 must
+    launch in its run, the float32 K2, K3 and K4 never; float32 npz
+    predictions and finite metrics.
 
-Then a JSON line with each kernel's launches on the stereo plan run (and
-on every path), error, device time (K1 and K1-bwd also at N = 1), bound,
-the plain version's, the nearest library call's and the earlier
-checkout's times (``redesigned_in`` names the pull request that
-redesigned a kernel), the ``nvidia-smi`` name/power line, and last the
-result line
+Then a JSON line with each kernel's launches on its main path's run (the
+float32 kernels': the float32 stereo plan; the bfloat16 ones': the
+bfloat16 stereo plan) and on every path, error, device time (K1 and
+K1-bwd also at N = 1), bound, the plain version's, the nearest library
+call's and the earlier checkout's times (``redesigned_in`` names the pull
+request that redesigned a kernel), the ``nvidia-smi`` name/power line, and
+last the result line
 ``{"ok": true, "device": {...}}``. It exits non-zero and prints no result
 line when there is no CUDA card, when the repository's packages cannot be
 imported, or when any phase fails. It imports nothing of JAX.
@@ -258,6 +283,19 @@ CHECK_T_LR = [[1.0, 0.0, 0.0, 0.3], [0.0, 1.0, 0.0, 0.013], [0.0, 0.0, 1.0, 0.0]
               [0.0, 0.0, 0.0, 1.0]]
 # the stereo plan's shards, as PLAN_SNIPPETS
 STEREO_PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
+# the bfloat16 K2, K3 and K4 and their plain versions each read the
+# operands as float32, sum in float32 and round once: within one bfloat16
+# ulp of the plain value, plus this share of the largest value for a sum
+# that cancels (a float32 order difference then exceeds the ulp of a
+# result near 0)
+BF16_CORR_ATOL = 1e-6
+# the card tests' edge shapes (tests/test_torch_kernels.py): a stride that
+# does not divide md, md 0, frames below 2 md + 1, C not a multiple of 8,
+# n = 17, W % 4 != 0 at stride 4, several channel chunks, narrow K2 tiles,
+# the vector paths
+CORR_EDGE_SHAPES = [((1, 5, 5, 7), 4, 3), ((2, 8, 3, 130), 0, 1), ((1, 13, 3, 4), 4, 1),
+                    ((2, 20, 6, 24), 6, 2), ((1, 12, 6, 20), 8, 1), ((2, 16, 5, 34), 8, 4),
+                    ((2, 300, 4, 40), 4, 1), ((1, 300, 4, 128), 4, 1), ((2, 24, 6, 40), 8, 4)]
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
 # device memory and for float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -783,6 +821,7 @@ def _plan_phase(workdir, device, counts, zero_counts, tag):
             TrainStage(JOINT_NET, "synthetic", 1, LR, JOINT_RECIPE, SCALE_WEIGHT_T1)]
     cfg = Config(stereo=False, per_replica_batch=BATCH, datapath=str(workdir),
                  ckpt_name="smoke", pretrained_weight=False, training_plan=plan,
+                 compute_dtype="float32",
                  test_plan=[TestStage(JOINT_NET, "synthetic", ["depth", "pose"], "smoke")])
     loader_kind = default_dataset_factory(cfg)("synthetic", "train", BATCH).kind
     if loader_kind != "native":
@@ -871,9 +910,10 @@ def _plan_phase(workdir, device, counts, zero_counts, tag):
     return counts(), note
 
 
-def _stereo_plan_phase(workdir, device, counts, zero_counts, tag):
-    """Phase 20 in ``workdir``: the stereo plan. Returns (kernel launches of
-    its run, a summary line)."""
+def _stereo_plan_phase(workdir, device, counts, zero_counts, tag, compute_dtype="float32"):
+    """Phase 20 (``compute_dtype`` float32) or 24 (None: the default
+    ``Config()``, bfloat16) in ``workdir``: the stereo plan. Returns (kernel
+    launches of its run, a summary line)."""
     import numpy as np
     import torch
 
@@ -890,11 +930,15 @@ def _stereo_plan_phase(workdir, device, counts, zero_counts, tag):
     plan = [TrainStage(FLOW_NET, "kitti_raw", 1, LR, LOSS_FLOW, SCALE_WEIGHT_T1),
             TrainStage(RIGID_NET, "kitti_raw", 1, LR, LOSS_RIGID_T2, SCALE_WEIGHT_T1),
             TrainStage(JOINT_NET, "kitti_raw", 1, LR, LOSS_RIGID_COMB, SCALE_WEIGHT_T1)]
+    dtype_kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
     cfg = Config(per_replica_batch=BATCH, datapath=str(workdir), ckpt_name="stereo",
                  pretrained_weight=False, training_plan=plan,
-                 test_plan=[TestStage(JOINT_NET, "kitti_raw", ["depth", "pose"], "stereo")])
+                 test_plan=[TestStage(JOINT_NET, "kitti_raw", ["depth", "pose"], "stereo")],
+                 **dtype_kw)
     if not cfg.stereo:
         raise AssertionError("Config.stereo is off by default")
+    if compute_dtype is None and cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"Config() computes in {cfg.compute_dtype}, not bfloat16")
     ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
     zero_counts()
     t0 = time.perf_counter()
@@ -926,6 +970,8 @@ def _stereo_plan_phase(workdir, device, counts, zero_counts, tag):
     n_test = STEREO_PLAN_SNIPPETS["test"]
     if npz["depth"].shape != (n_test, HEIGHT, WIDTH, 1) or npz["pose"].shape != (n_test, 4, 6):
         raise AssertionError(f"predictions {npz['depth'].shape}, {npz['pose'].shape}")
+    if npz["depth"].dtype != np.float32 or npz["pose"].dtype != np.float32:
+        raise AssertionError(f"predictions in {npz['depth'].dtype}, {npz['pose'].dtype}")
     summary_file = Path(cfg.datapath_evl) / "stereo" / "summary_kitti_raw_latest.csv"
     summary = {k: float(v) for k, v in (line.split(",") for line in
                                         summary_file.read_text().strip().splitlines()[1:])}
@@ -935,7 +981,8 @@ def _stereo_plan_phase(workdir, device, counts, zero_counts, tag):
         raise AssertionError(f"stereo evaluation summary {summary}")
     rates = {r["epoch"]: STEREO_PLAN_SNIPPETS["train"] / float(r["train_sec_per_epoch"])
              for r in rows}
-    print(f"timing stereo plan rows (train epoch of {STEREO_PLAN_SNIPPETS['train']} stereo "
+    print(f"timing stereo plan rows ({cfg.compute_dtype}; train epoch of "
+          f"{STEREO_PLAN_SNIPPETS['train']} stereo "
           f"snippets at batch {BATCH}, {HEIGHT}x{WIDTH}): flow {rates['0']:.2f}, rigid "
           f"{rates['1']:.2f}, joint {rates['2']:.2f} images/s; calls: shards {shard_s:.1f} s, "
           f"three rows {train_s:.1f} s, predict + evaluate {eval_s:.1f} s {tag}", flush=True)
@@ -972,11 +1019,25 @@ def _valid_terms(height, width, max_displacement, stride):
             * sum(max(0, width - abs(o)) for o in offsets))
 
 
-def _corr_phase(device, tag):
-    """Phase 8: K2, K3 and K4 against their plain versions at the five
-    PWC-Net levels of the flow stage, and their times beside the plain
-    versions' and the bounds. Returns per-kernel sums over the levels
-    (one train step's launches)."""
+def bf16_ulp_excess(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, the largest of |got - ref| / (one bfloat16 ulp of
+    ref + BF16_CORR_ATOL x max |ref|)): the second is at most 1 where the
+    kernel holds the bfloat16 rule."""
+    import torch
+    got, ref = got.double(), ref.double()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126))) - 7)
+    diff = (got - ref).abs()
+    bound = ulp + BF16_CORR_ATOL * float(ref.abs().max())
+    return float(diff.max()), float((diff / bound).max())
+
+
+def _corr_phase(device, tag, dtype=None):
+    """Phase 8 (float32, the default) or 21 (``dtype`` bfloat16): K2, K3
+    and K4 of that dtype against their plain versions at the five PWC-Net
+    levels of the flow stage (float32 within CORR_RTOL of the largest plain
+    value; bfloat16 within one ulp, ``bf16_ulp_excess``), and their times
+    beside the plain versions' and the bounds. Returns per-kernel sums over
+    the levels (one train step's launches)."""
     import torch
 
     from xpt_mde_tpu_torch.config import NUM_SRC
@@ -985,9 +1046,12 @@ def _corr_phase(device, tag):
                                                    correlation_cost_plain,
                                                    correlation_grad_cl_plain,
                                                    correlation_grad_cr_plain)
-    from xpt_mde_tpu_torch.ops.kernels.correlation import K2, K3, K4
+    from xpt_mde_tpu_torch.ops.kernels.correlation import kernels_for
 
-    keys = ("err", "ms", "plain_ms", "bound_ms", "bytes", "flops")
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    K2, K3, K4 = kernels_for(dtype)
+    keys = ("err", "ulps", "ms", "plain_ms", "bound_ms", "bytes", "flops")
     stats = {name: dict.fromkeys(keys, 0.0) for name in ("K2", "K3", "K4")}
     notes = []
     generator = torch.Generator().manual_seed(2)
@@ -996,9 +1060,9 @@ def _corr_phase(device, tag):
         md, stride = level_displacement(level)
         chans, h, w = ENCODER_CHANNELS[level - 1], HEIGHT >> level, WIDTH >> level
         n2 = correlation_channels(md, stride)
-        cl, cr = ((torch.rand((pairs, chans, h, w), generator=generator) * 2 - 1).to(device)
-                  for _ in range(2))
-        g = (torch.rand((pairs, n2, h, w), generator=generator) * 2 - 1).to(device)
+        cl, cr = ((torch.rand((pairs, chans, h, w), generator=generator) * 2 - 1).to(
+            device, dtype) for _ in range(2))
+        g = (torch.rand((pairs, n2, h, w), generator=generator) * 2 - 1).to(device, dtype)
         got = {"K2": K2(cl, cr, md, stride), "K3": K3(g, cr, md, stride),
                "K4": K4(g, cl, md, stride)}
         ref = {"K2": correlation_cost_plain(cl, cr, md, stride),
@@ -1009,19 +1073,33 @@ def _corr_phase(device, tag):
             correlation_cost_plain(*leaves, md, stride), leaves, g)))
         torch.cuda.synchronize()
         for name in ("K2", "K3", "K4"):
-            err = float((got[name] - ref[name]).abs().max())
-            if name in autograd:
-                err = max(err, float((got[name] - autograd[name]).abs().max()))
+            if got[name].dtype != dtype:
+                raise AssertionError(f"{name} gave {got[name].dtype}, want {dtype}")
             scale = float(ref[name].abs().max())
-            if not err <= CORR_RTOL * scale:
-                raise AssertionError(f"{name} differs from plain by {err} (max |plain| "
-                                     f"{scale}) at level {level}")
+            if bf16:
+                err, ulps = bf16_ulp_excess(got[name], ref[name])
+                if name in autograd:
+                    err_a, ulps_a = bf16_ulp_excess(got[name], autograd[name])
+                    err, ulps = max(err, err_a), max(ulps, ulps_a)
+                if not ulps <= 1.0:
+                    raise AssertionError(f"{name}-bf16 differs from plain by {ulps:.3g} of its "
+                                         f"bound (1 ulp + {BF16_CORR_ATOL} x max) at level "
+                                         f"{level}")
+                stats[name]["ulps"] = max(stats[name]["ulps"], ulps)
+                notes.append(f"L{level} {name} {err:.3g} ({ulps:.3g} of the bound)")
+            else:
+                err = float((got[name] - ref[name]).abs().max())
+                if name in autograd:
+                    err = max(err, float((got[name] - autograd[name]).abs().max()))
+                if not err <= CORR_RTOL * scale:
+                    raise AssertionError(f"{name} differs from plain by {err} (max |plain| "
+                                         f"{scale}) at level {level}")
+                notes.append(f"L{level} {name} {err:.3g} / {scale:.3g}")
             stats[name]["err"] = max(stats[name]["err"], err)
-            notes.append(f"L{level} {name} {err:.3g} / {scale:.3g}")
 
         # bytes: each input read once, each output written once; flops: a
         # multiply-add per channel for every in-frame (pixel, displacement)
-        feat_bytes, g_bytes = cl.numel() * 4, g.numel() * 4
+        feat_bytes, g_bytes = cl.numel() * cl.element_size(), g.numel() * g.element_size()
         flops = 2 * pairs * chans * _valid_terms(h, w, md, stride)
         work = {"K2": (2 * feat_bytes + g_bytes, flops),
                 "K3": (g_bytes + 2 * feat_bytes, flops), "K4": (g_bytes + 2 * feat_bytes, flops)}
@@ -1038,15 +1116,246 @@ def _corr_phase(device, tag):
             for key, value in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound_ms),
                                ("bytes", work[name][0]), ("flops", work[name][1])):
                 stats[name][key] += value
-            line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound {bound_ms:.4f} by "
-                        f"{bound_by})")
-        print(f"timing L{level} [{pairs},{chans},{h},{w}] md {md} stride {stride} n^2 {n2}: "
-              f"device (graph replay) {'; '.join(line)} {tag}", flush=True)
+            line.append(f"{name}{'-bf16' if bf16 else ''} {t_k:.4f} ms (plain {t_p:.4f}, "
+                        f"bound {bound_ms:.4f} by {bound_by})")
+        print(f"timing L{level} [{pairs},{chans},{h},{w}] {dtype} md {md} stride {stride} n^2 "
+              f"{n2}: device (graph replay) {'; '.join(line)} {tag}", flush=True)
+    if bf16:
+        edge = _bf16_edge_checks(device, kernels_for(dtype))
+        print(f"phase 21 bfloat16 correlation kernels vs plain: max abs err K2 "
+              f"{stats['K2']['err']:.3g}, K3 {stats['K3']['err']:.3g}, K4 "
+              f"{stats['K4']['err']:.3g}, each within 1 bfloat16 ulp of the plain value + "
+              f"{BF16_CORR_ATOL} x max |plain| (K3, K4 also vs the plain cost volume's "
+              f"autograd; {'; '.join(notes)}); edge shapes, aligned and offset by one value "
+              f"(the same bits): {edge}", flush=True)
+        return stats
     print(f"phase 8 correlation kernels vs plain: max abs err K2 {stats['K2']['err']:.3g}, "
           f"K3 {stats['K3']['err']:.3g}, K4 {stats['K4']['err']:.3g}, each <= {CORR_RTOL} x "
           f"max |plain| (K3, K4 also vs the plain cost volume's autograd; err / max |plain|: "
           f"{'; '.join(notes)})", flush=True)
     return stats
+
+
+def _bf16_edge_checks(device, kernels) -> str:
+    """The bfloat16 K2, K3 and K4 at the card tests' edge shapes
+    (CORR_EDGE_SHAPES), on aligned inputs and on views offset by one value
+    (the scalar staging and store paths): within the bfloat16 rule of the
+    plain versions, and the same bits on both. Returns a summary."""
+    import torch
+
+    from xpt_mde_tpu_torch.ops.correlation import (correlation_channels,
+                                                   correlation_cost_plain,
+                                                   correlation_grad_cl_plain,
+                                                   correlation_grad_cr_plain)
+
+    def offset_copy(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    k2, k3, k4 = kernels
+    worst = 0.0
+    for shape, md, stride in CORR_EDGE_SHAPES:
+        generator = torch.Generator().manual_seed(sum(shape))
+        cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1).to(device, torch.bfloat16)
+                  for _ in range(2))
+        n2 = correlation_channels(md, stride)
+        g = (torch.rand((shape[0], n2) + shape[2:], generator=generator) * 2 - 1).to(
+            device, torch.bfloat16)
+        runs = {"K2": (lambda a, b, c: k2(b, c, md, stride), (g, cl, cr),
+                       correlation_cost_plain(cl, cr, md, stride)),
+                "K3": (lambda a, b, c: k3(a, c, md, stride), (g, cl, cr),
+                       correlation_grad_cl_plain(g, cr, md, stride)),
+                "K4": (lambda a, b, c: k4(a, b, md, stride), (g, cl, cr),
+                       correlation_grad_cr_plain(g, cl, md, stride))}
+        for name, (run, args, ref) in runs.items():
+            got = run(*args)
+            shifted = run(*(offset_copy(t) for t in args))
+            _, ulps = bf16_ulp_excess(got, ref)
+            if not ulps <= 1.0 or not torch.equal(got, shifted):
+                raise AssertionError(f"{name}-bf16 at {shape} md {md} stride {stride}: "
+                                     f"{ulps:.3g} of the bound, offset run "
+                                     f"{'equal' if torch.equal(got, shifted) else 'differs'}")
+            worst = max(worst, ulps)
+    return (f"{len(CORR_EDGE_SHAPES)} shapes x K2, K3, K4 within {worst:.3g} of the bound, "
+            f"offset runs bit-equal")
+
+
+# the bfloat16 cross-check (phase 23): one bfloat16 step on the card against
+# the float32 step of the same call, from the same weights and batch, held
+# to the distance the CPU's bfloat16 step lies from the CPU's float32 step
+# (which tests/test_torch_bf16_*.py hold to the JAX package's): at most
+# BF16_MEDIAN_RATIO times at the median and BF16_MAX_RATIO times at the
+# maximum, over the loss terms, the parameter tensors (relative distances
+# of those above GRAD_FLOOR) and the BatchNorm statistics (elementwise,
+# pooled, beside BF16_STAT_ATOL of their scale)
+BF16_MEDIAN_RATIO, BF16_MAX_RATIO, BF16_STAT_ATOL = 2.0, 4.0, 1e-6
+
+
+def _ratio_rule(card, cpu, label):
+    """``card`` and ``cpu``: distances of bfloat16 from float32 per element
+    (a 1-d array). Raise unless the card's median and maximum stay within
+    BF16_MEDIAN_RATIO and BF16_MAX_RATIO of the CPU's; return a summary."""
+    import numpy as np
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    med = (float(np.median(card)), float(np.median(cpu)))
+    top = (float(card.max()), float(cpu.max()))
+    if not (med[0] <= BF16_MEDIAN_RATIO * med[1] and top[0] <= BF16_MAX_RATIO * top[1]):
+        raise AssertionError(f"{label}: card bf16-vs-f32 median {med[0]:.3g}, max {top[0]:.3g} "
+                             f"against the CPU's {med[1]:.3g}, {top[1]:.3g}")
+    return f"{label} median {med[0]:.3g} (CPU {med[1]:.3g}), max {top[0]:.3g} (CPU {top[1]:.3g})"
+
+
+def _bf16_cross_check(label, nets, keys, feats, device, loss, prepare, step_kwargs=None):
+    """Phase 23 for one stage: one train step in bfloat16 and one in
+    float32, on the card and on the CPU, from the same seeded weights
+    (``prepare`` sets the heads' biases) on ``feats``, no augmentation;
+    the card's bfloat16-vs-float32 distances held to the CPU's by
+    ``_ratio_rule``. Returns a summary."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
+
+    runs = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        for dtype in ("bfloat16", "float32"):
+            model = ModelFactory(keys, nets, stereo=False, compute_dtype=dtype, device=dev,
+                                 seed=0).get_model()
+            prepare(model, dev)
+            step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model),
+                                   **(step_kwargs or {}))
+            metrics = step({k: v.to(dev) for k, v in feats.items()})
+            if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+                raise AssertionError(f"{label} {dtype} on {dev}: non-finite metrics")
+            if any(p.dtype != torch.float32 for p in model.parameters()):
+                raise AssertionError(f"{label} {dtype}: a parameter is not float32")
+            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            runs[where, dtype] = ({k: float(v) for k, v in metrics.items()
+                                      if k.startswith("loss")}, grads, stats)
+
+    def pair(where, part):
+        return runs[where, "bfloat16"][part], runs[where, "float32"][part]
+
+    lines = []
+    terms = sorted(runs["cpu", "float32"][0])
+    rel = {}
+    for where in ("card", "cpu"):
+        lo, hi = pair(where, 0)
+        rel[where] = np.array([abs(lo[k] - hi[k]) / abs(hi[k]) for k in terms])
+    if not rel["card"].max() <= BF16_MAX_RATIO * rel["cpu"].max() + 1e-6:
+        raise AssertionError(f"{label} losses: card bf16-vs-f32 {rel['card'].tolist()} "
+                             f"against the CPU's {rel['cpu'].tolist()}")
+    lines.append(f"loss terms' relative distance max {rel['card'].max():.3g} "
+                 f"(CPU {rel['cpu'].max():.3g})")
+    floor = {n for n, g in runs["cpu", "float32"][1].items()
+             if float(torch.linalg.norm(g)) > GRAD_FLOOR}
+    grad_rel = {}
+    for where in ("card", "cpu"):
+        lo, hi = pair(where, 1)
+        grad_rel[where] = [float(torch.linalg.norm(lo[n] - hi[n]) / torch.linalg.norm(hi[n]))
+                           for n in sorted(floor)]
+    lines.append(_ratio_rule(grad_rel["card"], grad_rel["cpu"],
+                             f"{len(floor)} gradient tensors' relative distance"))
+    stats = sorted(runs["cpu", "float32"][2])
+    if stats:
+        pooled = {}
+        for where in ("card", "cpu"):
+            lo, hi = pair(where, 2)
+            pooled[where] = torch.cat([(lo[k] - hi[k]).abs().reshape(-1) for k in stats])
+        scale = float(torch.cat([runs["cpu", "float32"][2][k].abs().reshape(-1)
+                                 for k in stats]).max())
+        lines.append(_ratio_rule((pooled["card"] - BF16_STAT_ATOL * scale).clamp_min(0).numpy(),
+                                 pooled["cpu"].numpy(), "BN statistics"))
+    card16 = runs["card", "bfloat16"][0]
+    return (f"{label}: card bf16 losses {json.dumps({k: round(v, 6) for k, v in card16.items()})}"
+            f"; {'; '.join(lines)}")
+
+
+def _bf16_steps_phase(device, batches, counts, zero_counts, all_kernels, f32_rates, rounds,
+                      steps, tag):
+    """Phase 22: the bfloat16 steps at full width (B5 / PWC-Net, batch 8,
+    128x512): rigid predict, rigid train (default augmentation), flow
+    train, joint train (the flownet frozen) and stereo train (the MS
+    recipe, default augmentation). Each runs 2 steps from zero counts with
+    its launches per step checked (the bfloat16 K2, K3 and K4, never the
+    float32 ones) and float32, finite outputs, then ``rounds`` timed
+    rounds of ``steps``; images/s and peak memory beside the float32
+    step's of this call (``f32_rates``: {step: (images/s, peak bytes)}).
+    ``batches``: {"mono", "mono uint8", "stereo uint8": card batches}.
+    Returns {step: launches per step}."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET, RIGID_NET,
+                                          SCALE_WEIGHT_T1)
+    from xpt_mde_tpu_torch.losses import loss_factory
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.tools.profile_steps import STEREO_KEYS, STEREO_RECIPE
+    from xpt_mde_tpu_torch.training import (augmentation_factory, make_predict_step,
+                                            make_train_step, optimizer_factory)
+
+    keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+    zeros = dict.fromkeys(all_kernels, 0)
+    generator = torch.Generator().manual_seed(0)
+    cases = [  # (label, nets, keys, recipe, step kwargs, augment, batches, launches per step)
+        ("predict", RIGID_NET, keys, None, {}, False, "mono", {}),
+        ("train", RIGID_NET, keys, RECIPE, {}, True, "mono uint8", {"K1": 4, "K1-bwd": 4}),
+        ("flow train", FLOW_NET, keys, FLOW_RECIPE, {"regularize_net": "flownet"}, False,
+         "mono uint8", {"K1": 4, "K1-bwd": 4, "K2-bf16": 5, "K3-bf16": 5, "K4-bf16": 5}),
+        ("joint train", JOINT_NET, keys, JOINT_RECIPE, {"frozen_nets": ["flownet"]}, False,
+         "mono uint8", {"K1": 8, "K1-bwd": 4, "K2-bf16": 5}),
+        ("stereo train", RIGID_NET, STEREO_KEYS, STEREO_RECIPE, {}, True, "stereo uint8",
+         {"K1": 16, "K1-bwd": 16})]
+    per_step = {}
+    for label, nets, net_keys, recipe, kwargs, augment, which, launches in cases:
+        stereo = which.startswith("stereo")
+        model = ModelFactory(net_keys, nets, stereo=stereo, compute_dtype="bfloat16",
+                             device=device, seed=0).get_model()
+        if recipe is None:
+            step = make_predict_step(model)
+        else:
+            loss = loss_factory(net_keys, recipe, SCALE_WEIGHT_T1, stereo=stereo,
+                                batch_size=BATCH)
+            optimizer = optimizer_factory("adam_constant", LR, model,
+                                          frozen_nets=kwargs.get("frozen_nets", []))
+            train = make_train_step(model, loss, optimizer, augmenter=augmentation_factory(
+                AUGMENT_PROBS) if augment else None, **kwargs)
+            step = (lambda f, train=train: train(f, generator)) if augment else train
+        step_batches = batches[which]
+        zero_counts()
+        for i in range(2):
+            before = counts()
+            out = step(step_batches[i])
+            delta = {k: v - before[k] for k, v in counts().items()}
+            if delta != zeros | launches:
+                raise AssertionError(f"bf16 {label} step {i} launched {delta}, want {launches}")
+            values = out["depth_ms"] + [out["pose"]] if recipe is None else list(out.values())
+            if not all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                       for v in values):
+                raise AssertionError(f"bf16 {label}: outputs not float32 or not finite")
+        per_step[label] = launches
+        rates, peak = _timed_rounds(step, step_batches, rounds, steps)
+        median = rates[rounds // 2]
+        f32_median, f32_peak = f32_rates[label]
+        print(f"timing bf16 {label} {'+'.join(nets.values())} batch {BATCH} {HEIGHT}x{WIDTH} "
+              f"(cuDNN heuristics): median {median:.2f} images/s ({1000 * BATCH / median:.2f} "
+              f"ms/step), min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
+              f"{steps} steps, {median / f32_median:.3f}x the float32 step's {f32_median:.2f} "
+              f"in this call; max_memory_allocated {peak / 2**30:.3f} GiB "
+              f"({peak / f32_peak:.3f}x float32's {f32_peak / 2**30:.3f}); launches per step "
+              f"{json.dumps(launches)} {tag}", flush=True)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 22 bf16 steps at full width: {', '.join(per_step)}; launches per step as "
+          f"stated, the float32 correlation kernels never, every output float32 and finite",
+          flush=True)
+    return per_step
 
 
 def main(argv=()) -> int:
@@ -1086,7 +1395,9 @@ def main(argv=()) -> int:
 
     K1, K1_BWD = kernels.K1, kernels.K1_BWD
     K2, K3, K4 = corr_kernels.K2, corr_kernels.K3, corr_kernels.K4
-    all_kernels = {"K1": K1, "K1-bwd": K1_BWD, "K2": K2, "K3": K3, "K4": K4}
+    f32_kernels = {"K1": K1, "K1-bwd": K1_BWD, "K2": K2, "K3": K3, "K4": K4}
+    bf16_kernels = {k.name: k for k in corr_kernels.kernels_for(torch.bfloat16)}
+    all_kernels = f32_kernels | bf16_kernels
 
     def zero_counts():
         for kernel in all_kernels.values():
@@ -1115,12 +1426,12 @@ def main(argv=()) -> int:
             with ThreadPoolExecutor(2) as pool:
                 for future in [pool.submit(K1.build), pool.submit(K2.build)]:
                     future.result()
-            for kernel in (K1_BWD, K3, K4):
+            for kernel in (K1_BWD, K3, K4, *bf16_kernels.values()):
                 kernel.build()
             ptxas = [ln.strip() for log in (K1.build_log, K2.build_log)
                      for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-            print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 built in "
+            print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 (float32 and bfloat16) built in "
                   f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
 
             earlier = {}
@@ -1288,7 +1599,8 @@ def main(argv=()) -> int:
             flow_optimizer = optimizer_factory("adam_constant", LR, flow_model)
             flow_train = make_train_step(flow_model, make_flow_loss(BATCH), flow_optimizer,
                                          regularize_net="flownet")
-            per_step = {"K1": 4, "K1-bwd": 4, "K2": 5, "K3": 5, "K4": 5}
+            per_step = dict.fromkeys(all_kernels, 0) | {"K1": 4, "K1-bwd": 4, "K2": 5, "K3": 5,
+                                                        "K4": 5}
             zero_counts()
             flow_losses = []
             for i in range(FLOW_TRAIN_STEPS):
@@ -1322,7 +1634,10 @@ def main(argv=()) -> int:
 
             # 12. step timings and peak memory
             phase = "timings"
-            rounds, steps = 5, 10  # the steps are host-bound: report the spread
+            # the steps are host-bound: report the spread (5 rounds of 6
+            # steps, float32 and bfloat16 alike, keep the script near 400 s)
+            rounds, steps = 5, 6
+            f32_rates = {}  # step: (median images/s, peak bytes), for the bf16 phase
             for label, step, step_batches, net, opt, opt_model in (
                     ("predict", predict_step, gpu_batches, "B5", None, None),
                     ("eval", eval_step, gpu_batches, "B5", None, None),
@@ -1345,12 +1660,14 @@ def main(argv=()) -> int:
                 rates.sort()
                 median = rates[rounds // 2]
                 peak = torch.cuda.max_memory_allocated(device)
+                f32_rates[label] = (median, peak)
                 if opt is not None:  # the optimizer alone, on the last gradients
                     n_params = sum(p.numel() for p in opt_model.parameters())
                     print(f"timing {label} Adam step alone: {_event_ms(opt.step, iters=10):.4f} "
                           f"ms per call (eager, CUDA events) over {n_params} parameters in "
                           f"{len(list(opt_model.parameters()))} tensors {tag}", flush=True)
-                print(f"timing {label} {net} batch {BATCH} {HEIGHT}x{WIDTH} f32: median "
+                print(f"timing {label} {net} batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN "
+                      f"heuristics): median "
                       f"{median:.2f} images/s ({1000 * BATCH / median:.2f} ms/step), "
                       f"min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
                       f"{steps} steps; max_memory_allocated {peak / 2**30:.3f} GiB {tag}",
@@ -1384,7 +1701,7 @@ def main(argv=()) -> int:
                 before = counts()
                 metrics = joint_train(train_batches[i % NUM_BATCHES])
                 delta = {k: v - before[k] for k, v in counts().items()}
-                if delta != JOINT_PER_STEP:
+                if delta != dict.fromkeys(all_kernels, 0) | JOINT_PER_STEP:
                     raise AssertionError(f"joint train step {i} launched {delta}, "
                                          f"want {JOINT_PER_STEP}")
                 values = {k: float(v) for k, v in metrics.items()}
@@ -1403,6 +1720,7 @@ def main(argv=()) -> int:
                   f"{json.dumps(joint_losses)}", flush=True)
             rates, peak = _timed_rounds(joint_train, train_batches, rounds, steps)
             median = rates[rounds // 2]
+            f32_rates["joint train"] = (median, peak)
             print(f"timing joint train B5+PWCNet batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN "
                   f"heuristics): median {median:.2f} images/s ({1000 * BATCH / median:.2f} "
                   f"ms/step), min {rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of "
@@ -1426,8 +1744,8 @@ def main(argv=()) -> int:
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 plan_counts, plan_note = _plan_phase(workdir, device, counts, zero_counts,
                                                      tag)
-            missing = [k for k, v in plan_counts.items() if v == 0]
-            if missing:
+            missing = [k for k in f32_kernels if plan_counts[k] == 0]
+            if missing or any(plan_counts[k] for k in bf16_kernels):
                 raise AssertionError(f"the plan never launched {missing}: {plan_counts}")
             print(f"phase 15 plan: {plan_note}; launches {json.dumps(plan_counts)}", flush=True)
 
@@ -1448,7 +1766,7 @@ def main(argv=()) -> int:
                     before = counts()
                     metrics = step(stereo_train_batches[i % NUM_BATCHES], *args)
                     delta = {k: v - before[k] for k, v in counts().items()}
-                    if delta != per_step:
+                    if delta != dict.fromkeys(all_kernels, 0) | per_step:
                         raise AssertionError(f"{label} step {i} launched {delta}, "
                                              f"want {per_step}")
                     values = {k: float(v) for k, v in metrics.items()}
@@ -1462,6 +1780,7 @@ def main(argv=()) -> int:
                 rates, peak = _timed_rounds(lambda f: step(f, *args), stereo_train_batches,
                                             rounds, steps)
                 median = rates[rounds // 2]
+                f32_rates[label.split(" B5")[0]] = (median, peak)
                 print(f"timing {label} batch {BATCH} {HEIGHT}x{WIDTH} f32 (cuDNN heuristics): "
                       f"median {median:.2f} images/s ({1000 * BATCH / median:.2f} ms/step), min "
                       f"{rates[0]:.2f}, max {rates[-1]:.2f} over {rounds} rounds of {steps} steps; "
@@ -1541,8 +1860,8 @@ def main(argv=()) -> int:
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 stereo_plan_counts, stereo_note = _stereo_plan_phase(
                     workdir, device, counts, zero_counts, tag)
-            missing = [k for k, v in stereo_plan_counts.items() if v == 0]
-            if missing:
+            missing = [k for k in f32_kernels if stereo_plan_counts[k] == 0]
+            if missing or any(stereo_plan_counts[k] for k in bf16_kernels):
                 raise AssertionError(f"the stereo plan never launched {missing}: "
                                      f"{stereo_plan_counts}")
             print(f"phase 20 stereo plan: {stereo_note}; launches "
@@ -1550,6 +1869,59 @@ def main(argv=()) -> int:
             stereo_paths = {"stereo train": stereo_counts, "stereo joint train":
                             stereo_joint_counts, "stereo flow train": stereo_flow_counts,
                             "stereo plan": stereo_plan_counts}
+
+            # 21. the bfloat16 correlation kernels against their plain versions
+            phase = "bf16 correlation kernels vs plain"
+            cstats16 = _corr_phase(device, tag, torch.bfloat16)
+            print("timing bf16 vs float32 correlation kernels, device ms per flow train step "
+                  "(5 levels, graph replay, this call): " + "; ".join(
+                      f"{k}-bf16 {cstats16[k]['ms']:.4f} (float32 {cstats[k]['ms']:.4f}), "
+                      f"bound {cstats16[k]['bound_ms']:.4f} (float32 "
+                      f"{cstats[k]['bound_ms']:.4f}), plain {cstats16[k]['plain_ms']:.4f}"
+                      for k in ("K2", "K3", "K4")) + f" {tag}", flush=True)
+
+            # 22. the bfloat16 steps at full width, each path's counts read from zero
+            phase = "bf16 steps"
+            bf16_per_step = _bf16_steps_phase(
+                device, {"mono": gpu_batches, "mono uint8": train_batches,
+                         "stereo uint8": stereo_train_batches},
+                counts, zero_counts, all_kernels, f32_rates, rounds, steps, tag)
+
+            # 23. one bfloat16 step of each stage against the float32 step, card and CPU
+            phase = "bf16 cross-check"
+            mono_check = {k: torch.from_numpy(v[:CHECK_BATCH]) for k, v in batches[0].items()}
+            notes = [
+                _bf16_cross_check("rigid", RIGID_NET, keys, mono_check, device,
+                                  make_loss(CHECK_BATCH), _set_pose_twist),
+                _bf16_cross_check("flow", FLOW_NET, keys,
+                                  {k: torch.from_numpy(v[:FLOW_CHECK_BATCH])
+                                   for k, v in batches[0].items()},
+                                  device, make_flow_loss(FLOW_CHECK_BATCH), _set_flow_heads,
+                                  {"regularize_net": "flownet"}),
+                _bf16_cross_check("joint", JOINT_NET, keys, mono_check, device,
+                                  make_joint_loss(CHECK_BATCH), _set_pose_and_flow_heads,
+                                  {"frozen_nets": ["flownet"]}),
+                _bf16_cross_check("stereo", RIGID_NET, STEREO_KEYS, check_feats, device,
+                                  make_stereo_loss(STEREO_RECIPE, CHECK_BATCH), _set_pose_twist)]
+            print(f"phase 23 bf16 cross-check (one step each at batch {CHECK_BATCH}, card bf16 "
+                  f"vs card float32 held to CPU bf16 vs CPU float32, ratios "
+                  f"{BF16_MEDIAN_RATIO}/{BF16_MAX_RATIO}): {' | '.join(notes)}", flush=True)
+
+            # 24. the stereo plan at the default Config(), bfloat16: this
+            # slice's main path, its counts read from zero
+            phase = "bf16 stereo plan"
+            with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+                bf16_plan_counts, bf16_note = _stereo_plan_phase(
+                    workdir, device, counts, zero_counts, tag, compute_dtype=None)
+            on_path = ["K1", "K1-bwd", *bf16_kernels]
+            missing = [k for k in on_path if bf16_plan_counts[k] == 0]
+            if missing or any(bf16_plan_counts[k] for k in ("K2", "K3", "K4")):
+                raise AssertionError(f"the bf16 stereo plan launched {bf16_plan_counts}")
+            print(f"phase 24 bf16 stereo plan (Config() default, compute_dtype bfloat16): "
+                  f"{bf16_note}; launches {json.dumps(bf16_plan_counts)}", flush=True)
+            bf16_paths = {f"bf16 {label}": {k: n * 2 for k, n in launches.items()}
+                          for label, launches in bf16_per_step.items()}
+            bf16_paths["bf16 stereo plan"] = bf16_plan_counts
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
             # summed over the scales or levels; launches: the stereo plan
@@ -1567,7 +1939,8 @@ def main(argv=()) -> int:
                                          "flow train": flow_train_counts[kname],
                                          "joint train": joint_counts[kname],
                                          "plan": plan_counts[kname]}
-                    | {path: c[kname] for path, c in stereo_paths.items()},
+                    | {path: c[kname] for path, c in stereo_paths.items()}
+                    | {path: c.get(kname, 0) for path, c in bf16_paths.items()},
                     "max_abs_err": max(s["err"], n1_errs[kname]), "ms": s["ms"],
                     "plain_ms": s["plain_ms"],
                     "n1_ms": n1_times[kname], "n1_plain_ms": n1_times[f"{kname} plain"],
@@ -1595,6 +1968,23 @@ def main(argv=()) -> int:
                     "library": "none: no single PyTorch call computes the cost volume",
                     "earlier_ms": earlier.get(kname)}
                     | ({"redesigned_in": REDESIGNED[kname]} if kname in REDESIGNED else {}))
+            # the bfloat16 forms: launches from the bfloat16 stereo plan run
+            for kname, full_name in (("K2", "K2-bf16 corr_fwd_bf16"),
+                                     ("K3", "K3-bf16 corr_bwd_cl_bf16"),
+                                     ("K4", "K4-bf16 corr_bwd_cr_bf16")):
+                s = cstats16[kname]
+                report.append({
+                    "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
+                    "replaces": corr_kernels.REPLACES[kname],
+                    "launches": bf16_plan_counts[f"{kname}-bf16"],
+                    "launches_by_path": {path: c.get(f"{kname}-bf16", 0)
+                                         for path, c in bf16_paths.items()},
+                    "max_abs_err": s["err"], "max_err_of_bound": s["ulps"], "ms": s["ms"],
+                    "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                    "bound_by": _bound(s["bytes"], s["flops"])[1],
+                    "library_ms": None,
+                    "library": "none: no single PyTorch call computes the cost volume",
+                    "float32_ms": cstats[kname]["ms"]})
             print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result

@@ -2,10 +2,10 @@
 ``config.py`` (constants, recipes, plans, ``Config``), ``utils/util_class.py``,
 ``data/shard_io.py`` and ``data/native_loader.py`` with its C++ reader.
 
-Everything is compared exactly: field for field, and batches bit for bit
-on shards that the JAX package's ``ShardMaker("synthetic")`` writes. The
-one stated difference is ``Config.compute_dtype``'s default (float32 in
-the port until bf16 lands, bfloat16 in the JAX package). The reference
+Everything is compared exactly: field for field, defaults included
+(``Config.compute_dtype`` is bfloat16 in both packages), and batches bit
+for bit on shards that the JAX package's ``ShardMaker("synthetic")``
+writes. The reference
 batches come from the JAX package's numpy loader, which its own tests
 hold equal to its native one (``test_data_pipeline.py``); building the
 JAX package's native library here too would race with them.
@@ -55,11 +55,10 @@ def test_plans_match_jax(plan):
     assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in ref]
 
 
-def test_config_matches_jax_but_for_the_compute_dtype():
+def test_config_matches_jax():
     ours, ref = config.Config().to_json_dict(), jconfig.Config().to_json_dict()
-    assert set(ours) == set(ref)
-    assert (ours.pop("compute_dtype"), ref.pop("compute_dtype")) == ("float32", "bfloat16")
     assert ours == ref
+    assert ours["compute_dtype"] == "bfloat16"
     json.dumps(ours)  # serializable, as the drift check needs
 
 
@@ -76,9 +75,11 @@ def test_config_properties_match_jax():
         ours.get_img_shape("BHW")
 
 
-def test_config_refuses_dtypes_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        config.Config(compute_dtype="bfloat16")
+def test_config_refuses_dtypes_other_than_float32_and_bfloat16():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        config.Config(compute_dtype="float16")
+    for dtype in ("bfloat16", "float32"):
+        assert config.Config(compute_dtype=dtype).compute_dtype == dtype
 
 
 def test_util_classes_behave_like_jax(tmp_path):

@@ -195,6 +195,7 @@ def test_predict_by_plan_matches_jax(tmp_path, capsys):
         CheckpointManager(tmp_path / "checkpts" / "run").save(
             model, optimizer_factory("adam_constant", 1e-4, model), "latest")
         cfg = Config(stereo=False, per_replica_batch=2, datapath=str(tmp_path),
+                     compute_dtype="float32",
                      test_plan=[TestStage(NETS, "synthetic", ["depth", "pose"], "run"),
                                 TestStage(NETS, "synthetic", ["depth"], "absent")])
         teval.predict_by_plan(cfg, device="cpu")

@@ -15,13 +15,16 @@ the same float32 products; only FMA contraction differs, a few ulp of
 values in [-1, 1] (K1) or of |du|, |dv| <= 6 (K1-bwd: 3 channels,
 |g| <= 1, |D| <= 2). K2, K3 and K4: 1e-5 of the largest plain value, as
 they sum the same products in another order over up to 196 channels or
-81 displacements.
+81 displacements. Their bfloat16 forms: one bfloat16 ulp of the plain
+value, plus 1e-6 of the largest value for a sum that cancels, as both
+round one float32 sum once (``chip_smoke.bf16_ulp_excess``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from xpt_mde_tpu_torch.config import FLOW_NET, SCALE_WEIGHT_T1
 from xpt_mde_tpu_torch.data import SyntheticDataset
 from xpt_mde_tpu_torch.losses import loss_factory
@@ -680,3 +683,100 @@ def test_cuda_joint_train_step_launches_no_flow_backward(cuda):
     assert {"loss/cmbL1", "loss/cmbSSIM"} <= set(metrics)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(torch.equal(v, model.flownet.state_dict()[k]) for k, v in flow_before.items())
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return chip_smoke.bf16_ulp_excess(got, want)[1] <= 1.0
+
+
+def _bf16_corr_counts():
+    return tuple(k.launches for k in kcorr.kernels_for(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_bf16_correlation_kernels_match_plain_at_pwc_levels(cuda, level):
+    """The bfloat16 K2, K3 and K4 at the flow stage's shapes (32 pairs at
+    128x512 inputs) against their plain versions on the same bfloat16
+    inputs, and K3 and K4 against the plain autograd; the float32 kernels
+    are not launched."""
+    md, stride = level_displacement(level)
+    shape = (32, ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level)
+    generator = torch.Generator().manual_seed(level)
+    cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    n2 = corr.correlation_channels(md, stride)
+    g = (torch.rand((32, n2) + shape[2:], generator=generator) * 2 - 1).to(cuda, torch.bfloat16)
+    before, before_f32 = _bf16_corr_counts(), _corr_counts()
+    got = [kcorr.K2_BF16(cl, cr, md, stride), kcorr.K3_BF16(g, cr, md, stride),
+           kcorr.K4_BF16(g, cl, md, stride)]
+    assert _bf16_corr_counts() == tuple(c + 1 for c in before)
+    assert _corr_counts() == before_f32
+    ref = [corr.correlation_cost_plain(cl, cr, md, stride),
+           corr.correlation_grad_cl_plain(g, cr, md, stride),
+           corr.correlation_grad_cr_plain(g, cl, md, stride)]
+    leaves = [cl.clone().requires_grad_(True), cr.clone().requires_grad_(True)]
+    autograd = torch.autograd.grad(corr.correlation_cost_plain(*leaves, md, stride), leaves, g)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("K2", "K3", "K4"), got, ref):
+        assert x.dtype == torch.bfloat16 and tuple(x.shape) == tuple(r.shape), name
+        assert bf16_close(x, r), name
+    for name, x, r in zip(("K3", "K4"), got[1:], autograd):
+        assert bf16_close(x, r), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,md,stride", EDGE_SHAPES + [
+    ((2, 300, 4, 40), 4, 1),   # several channel chunks (K3, K4), many channel groups (K2)
+    ((1, 300, 4, 128), 4, 1),  # K2: narrower tiles, one row a stage
+    ((2, 24, 6, 40), 8, 4),    # stride, md and W multiples of 4: the vector paths
+])
+def test_bf16_k2_k3_k4_match_plain_at_edge_shapes(cuda, shape, md, stride):
+    """The bfloat16 kernels at the edge shapes, on aligned inputs and on
+    views offset by one value (the scalar staging and store paths): within
+    one ulp of the plain versions, and the same bits on both."""
+    generator = torch.Generator().manual_seed(sum(shape) + 2)
+    cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    n2 = corr.correlation_channels(md, stride)
+    g = (torch.rand((shape[0], n2) + shape[2:], generator=generator) * 2 - 1).to(
+        cuda, torch.bfloat16)
+    ref = {"K2": corr.correlation_cost_plain(cl, cr, md, stride),
+           "K3": corr.correlation_grad_cl_plain(g, cr, md, stride),
+           "K4": corr.correlation_grad_cr_plain(g, cl, md, stride)}
+    got = {"K2": kcorr.K2_BF16(cl, cr, md, stride), "K3": kcorr.K3_BF16(g, cr, md, stride),
+           "K4": kcorr.K4_BF16(g, cl, md, stride)}
+    shifted = {"K2": kcorr.K2_BF16(_offset_copy(cl, 1), _offset_copy(cr, 1), md, stride),
+               "K3": kcorr.K3_BF16(_offset_copy(g, 1), _offset_copy(cr, 1), md, stride),
+               "K4": kcorr.K4_BF16(_offset_copy(g, 1), _offset_copy(cl, 1), md, stride)}
+    torch.cuda.synchronize()
+    for name in ("K2", "K3", "K4"):
+        assert bf16_close(got[name], ref[name]), name
+        assert torch.equal(got[name], shifted[name]), name
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_flow_steps_launch_the_bf16_kernels(cuda):
+    """A bfloat16 PWC-Net at 64x128, batch 2: the forward launches the
+    bfloat16 K2 at the 5 levels, a flow train step the bfloat16 K2, K3 and
+    K4 5 times each, and never a float32 correlation kernel; the flows are
+    float32 and the parameters and their gradients stay float32."""
+    dataset = SyntheticDataset(batch_size=2, height=64, width=128, num_batches=1, seed=0)
+    keys = dataset.config_keys()
+    model = ModelFactory(keys, FLOW_NET, stereo=False, compute_dtype="bfloat16",
+                         device=cuda).get_model()
+    loss = loss_factory(keys, {"flowL2": 1.0, "flow_reg": 4e-7}, SCALE_WEIGHT_T1,
+                        stereo=False, batch_size=2)
+    features = {k: torch.from_numpy(v).to(cuda) for k, v in next(iter(dataset)).items()}
+    before, before_f32 = _bf16_corr_counts(), _corr_counts()
+    preds = make_predict_step(model)(features)
+    assert all(f.dtype == torch.float32 for f in preds["flow_ms"])
+    assert _bf16_corr_counts() == (before[0] + 5, before[1], before[2])
+    step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                           regularize_net="flownet")
+    before = _bf16_corr_counts()
+    metrics = step(features)
+    assert _bf16_corr_counts() == tuple(c + 5 for c in before)
+    assert _corr_counts() == before_f32
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.parameters())

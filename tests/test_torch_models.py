@@ -208,8 +208,8 @@ def test_factory_seeds_device_and_unported():
     assert float(sa[w].abs().max()) <= 0.05 and 0.015 < float(sa[w].std()) < 0.03
     assert all(t.device.type == "cpu" for t in sa.values())
 
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        ModelFactory(KEYS, RIGID_B0, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):  # bfloat16 and float32 only
+        ModelFactory(KEYS, RIGID_B0, compute_dtype="float16")
     for nets in ({"depth": "DepthNetBasic"}, {"camera": "PoseNetBasic"},
                  {"depth": "ResNet50V2"}):
         with pytest.raises(NotImplementedError, match="not ported"):

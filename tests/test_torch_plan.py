@@ -47,7 +47,7 @@ def _few_threads():
 def _cfg(root, plan, **kw) -> Config:
     return Config(stereo=False, per_replica_batch=2, datapath=str(root), ckpt_name="t",
                   pretrained_weight=False, augment_probs=AUGMENT_PROBS, training_plan=plan,
-                  **kw)
+                  compute_dtype="float32", **kw)
 
 
 def _load(path):

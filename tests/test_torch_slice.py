@@ -196,14 +196,14 @@ def test_port_runs_with_jax_blocked():
         from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
         from xpt_mde_tpu_torch.scripts import evaluate_main, train_main
         from xpt_mde_tpu_torch.training.trainer import train_by_plan
-        assert train_main.load_user_config().compute_dtype == "float32"
+        assert train_main.load_user_config().compute_dtype == "bfloat16"  # Config()
         assert callable(train_main.main) and callable(evaluate_main.main)
         rigid = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
         with tempfile.TemporaryDirectory() as root:
             chip_smoke.write_synthetic_shards(Path(root) / "shards", 32, 64,
                                               {"train": 1, "test": 1})
             cfg = Config(stereo=False, per_replica_batch=1, datapath=root,
-                         pretrained_weight=False,
+                         pretrained_weight=False, compute_dtype="float32",
                          training_plan=[TrainStage(rigid, "synthetic", 1, 1e-4,
                                                    {"L1": 1.0}, SCALE_WEIGHT_T1)],
                          test_plan=[TestStage(rigid, "synthetic", ["depth"], "mde01")])
@@ -269,7 +269,7 @@ def test_stereo_path_runs_with_jax_blocked():
                     TrainStage(rigid, "kitti_raw", 1, 1e-4, LOSS_RIGID_T2, SCALE_WEIGHT_T1),
                     TrainStage(joint, "kitti_raw", 1, 1e-4, LOSS_RIGID_COMB, SCALE_WEIGHT_T1)]
             cfg = Config(per_replica_batch=1, datapath=root, pretrained_weight=False,
-                         training_plan=plan,
+                         compute_dtype="float32", training_plan=plan,
                          test_plan=[TestStage(joint, "kitti_raw", ["depth", "pose"], "mde01")])
             train_by_plan(cfg, device="cpu")
             predict_by_plan(cfg, device="cpu")
@@ -285,6 +285,81 @@ def test_stereo_path_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "STEREO JAX-FREE OK" in proc.stdout
+
+
+def test_bf16_path_runs_with_jax_blocked():
+    """The default compute dtype without JAX: an augmented bfloat16 rigid
+    train step and a bfloat16 flow train step (the bfloat16 cost volume on
+    the CPU), then ``train_by_plan`` at the default ``Config()`` (bfloat16)
+    over a flow and a joint row on shards, predict and evaluate: the
+    parameters stay float32 and the predictions are float32, at a tiny
+    size, with jax/flax/optax and the JAX package made unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
+            sys.modules[name] = None
+        import tempfile
+        from pathlib import Path
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)  # the test workers beside it share the cores
+        import chip_smoke
+        from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, SCALE_WEIGHT_T1,
+                                              Config, TestStage, TrainStage)
+        from xpt_mde_tpu_torch.data import SyntheticDataset
+        from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+        from xpt_mde_tpu_torch.losses import loss_factory
+        from xpt_mde_tpu_torch.models import ModelFactory
+        from xpt_mde_tpu_torch.training import (augmentation_factory, make_train_step,
+                                                optimizer_factory)
+        from xpt_mde_tpu_torch.training.trainer import train_by_plan
+        assert Config().compute_dtype == "bfloat16"
+        rigid = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+        ds = SyntheticDataset(batch_size=1, height=64, width=128, num_batches=1)
+        keys = ds.config_keys()
+        feats = {k: torch.from_numpy(v) for k, v in next(iter(ds)).items()}
+        for nets, recipe, reg, aug in ((rigid, {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0},
+                                        None, augmentation_factory(AUGMENT_PROBS)),
+                                       (FLOW_NET, {"flowL2": 1.0, "flow_reg": 4e-7},
+                                        "flownet", None)):
+            model = ModelFactory(keys, nets, stereo=False, compute_dtype="bfloat16",
+                                 device="cpu").get_model()
+            loss = loss_factory(keys, recipe, SCALE_WEIGHT_T1, stereo=False, batch_size=1)
+            step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                                   augmenter=aug, regularize_net=reg)
+            before = [p.detach().clone() for p in model.parameters()]
+            metrics = step(feats, torch.Generator().manual_seed(0))
+            assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+            assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                       for p in model.parameters() if p.grad is not None)
+            assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+        joint = dict(rigid, **FLOW_NET)
+        with tempfile.TemporaryDirectory() as root:
+            chip_smoke.write_synthetic_shards(Path(root) / "shards", 64, 128,
+                                              {"train": 1, "test": 1})
+            plan = [TrainStage(FLOW_NET, "synthetic", 1, 1e-4, {"flowL2": 1.0},
+                               SCALE_WEIGHT_T1),
+                    TrainStage(joint, "synthetic", 1, 1e-4, {"cmbL1": 1.0, "smoothe": 1.0},
+                               SCALE_WEIGHT_T1)]
+            cfg = Config(stereo=False, per_replica_batch=1, datapath=root,
+                         pretrained_weight=False, training_plan=plan,
+                         test_plan=[TestStage(joint, "synthetic", ["depth", "pose"], "mde01")])
+            train_by_plan(cfg, device="cpu")
+            predict_by_plan(cfg, device="cpu")
+            pred = np.load(Path(root, "prediction", "mde01", "synthetic_latest.npz"))
+            assert pred["depth"].dtype == np.float32 and pred["pose"].dtype == np.float32
+            evaluate_by_plan(cfg)
+            summary = Path(root, "evaluation", "mde01", "summary_synthetic_latest.csv")
+            assert "abs_rel" in summary.read_text()
+        assert all(sys.modules.get(m) is None
+                   for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
+        print("BF16 JAX-FREE OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BF16 JAX-FREE OK" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):

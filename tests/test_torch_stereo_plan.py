@@ -64,6 +64,7 @@ def test_stereo_plan_trains_predicts_and_evaluates(tmp_path, capsys):
                                    {"train": 4, "val": 2, "test": 4})
     cfg = Config(per_replica_batch=2, datapath=str(tmp_path), ckpt_name="st",
                  pretrained_weight=False, inspect_model=True, training_plan=PLAN,
+                 compute_dtype="float32",
                  test_plan=[TestStage(JOINT, "kitti_raw", ["depth", "pose"], "st")])
     assert cfg.stereo  # the JAX default, kept
     train_by_plan(cfg, device="cpu")
@@ -136,7 +137,7 @@ def test_stereo_predict_by_plan_matches_jax(tmp_path):
                                   batch_stats=variables["batch_stats"], tx=optax.identity())
         JCheckpointManager(tmp_path / "checkpts" / "jrun").save(state, "latest")
         jcfg = JConfig(per_replica_batch=2, datapath=str(tmp_path), depth_upsample_interp=interp,
-                       compute_dtype="float32",  # the port's only dtype
+                       compute_dtype="float32",  # the parity mode
                        test_plan=[JTestStage(RIGID, "kitti_raw", ["depth", "pose"], "jrun")])
         jeval.predict_by_plan(jcfg)
 
@@ -145,6 +146,7 @@ def test_stereo_predict_by_plan_matches_jax(tmp_path):
         CheckpointManager(tmp_path / "checkpts" / "run").save(
             model, optimizer_factory("adam_constant", 1e-4, model), "latest")
         cfg = Config(per_replica_batch=2, datapath=str(tmp_path), depth_upsample_interp=interp,
+                     compute_dtype="float32",
                      test_plan=[TestStage(RIGID, "kitti_raw", ["depth", "pose"], "run")])
         teval.predict_by_plan(cfg, device="cpu")
     ref = dict(np.load(tmp_path / "prediction" / "jrun" / "kitti_raw_latest.npz"))

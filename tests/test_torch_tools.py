@@ -80,3 +80,35 @@ def test_profile_steps_builds_the_stereo_steps(monkeypatch):
         "stereoPose"}
     coded = profile_steps.uint8_coded({"image5d_R": torch.ones(1, 2), "intrinsic": torch.ones(1)})
     assert coded["image5d_R"].dtype == torch.uint8 and coded["intrinsic"].dtype == torch.float32
+
+
+def test_profile_steps_builds_bf16_steps():
+    """``--dtype bfloat16`` builds the nets in the compute dtype of
+    ``Config()``'s default, with float32 parameters."""
+    steps = profile_steps._build_steps(["flow-predict"], [{"image5d": torch.zeros(1)}],
+                                       "bfloat16")
+    model = steps["flow-predict"][1].__closure__[0].cell_contents
+    convs = [m for m in model.modules() if hasattr(m, "compute_dtype")]
+    assert convs and all(m.compute_dtype == torch.bfloat16 for m in convs)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_conv_kernel_lines_sum_the_convolutions_and_the_fft_share():
+    class Event:
+        def __init__(self, name, start, end):
+            self.name = name
+            self.time_range = type("R", (), {"start": start, "end": end})()
+
+    steps = profile_steps.STEPS
+    # per step: one FFT kernel of 1 ms, two GEMM convolutions of 3 and 1 ms
+    kernels = [Event("elementwise_kernel", 0, 9000 * steps),
+               Event("void cudnn::bn_fw_inf_1C11_kernel_NHWC<float>", 0, 500 * steps)]
+    for _ in range(steps):
+        kernels += [Event("void fft2d_r2c_32x32<float>", 0, 1000),
+                    Event("sm90_xmma_fprop_implicit_gemm_bf16", 0, 3000),
+                    Event("sm90_xmma_fprop_implicit_gemm_bf16", 0, 1000)]
+    lines = profile_steps.conv_kernel_lines(kernels, busy_ms=10.0)
+    assert lines[0].startswith("  convolution kernels 5.000 ms/step, of it FFT path "
+                               "1.000 ms/step (0.100 of the device busy time)")
+    assert "4.0000 ms/step       2/step  sm90_xmma" in lines[1] and "fft2d" in lines[2]
+    assert len(lines) == 3

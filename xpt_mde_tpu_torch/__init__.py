@@ -23,7 +23,10 @@ stage's train step (the three nets, cmbL1/cmbSSIM, the flownet frozen).
 On the card the view-synthesis and flow warps run as the hand-written
 CUDA kernels K1 and K1-bwd (``ops/kernels/warp.py`` + ``csrc/warp.cu``)
 and PWC-Net's cost volume as K2, with K3 and K4 for its gradient
-(``ops/kernels/correlation.py`` + ``csrc/correlation.cu``).
+(``ops/kernels/correlation.py`` + ``csrc/correlation.cu``). The nets
+compute in ``Config.compute_dtype``: bfloat16 by default, as in the JAX
+package (float32 parameters, float32 heads and geometry, bfloat16 K2, K3
+and K4), or float32, the parity mode.
 """
 
 __version__ = "0.1.0"

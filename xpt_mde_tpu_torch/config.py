@@ -4,9 +4,9 @@
 Copied, not imported: the port imports nothing of the JAX package.
 ``tests/test_torch_data.py`` and ``tests/test_torch_data_in.py`` hold
 every constant, recipe, plan and ``Config`` field here equal to the
-reference's, with one stated difference: ``Config.compute_dtype``
-defaults to ``"float32"``, the only dtype the port runs until bf16 lands
-(ROADMAP queue 1 item 5); any other value raises. The TPU-only modes
+reference's, defaults included: ``Config.compute_dtype`` is
+``"bfloat16"`` by default, as in the JAX package, and ``"float32"`` is
+the parity mode; any other value raises. The TPU-only modes
 ``warp_kernel`` and ``warp_gather_dtype`` are accepted and change
 nothing: K1 computes the exact float32 sample whatever they say.
 """
@@ -184,7 +184,7 @@ class Config:
     optimizer: str = "adam_constant"
     depth_activation: str = "InverseSigmoid"  # or "Exponential"
     pretrained_weight: bool = True
-    compute_dtype: str = "float32"  # the only dtype ported (ROADMAP queue 1 item 5)
+    compute_dtype: str = "bfloat16"  # "float32" for parity checks
     train_mode: str = "jit"  # "eager" | "jit" | "distributed"
     # TPU-only warp modes: accepted, ignored (K1 is exact float32)
     warp_gather_dtype: str = "float32"
@@ -226,10 +226,9 @@ class Config:
     image_size_overrides: Mapping[str, tuple] = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet: float32 only "
-                "until bf16 lands (ROADMAP queue 1 item 5)")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.compute_dtype!r}")
 
     @property
     def image_sizes(self) -> Mapping[str, tuple[int, int]]:

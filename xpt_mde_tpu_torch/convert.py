@@ -16,7 +16,9 @@ modules carry the same names, so each leaf maps by its path:
 - EfficientNet ``input_mean`` / ``input_var`` -> the buffers of that name.
 
 Conversion fails if a flax leaf has no torch counterpart or the wrong
-shape, or if a torch tensor is left unset. :func:`flax_params_to_torch`
+shape, or if a torch tensor is left unset. Parameters and statistics are
+float32 on both sides whatever the compute dtype (a bfloat16 model casts
+at call time), so a narrower floating tensor on either side fails too. :func:`flax_params_to_torch`
 maps a params-only tree (gradients, updated parameters) the same way onto
 ``named_parameters()`` names. BatchNorm's
 ``num_batches_tracked`` has no flax counterpart (the momentum is fixed)
@@ -60,6 +62,15 @@ def _map_leaf(collection: str, path: tuple[str, ...],
     return ".".join(modules + [names[name]]), value
 
 
+def _check_wide(where: str, leaf_dtype: np.dtype, dtype: torch.dtype) -> None:
+    """Refuse a floating leaf or tensor narrower than float32."""
+    leaf_dtype = np.dtype(leaf_dtype)  # bfloat16 leaves have kind "V" (ml_dtypes)
+    if (leaf_dtype.kind not in "iub" and leaf_dtype.itemsize < 4) or (
+            dtype.is_floating_point and dtype.itemsize < 4):
+        raise TypeError(f"{where}: parameters and statistics stay float32 (got the leaf in "
+                        f"{leaf_dtype}, the tensor in {dtype})")
+
+
 def _convert(variables: Mapping[str, Any],
              target: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Map every leaf of ``variables`` onto its key in ``target``, checking
@@ -74,6 +85,7 @@ def _convert(variables: Mapping[str, Any],
             if key in out:
                 raise KeyError(f"two flax leaves map to {key!r} (second: {where})")
             ref = target[key]
+            _check_wide(where, value.dtype, ref.dtype)
             if tuple(value.shape) != tuple(ref.shape):
                 raise ValueError(f"{where}: shape {value.shape} does not fit "
                                  f"{key} {tuple(ref.shape)}")

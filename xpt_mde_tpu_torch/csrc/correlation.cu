@@ -93,9 +93,28 @@
 // each kernel places its window from its own first offset. The sum over
 // displacements keeps a fixed order and adds exact zeros for out-of-frame
 // columns.
+//
+// bfloat16. The JAX package computes in bfloat16 by default, and then its
+// Pallas kernels take and give bfloat16: each operand read as float32,
+// products summed in a float32 accumulator, divided by C, rounded once to
+// bfloat16 (ops/pallas/correlation.py:76-150). Every kernel here is a
+// template on T, the element type of global memory (float or
+// __nv_bfloat16), with its own C entries (xpt_corr_*_bf16). Shared memory
+// and the register loops stay float32: a bfloat16 row is staged through
+// registers (8-byte loads of 4 values where the row allows, else one value)
+// and converted as it is stored, so the layouts, plans, bank skews and inner
+// loops are the float32 ones, and global memory moves half the bytes. (A
+// bfloat16 row cannot take cp.async as it is: a copy is 4, 8 or 16 bytes of
+// raw data, and the stride padding puts 2-byte values of rows at odd
+// offsets at strides 1-4.) The float32 instantiation is the code as it was:
+// the same plans, the same instructions, the same bits. Results are
+// rounded once with __float2bfloat16_rn: K2's sum divided by C, as K3's
+// and K4's are (the float32 K2 keeps its multiplication by 1/C).
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -132,6 +151,42 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   }
 }
 
+// One unit of kUnit values from global to shared memory, as float32. A
+// float row is copied raw with cp.async; a bfloat16 row is loaded through
+// registers (kUnit 4: one 8-byte load, 8-byte aligned) and converted. (Four
+// units a thread in flight before their stores timed slower on the card.)
+template <int kUnit>
+__device__ __forceinline__ void stage_unit(float* dst, const float* src) {
+  cp_async<kUnit>(dst, src);
+}
+
+template <int kUnit>
+__device__ __forceinline__ void stage_unit(float* dst, const __nv_bfloat16* src) {
+  if constexpr (kUnit == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(src);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    *dst = __bfloat162float(*src);
+  }
+}
+
+// A float32 result in T: float as it is, bfloat16 rounded to nearest even.
+__device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+
+// four results at a 4-value boundary: one float4, or 8 bytes of bfloat16
+__device__ __forceinline__ void put4(float* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
+__device__ __forceinline__ void put4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = raw;
+}
+
 // How the block's warps walk rows of up to `units` units: each warp takes
 // 32 / units rows per pass where rows are shorter than a warp. One division
 // per thread, none in the loops.
@@ -153,7 +208,7 @@ __device__ __forceinline__ RowLanes row_lanes(int units) {
   return rl;
 }
 
-// Copies `rows` rows of runs of kUnit floats with the block's warps: row r
+// Copies `rows` rows of runs of kUnit values with the block's warps: row r
 // stages cols(r).y units from src_row(r) at dst_row(r), from staged column
 // cols(r).x on; `max_units` bounds cols(r).y.
 template <int kUnit, typename SrcRow, typename DstRow, typename Cols>
@@ -163,10 +218,10 @@ __device__ __forceinline__ void stage_rows(SrcRow src_row, DstRow dst_row, Cols 
   if (!rl.on) return;
   for (int r = rl.first; r < rows; r += rl.next) {
     const int2 c = cols(r);
-    const float* srow = src_row(r);
+    const auto* srow = src_row(r);
     float* drow = dst_row(r);
     for (int u = rl.u0; u < c.y; u += rl.step) {
-      cp_async<kUnit>(drow + padded(c.x + u * kUnit, stride), srow + u * kUnit);
+      stage_unit<kUnit>(drow + padded(c.x + u * kUnit, stride), srow + u * kUnit);
     }
   }
 }
@@ -209,15 +264,15 @@ __host__ __device__ inline FwdLayout fwd_layout(int tile_x, int n, int stride, i
 // displacement rows x chan_groups channel groups of working threads, and
 // more (up to a multiple of 32, at least 128) that stage and store;
 // rows_per_stage displacement rows per stage, in one buffer.
-// kVec: rows are staged 16 bytes at a time (stride, md and W multiples of
-// 4, cl and cr 16-byte aligned). kVecOut: outputs go out as float4 (W a
-// multiple of 4, out 16-byte aligned).
+// kVec: rows are staged 4 values at a time (stride, md and W multiples of
+// 4, cl and cr aligned to 4 values). kVecOut: outputs go out 4 at a time (W
+// a multiple of 4, out aligned to 4 values). T: float or __nv_bfloat16.
 // At most 128 registers (two blocks of 256 threads, or four of 128, an SM):
 // uncapped, K2 took 158-160 and levels 2-3 lost their fourth block an SM.
-template <bool kVec, bool kVecOut>
+template <typename T, bool kVec, bool kVecOut>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
-                float* __restrict__ out, int channels, int height, int width, int md,
+corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
+                T* __restrict__ out, int channels, int height, int width, int md,
                 int stride, int n, int tile_x, int rows_per_stage, int chan_groups, int skew,
                 int slot_skew) {
   constexpr int kUnit = kVec ? 4 : 1;
@@ -231,9 +286,9 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   const int y = blockIdx.y;
   const int xt = blockIdx.x * tile_x;
   const int hw = height * width;
-  const float* clb = cl + static_cast<size_t>(b) * channels * hw + y * width + xt;
-  const float* crb = cr + static_cast<size_t>(b) * channels * hw;
-  float* outb = out + static_cast<size_t>(b) * n * n * hw + y * width + xt;
+  const T* clb = cl + static_cast<size_t>(b) * channels * hw + y * width + xt;
+  const T* crb = cr + static_cast<size_t>(b) * channels * hw;
+  T* outb = out + static_cast<size_t>(b) * n * n * hw + y * width + xt;
   float* s_cl = smem;
   float* s_buf = smem + lay.cl_area;
   float* s_part = smem + lay.part;
@@ -268,7 +323,7 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   // stage displacement rows i0 .. i0 + count - 1, one slot each
   auto stage = [&](int i0, int count) {
     for (int k = 0; k < count; ++k) {
-      const float* cr_k = crb + ((y + (i0 + k) * s - md) * width + xt - md + l_lo);
+      const T* cr_k = crb + ((y + (i0 + k) * s - md) * width + xt - md + l_lo);
       float* slot_k = s_buf + k * slot;
       stage_rows<kUnit>([=](int r) { return cr_k + static_cast<size_t>(r) * hw; },
                         [=](int r) { return slot_k + r * cr_pitch; },
@@ -286,20 +341,30 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   // are one aligned float4, and 8 lanes read 128 contiguous bytes: the
   // partial sums are read as float4.
   const int group_stride = rows_per_stage * n * lay.part_pitch;
-  const float inv_c = 1.0f / static_cast<float>(channels);
+  const float c_f = static_cast<float>(channels);
+  const float inv_c = 1.0f / c_f;
   const bool part4 = (s & 3) == 0;
+  // from a channel sum: the float32 kernel multiplies by 1/C, the bfloat16
+  // one divides by C, as the Pallas kernel does
+  auto scale = [&](float v) {
+    if constexpr (std::is_same_v<T, float>) {
+      return v * inv_c;
+    } else {
+      return v / c_f;
+    }
+  };
   auto store = [&](int rows, auto plane, auto part) {
     const RowLanes rl = row_lanes(kVecOut ? x_hi / 4 : x_hi);
     if (!rl.on) return;
     for (int e = rl.first; e < rows; e += rl.next) {
-      float* dst = outb + static_cast<size_t>(plane(e)) * hw;
+      T* dst = outb + static_cast<size_t>(plane(e)) * hw;
       const float* src = part(e);
       auto value = [&](int x) {
         if (src == nullptr) return 0.0f;
         const float* col = src + padded(x, s);
         float v = col[0];
         for (int grp = 1; grp < chan_groups; ++grp) v += col[grp * group_stride];
-        return v * inv_c;
+        return scale(v);
       };
       if (kVecOut) {
         for (int u = rl.u0; u < x_hi / 4; u += rl.step) {
@@ -315,14 +380,14 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
               v4.z += p4.z;
               v4.w += p4.w;
             }
-            v4 = make_float4(v4.x * inv_c, v4.y * inv_c, v4.z * inv_c, v4.w * inv_c);
+            v4 = make_float4(scale(v4.x), scale(v4.y), scale(v4.z), scale(v4.w));
           } else if (src != nullptr) {
             v4 = make_float4(value(x), value(x + 1), value(x + 2), value(x + 3));
           }
-          *reinterpret_cast<float4*>(dst + x) = v4;
+          put4(dst + x, v4);
         }
       } else {
-        for (int x = rl.u0; x < x_hi; x += rl.step) dst[x] = value(x);
+        for (int x = rl.u0; x < x_hi; x += rl.step) put(dst + x, value(x));
       }
     }
   };
@@ -444,12 +509,13 @@ __host__ __device__ inline BwdLayout bwd_layout(int tile_x, int chan_blocks, int
 // working threads, and more (up to a multiple of 32) that only stage;
 // chan_blocks * kChan channels; rows_per_stage displacement rows per stage,
 // in `buffers` (1 or 2) buffers. kDcr: K4 (feat = cl, out = dcr), else K3
-// (feat = cr, out = dcl). kVec: the rows are staged 16 bytes at a time
-// (stride, md and W multiples of 4, g and feat 16-byte aligned).
-template <bool kVec, bool kDcr>
+// (feat = cr, out = dcl). kVec: the rows are staged 4 values at a time
+// (stride, md and W multiples of 4, g and feat aligned to 4 values). T:
+// float or __nv_bfloat16.
+template <typename T, bool kVec, bool kDcr>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
-                float* __restrict__ dfeat, int channels, int height, int width, int md,
+corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
+                T* __restrict__ dfeat, int channels, int height, int width, int md,
                 int stride, int n, int tile_x, int chan_blocks, int cb_skew,
                 int rows_per_stage, int buffers) {
   constexpr int kUnit = kVec ? 4 : 1;
@@ -464,8 +530,8 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   const int y = blockIdx.y;
   const int xt = blockIdx.x * tile_x;
   const int hw = height * width;
-  const float* gb = g + static_cast<size_t>(b) * n * n * hw + xt;
-  const float* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw;
+  const T* gb = g + static_cast<size_t>(b) * n * n * hw + xt;
+  const T* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw;
 
   // Zero the buffers once. Staging then writes only in-frame columns and
   // real channels, the same set for every displacement row, so the frame's
@@ -503,7 +569,7 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
     for (int k = 0; k < count; ++k) {
       const int i = i0 + k;
       const int row = kDcr ? y + md - i * s : y - md + i * s;
-      const float* f_k = fb + (row * width + xt - lead + l_lo);
+      const T* f_k = fb + (row * width + xt - lead + l_lo);
       float* slot_k = buffer + k * slot;
       float* g_slot = slot_k + chan_blocks * cb_pitch;
       stage_rows<kUnit>(
@@ -514,7 +580,7 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
       if (kDcr) {
         // g row (i, j) at the cl row, in slot position m = n - 1 - j, from
         // frame column x' - o_j: staged column x holds column xt + x - o_j
-        const float* g_k = gb + static_cast<size_t>(i) * n * hw + row * width;
+        const T* g_k = gb + static_cast<size_t>(i) * n * hw + row * width;
         stage_rows<kUnit>(
             [=](int m) {
               const int j = n - 1 - m, o = j * s - md;
@@ -529,7 +595,7 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
             n, x_hi / kUnit, s);
       } else {
         // g rows (i, j) of the block's own row, in slot position j
-        const float* g_k = gb + static_cast<size_t>(i) * n * hw + y * width;
+        const T* g_k = gb + static_cast<size_t>(i) * n * hw + y * width;
         stage_rows<kUnit>([=](int m) { return g_k + static_cast<size_t>(m) * hw; },
                           [=](int m) { return g_slot + m * g_pitch; },
                           [=](int) { return make_int2(0, x_hi / kUnit); }, n, x_hi / kUnit, s);
@@ -622,18 +688,20 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   __syncthreads();
   const RowLanes rl = row_lanes(x_hi);
   if (!rl.on) return;
-  float* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw + y * width + xt;
+  T* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw + y * width + xt;
   for (int r = rl.first; r < c_hi; r += rl.next) {
     for (int x = rl.u0; x < x_hi; x += rl.step) {
-      out[static_cast<size_t>(r) * hw + x] = smem[r * g_pitch + padded(x, s)]
-                                            / static_cast<float>(channels);
+      put(out + static_cast<size_t>(r) * hw + x,
+          smem[r * g_pitch + padded(x, s)] / static_cast<float>(channels));
     }
   }
 }
 
 int displacements(int md, int stride) { return 2 * md / stride + 1; }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// the 4-value vector paths need 4 * sizeof(T) byte alignment
+template <typename T>
+bool aligned4(const T* p) { return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0; }
 
 // Opts in above the default 48 KB of dynamic shared memory, then launches.
 template <typename Kernel, typename... Args>
@@ -649,8 +717,8 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, void* stream, 
 
 // K3 (kDcr false) or K4 (true): checks the plan, picks the staging width and
 // launches.
-template <bool kDcr>
-int corr_bwd(const float* g, const float* feat, float* dfeat, int batch, int channels,
+template <typename T, bool kDcr>
+int corr_bwd(const T* g, const T* feat, T* dfeat, int batch, int channels,
              int height, int width, int md, int stride, int tile_x, int chan_blocks,
              int cb_skew, int rows_per_stage, int buffers, int threads, int smem_bytes,
              void* stream) {
@@ -675,32 +743,19 @@ int corr_bwd(const float* g, const float* feat, float* dfeat, int batch, int cha
       || static_cast<long long>(batch) * chunks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned16(g)
-                   && aligned16(feat);
-  const auto kernel = vec ? corr_bwd_kernel<true, kDcr> : corr_bwd_kernel<false, kDcr>;
+  const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned4(g)
+                   && aligned4(feat);
+  const auto kernel = vec ? corr_bwd_kernel<T, true, kDcr> : corr_bwd_kernel<T, false, kDcr>;
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
   return launch(kernel, grid, threads, smem_bytes, stream, g, feat, dfeat, channels, height,
                 width, md, stride, n, tile_x, chan_blocks, cb_skew, rows_per_stage, buffers);
 }
 
-}  // namespace
-
-// cl, cr [B,C,H,W]; writes out [B,n^2,H,W] with n = 2 * md / stride + 1;
-// all float32, contiguous, on the current device. The tiling comes from the
-// wrapper's plan (ops/kernels/correlation.py::fwd_plan): tile_x (a multiple
-// of 4 * stride), rows_per_stage (1..n), chan_groups (1..C, none empty),
-// skew and slot_skew (0-31; multiples of 4 where stride is), threads (a
-// multiple of 32, at least the working threads, at most 256) and
-// smem_bytes, which must equal this layout and fit 227 KB. Stages 16 bytes
-// at a time where stride, md and W are multiples of 4 and cl and cr are
-// 16-byte aligned; stores float4 where W is a multiple of 4 and out is
-// 16-byte aligned. Launches K2 on `stream` and returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a plan that does not match.
-extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
-                            int batch, int channels, int height, int width,
-                            int md, int stride, int tile_x, int rows_per_stage,
-                            int chan_groups, int skew, int slot_skew, int threads,
-                            int smem_bytes, void* stream) {
+// K2: checks the plan, picks the staging and store widths and launches.
+template <typename T>
+int corr_fwd(const T* cl, const T* cr, T* out, int batch, int channels, int height, int width,
+             int md, int stride, int tile_x, int rows_per_stage, int chan_groups, int skew,
+             int slot_skew, int threads, int smem_bytes, void* stream) {
   if (static_cast<long long>(batch) * height * width == 0) return static_cast<int>(cudaSuccess);
   if (tile_x <= 0 || stride <= 0 || md < 0 || channels <= 0 || chan_groups <= 0
       || chan_groups > channels) {
@@ -722,15 +777,49 @@ extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
       || smem_bytes > kSmemLimit || height > 65535 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned16(cl)
-                   && aligned16(cr);
-  const bool vec_out = width % 4 == 0 && aligned16(out);
-  const auto kernel = vec ? (vec_out ? corr_fwd_kernel<true, true> : corr_fwd_kernel<true, false>)
-                          : (vec_out ? corr_fwd_kernel<false, true>
-                                     : corr_fwd_kernel<false, false>);
+  const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned4(cl)
+                   && aligned4(cr);
+  const bool vec_out = width % 4 == 0 && aligned4(out);
+  const auto kernel = vec ? (vec_out ? corr_fwd_kernel<T, true, true>
+                                     : corr_fwd_kernel<T, true, false>)
+                          : (vec_out ? corr_fwd_kernel<T, false, true>
+                                     : corr_fwd_kernel<T, false, false>);
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch);
   return launch(kernel, grid, threads, smem_bytes, stream, cl, cr, out, channels, height, width,
                 md, stride, n, tile_x, rows_per_stage, chan_groups, skew, slot_skew);
+}
+
+}  // namespace
+
+// cl, cr [B,C,H,W]; writes out [B,n^2,H,W] with n = 2 * md / stride + 1;
+// all float32, contiguous, on the current device. The tiling comes from the
+// wrapper's plan (ops/kernels/correlation.py::fwd_plan): tile_x (a multiple
+// of 4 * stride), rows_per_stage (1..n), chan_groups (1..C, none empty),
+// skew and slot_skew (0-31; multiples of 4 where stride is), threads (a
+// multiple of 32, at least the working threads, at most 256) and
+// smem_bytes, which must equal this layout and fit 227 KB. Stages 16 bytes
+// at a time where stride, md and W are multiples of 4 and cl and cr are
+// 16-byte aligned; stores float4 where W is a multiple of 4 and out is
+// 16-byte aligned. Launches K2 on `stream` and returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a plan that does not match.
+extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
+                            int batch, int channels, int height, int width,
+                            int md, int stride, int tile_x, int rows_per_stage,
+                            int chan_groups, int skew, int slot_skew, int threads,
+                            int smem_bytes, void* stream) {
+  return corr_fwd(cl, cr, out, batch, channels, height, width, md, stride, tile_x, rows_per_stage,
+                  chan_groups, skew, slot_skew, threads, smem_bytes, stream);
+}
+
+// xpt_corr_fwd on bfloat16 cl, cr and out: the same plan (the layout is
+// float32 in shared memory), a float32 sum, divided by C, rounded once.
+extern "C" int xpt_corr_fwd_bf16(const __nv_bfloat16* cl, const __nv_bfloat16* cr,
+                                 __nv_bfloat16* out, int batch, int channels, int height,
+                                 int width, int md, int stride, int tile_x, int rows_per_stage,
+                                 int chan_groups, int skew, int slot_skew, int threads,
+                                 int smem_bytes, void* stream) {
+  return corr_fwd(cl, cr, out, batch, channels, height, width, md, stride, tile_x, rows_per_stage,
+                  chan_groups, skew, slot_skew, threads, smem_bytes, stream);
 }
 
 // g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H,W]; writes
@@ -749,7 +838,7 @@ extern "C" int xpt_corr_bwd_cl(const float* g, const float* cr, float* dcl,
                                int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<false>(g, cr, dcl, batch, channels, height, width, md, stride, tile_x,
+  return corr_bwd<float, false>(g, cr, dcl, batch, channels, height, width, md, stride, tile_x,
                          chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
                          stream);
 }
@@ -761,7 +850,29 @@ extern "C" int xpt_corr_bwd_cr(const float* g, const float* cl, float* dcr,
                                int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<true>(g, cl, dcr, batch, channels, height, width, md, stride, tile_x,
+  return corr_bwd<float, true>(g, cl, dcr, batch, channels, height, width, md, stride, tile_x,
                         chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
                         stream);
+}
+
+// xpt_corr_bwd_cl and xpt_corr_bwd_cr on bfloat16 g, features and result:
+// the same plans, float32 sums, divided by C, rounded once.
+extern "C" int xpt_corr_bwd_cl_bf16(const __nv_bfloat16* g, const __nv_bfloat16* cr,
+                                    __nv_bfloat16* dcl, int batch, int channels, int height,
+                                    int width, int md, int stride, int tile_x, int chan_blocks,
+                                    int cb_skew, int rows_per_stage, int buffers, int threads,
+                                    int smem_bytes, void* stream) {
+  return corr_bwd<__nv_bfloat16, false>(g, cr, dcl, batch, channels, height, width, md, stride,
+                                        tile_x, chan_blocks, cb_skew, rows_per_stage, buffers,
+                                        threads, smem_bytes, stream);
+}
+
+extern "C" int xpt_corr_bwd_cr_bf16(const __nv_bfloat16* g, const __nv_bfloat16* cl,
+                                    __nv_bfloat16* dcr, int batch, int channels, int height,
+                                    int width, int md, int stride, int tile_x, int chan_blocks,
+                                    int cb_skew, int rows_per_stage, int buffers, int threads,
+                                    int smem_bytes, void* stream) {
+  return corr_bwd<__nv_bfloat16, true>(g, cl, dcr, batch, channels, height, width, md, stride,
+                                       tile_x, chan_blocks, cb_skew, rows_per_stage, buffers,
+                                       threads, smem_bytes, stream);
 }

@@ -16,13 +16,14 @@ convs.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xpt_mde_tpu_torch.models.layers import Conv2dSame
+from xpt_mde_tpu_torch.models.layers import Conv2dSame, to_compute
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0
 _B0_STAGES = [
@@ -65,32 +66,95 @@ class BatchNorm2d(nn.BatchNorm2d):
     would put the unbiased one into ``running_var``: n/(n-1) times larger,
     ~7% at the 16 values per channel of B0's stride-32 map at batch 2.)
     Eval mode is torch's, on the running statistics. Momentum 0.01 is
-    flax's 0.99; eps 1e-3."""
+    flax's 0.99; eps 1e-3.
 
-    def __init__(self, channels: int):
+    With a bfloat16 compute ``dtype`` it is flax's BatchNorm with
+    ``dtype=bfloat16`` and ``force_float32_reductions``: torch's batch
+    norm on the bfloat16 input with the float32 parameters (its mixed-type
+    form) takes the statistics once, in float32, normalizes in float32 and
+    returns bfloat16, in one kernel; the running statistics stay float32,
+    updated from the batch mean and the biased variance that the same call
+    returns (as 1 / invstd^2 - eps). Inside :func:`fold_statistics_at_end`
+    (EfficientNet's forward) that update waits for the block's end, where
+    all its BatchNorms fold theirs in together."""
+
+    # the batch statistics of the enclosing fold_statistics_at_end block
+    _pending: list | None = None
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=1e-3, momentum=0.01)
+        self.compute_dtype = dtype
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype != torch.float32:
+            return self._forward_f32_stats(x)
         if not self.training:
             return super().forward(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+        self._update_running(mean, var)
+        return out
+
+    def _forward_f32_stats(self, x: torch.Tensor) -> torch.Tensor:
+        x = to_compute(self.compute_dtype, x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        out, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self._pending is not None:
+            self._pending.append((self, mean.detach(), invstd.detach()))
+        else:
+            with torch.no_grad():
+                var = invstd.detach().pow(-2).sub_(self.eps)
+            self._update_running(mean.detach(), var)
         return out
 
 
-def batch_norm(channels: int) -> BatchNorm2d:
-    return BatchNorm2d(channels)
+@contextlib.contextmanager
+def fold_statistics_at_end(net: nn.Module):
+    """Train-mode bfloat16 BatchNorms of ``net`` fold their batch
+    statistics into the running ones at the block's end, all together in
+    a few foreach operations (the same arithmetic as each one's
+    ``_update_running``, ~6 kernels a norm otherwise). Each norm runs once
+    in the block (EfficientNet's forward)."""
+    norms = [m for m in net.modules()
+             if isinstance(m, BatchNorm2d) and m.compute_dtype != torch.float32]
+    pending = []
+    for norm in norms:
+        norm._pending = pending
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm._pending = None
+    if pending:
+        with torch.no_grad():
+            norms, means, invstds = zip(*pending)
+            variances = torch._foreach_pow(list(invstds), -2.0)
+            torch._foreach_sub_(variances, [norm.eps for norm in norms])
+            for stat, values in (("running_mean", means), ("running_var", variances)):
+                running = [getattr(norm, stat) for norm in norms]
+                torch._foreach_mul_(running, [1.0 - norm.momentum for norm in norms])
+                torch._foreach_add_(running, list(values), alpha=norms[0].momentum)
+
+
+def batch_norm(channels: int, dtype: torch.dtype = torch.float32) -> BatchNorm2d:
+    return BatchNorm2d(channels, dtype)
 
 
 class SqueezeExcite(nn.Module):
-    def __init__(self, channels: int, reduced_ch: int):
+    def __init__(self, channels: int, reduced_ch: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = Conv2dSame(channels, reduced_ch, 1)
-        self.Conv_1 = Conv2dSame(reduced_ch, channels, 1)
+        self.Conv_0 = Conv2dSame(channels, reduced_ch, 1, dtype=dtype)
+        self.Conv_1 = Conv2dSame(reduced_ch, channels, 1, dtype=dtype)
 
     def forward(self, x):
         se = torch.mean(x, dim=(2, 3), keepdim=True)
@@ -100,24 +164,29 @@ class SqueezeExcite(nn.Module):
 
 class MBConv(nn.Module):
     """Mobile inverted bottleneck with SE and residual. Convs are named
-    ``Conv_i`` in order (expand, depthwise, project), as in flax."""
+    ``Conv_i`` in order (expand, depthwise, project), as in flax. Every
+    conv and norm computes in ``dtype``."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int,
-                 stride: int, kernel: int, se_ratio: float = 0.25):
+                 stride: int, kernel: int, se_ratio: float = 0.25,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = in_ch * expand_ratio
-        convs = [Conv2dSame(in_ch, mid, 1, bias=False)] if expand_ratio != 1 else []
-        convs.append(Conv2dSame(mid, mid, kernel, stride, groups=mid, bias=False))
+        convs = ([Conv2dSame(in_ch, mid, 1, bias=False, dtype=dtype)]
+                 if expand_ratio != 1 else [])
+        convs.append(Conv2dSame(mid, mid, kernel, stride, groups=mid, bias=False,
+                                dtype=dtype))
         # (conv, norm) pairs followed by swish; plain lists keep the
         # registration to the flax-named attributes below
         self._pre = []
         for i, conv in enumerate(convs):
-            norm = batch_norm(mid)
+            norm = batch_norm(mid, dtype)
             self.add_module(f"Conv_{i}", conv)
             self.add_module(f"BatchNorm_{i}", norm)
             self._pre.append((conv, norm))
-        self.SqueezeExcite_0 = SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
-        project, norm = Conv2dSame(mid, out_ch, 1, bias=False), batch_norm(out_ch)
+        self.SqueezeExcite_0 = SqueezeExcite(mid, max(1, int(in_ch * se_ratio)), dtype)
+        project = Conv2dSame(mid, out_ch, 1, bias=False, dtype=dtype)
+        norm = batch_norm(out_ch, dtype)
         self.add_module(f"Conv_{len(convs)}", project)
         self.add_module(f"BatchNorm_{len(convs)}", norm)
         self._project = (project, norm)
@@ -137,16 +206,18 @@ class MBConv(nn.Module):
 
 class EfficientNet(nn.Module):
     """EfficientNet encoder; ``variant`` in B0..B7. Takes [B, 3, H, W] in
-    [-1, 1] and returns [f2, f4, f8, f16, f32], NCHW."""
+    [-1, 1] and returns [f2, f4, f8, f16, f32], NCHW, computed in
+    ``dtype``."""
 
-    def __init__(self, variant: str = "B5"):
+    def __init__(self, variant: str = "B5", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         width_mult, depth_mult = _SCALING[variant]
         self.register_buffer("input_mean", torch.zeros(3))
         self.register_buffer("input_var", torch.ones(3))
         in_ch = round_filters(32, width_mult)
-        self.Conv_0 = Conv2dSame(3, in_ch, 3, 2, bias=False)
-        self.BatchNorm_0 = batch_norm(in_ch)
+        self.Conv_0 = Conv2dSame(3, in_ch, 3, 2, bias=False, dtype=dtype)
+        self.BatchNorm_0 = batch_norm(in_ch, dtype)
         self._blocks = []
         self._taps = set()
         self.out_channels = []
@@ -154,7 +225,7 @@ class EfficientNet(nn.Module):
             out_ch = round_filters(ch, width_mult)
             for rep in range(round_repeats(reps, depth_mult)):
                 block = MBConv(in_ch, out_ch, expand, stride if rep == 0 else 1,
-                               kernel)
+                               kernel, dtype=dtype)
                 self.add_module(f"MBConv_{len(self._blocks)}", block)
                 self._blocks.append(block)
                 in_ch = out_ch
@@ -165,11 +236,12 @@ class EfficientNet(nn.Module):
     def forward(self, x):
         mean = self.input_mean[None, :, None, None]
         std = torch.sqrt(self.input_var)[None, :, None, None]
-        x = (x / 255.0 - mean) / std
-        x = F.silu(self.BatchNorm_0(self.Conv_0(x)))
+        x = to_compute(self.compute_dtype, (x / 255.0 - mean) / std)
         taps = []
-        for i, block in enumerate(self._blocks):
-            x = block(x)
-            if i in self._taps:
-                taps.append(x)
+        with fold_statistics_at_end(self):
+            x = F.silu(self.BatchNorm_0(self.Conv_0(x)))
+            for i, block in enumerate(self._blocks):
+                x = block(x)
+                if i in self._taps:
+                    taps.append(x)
         return taps

@@ -6,8 +6,9 @@ runs them again on the ``_R`` views, and with a stereo extrinsic and a
 posenet it predicts the left<->right pose by feeding
 ``[R_target] * numsrc + [L_target]`` snippets (and their mirror) to the
 posenet. Ported so far: an EfficientNet ``DepthNetPretrained``,
-``PoseNetImproved`` and ``PWCNet``, in float32. Any other net and
-bfloat16 raise, naming the ROADMAP item that adds them.
+``PoseNetImproved`` and ``PWCNet``, computing in float32 or bfloat16
+(``compute_dtype``; the parameters are float32 either way). Any other net
+raises, naming the ROADMAP item that adds it.
 
 Weights are drawn from an explicit ``torch.Generator`` on the CPU (the
 modules are built on the ``meta`` device first, so nothing is drawn
@@ -30,6 +31,7 @@ from xpt_mde_tpu_torch.models.backbones import backbone_factory
 from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
 from xpt_mde_tpu_torch.models.flow_net import PWCNet
 from xpt_mde_tpu_torch.models.layers import Conv2dSame, ConvTranspose, activation_factory
+from xpt_mde_tpu_torch.utils import precision
 from xpt_mde_tpu_torch.utils.image import safe_reciprocal_ms
 
 
@@ -114,10 +116,7 @@ class ModelFactory:
                  upsample_interp: str = "nearest",
                  compute_dtype: str = "float32",
                  device: torch.device | str = "cuda", seed: int = 0):
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported yet: float32 only "
-                "until the ROADMAP's 'bf16' item lands")
+        self.dtype = precision.compute_dtype(compute_dtype)
         self.dataset_keys = {k.replace("image5d", "image") for k in dataset_keys}
         self.net_names = dict(net_names)
         self.depth_activation = depth_activation
@@ -153,16 +152,16 @@ class ModelFactory:
 
     def depth_net_factory(self, net_name: str) -> nn.Module:
         activation = activation_factory(self.depth_activation)
-        return dn.DepthNetPretrained(backbone_factory(net_name), activation,
-                                     self.upsample_interp)
+        return dn.DepthNetPretrained(backbone_factory(net_name, self.dtype), activation,
+                                     self.upsample_interp, self.dtype)
 
     def pose_net_factory(self, net_name: str) -> nn.Module:
         if net_name == "PoseNetImproved":
-            return pn.PoseNetImproved(SNIPPET_LEN, self.high_res)
+            return pn.PoseNetImproved(SNIPPET_LEN, self.high_res, self.dtype)
         raise NotImplementedError(
             f"pose net {net_name!r} is not ported yet (ROADMAP: 'Breadth')")
 
     def flow_net_factory(self, net_name: str) -> nn.Module:
         if net_name == "PWCNet":
-            return PWCNet()
+            return PWCNet(self.dtype)
         raise ValueError(f"wrong flow net name: {net_name}")

@@ -18,6 +18,14 @@ parameters.
 Output: ``{"flow_ms": [f2, f3, f4, f5]}``, each [B, N, H/2^p, W/2^p, 2]
 channel-last, (u, v) flow in the loss-side warp's convention
 (grid - flow).
+
+With a bfloat16 compute ``dtype`` (the JAX ``PWCNet(dtype=bfloat16)``):
+the images, encoders and predictors run in bfloat16; every flow is
+float32 (the flow conv and the upsampled flow, after its bfloat16
+transpose conv, are cast up), the upsampled features stay bfloat16; the
+feature warp multiplies bfloat16 features by float32 weights and gives
+float32, which is cast to bfloat16 with the left features for the cost
+volume, so K2, K3 and K4 take and give bfloat16.
 """
 
 from __future__ import annotations
@@ -26,9 +34,10 @@ import torch
 import torch.nn as nn
 
 from xpt_mde_tpu_torch.config import MAX_DISPLACEMENT
-from xpt_mde_tpu_torch.models.layers import Conv, ConvTranspose
+from xpt_mde_tpu_torch.models.layers import Conv, ConvTranspose, cast_parameters, to_compute
 from xpt_mde_tpu_torch.ops.correlation import correlation_channels, correlation_cost
 from xpt_mde_tpu_torch.ops.flow_warp import flow_bilinear_sample
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
 PREDICTOR_CHANNELS = (128, 128, 96, 64)
@@ -47,13 +56,13 @@ class PWCEncoder(nn.Module):
     """6-level pyramid, three convs per level (the first of stride 2):
     ``Conv_0`` ... ``Conv_17``. Returns the features at strides 2..64."""
 
-    def __init__(self, in_channels: int = 3):
+    def __init__(self, in_channels: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         chans_in = in_channels
         index = 0
         for chans in ENCODER_CHANNELS:
             for stride in (2, 1, 1):
-                setattr(self, f"Conv_{index}", Conv(chans_in, chans, 3, stride))
+                setattr(self, f"Conv_{index}", Conv(chans_in, chans, 3, stride, dtype=dtype))
                 chans_in = chans
                 index += 1
 
@@ -69,46 +78,49 @@ class PWCEncoder(nn.Module):
 class FlowPredictor(nn.Module):
     """Dense convs (each output concatenated after its input), a 32-channel
     conv ``c`` and the flow conv; with ``up``, 2x transpose-conv
-    upsamplings of the flow and of ``c`` (``ConvTranspose_0/1``)."""
+    upsamplings of the flow and of ``c`` (``ConvTranspose_0/1``). The
+    flow and the upsampled flow come out float32 (or float64), ``c`` and
+    the upsampled features in the compute dtype."""
 
-    def __init__(self, in_channels: int, up: bool = True):
+    def __init__(self, in_channels: int, up: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         chans_in = in_channels
         for i, chans in enumerate(PREDICTOR_CHANNELS):
-            setattr(self, f"Conv_{i}", Conv(chans_in, chans))
+            setattr(self, f"Conv_{i}", Conv(chans_in, chans, dtype=dtype))
             chans_in += chans
-        self.Conv_4 = Conv(chans_in, 32)
-        self.Conv_5 = Conv(32, 2, use_activation=False)
+        self.Conv_4 = Conv(chans_in, 32, dtype=dtype)
+        self.Conv_5 = Conv(32, 2, use_activation=False, dtype=dtype)
         self.up = up
         if up:
-            self.ConvTranspose_0 = ConvTranspose(2, 2)
-            self.ConvTranspose_1 = ConvTranspose(32, 2)
+            self.ConvTranspose_0 = ConvTranspose(2, 2, dtype)
+            self.ConvTranspose_1 = ConvTranspose(32, 2, dtype)
 
     def forward(self, x: torch.Tensor):
         for i in range(len(PREDICTOR_CHANNELS)):
             x = torch.cat([x, getattr(self, f"Conv_{i}")(x)], dim=1)
         c = self.Conv_4(x)
-        flow = self.Conv_5(c)
+        flow = at_least_f32(self.Conv_5(c))
         if not self.up:
             return flow, c
-        return flow, self.ConvTranspose_0(flow), self.ConvTranspose_1(c)
+        return flow, at_least_f32(self.ConvTranspose_0(flow)), self.ConvTranspose_1(c)
 
 
 class ContextNetwork(nn.Module):
-    """Dilated refinement of the level-2 flow: ``Conv_0`` ... ``Conv_6``."""
+    """Dilated refinement of the level-2 flow: ``Conv_0`` ... ``Conv_6``;
+    the refinement is added to the flow in float32 (or float64)."""
 
-    def __init__(self, in_channels: int = 32):
+    def __init__(self, in_channels: int = 32, dtype: torch.dtype = torch.float32):
         super().__init__()
         chans_in = in_channels
         for i, (chans, dilation) in enumerate(CONTEXT_LAYERS):
-            setattr(self, f"Conv_{i}", Conv(chans_in, chans, dilation=dilation))
+            setattr(self, f"Conv_{i}", Conv(chans_in, chans, dilation=dilation, dtype=dtype))
             chans_in = chans
-        self.Conv_6 = Conv(chans_in, 2, use_activation=False)
+        self.Conv_6 = Conv(chans_in, 2, use_activation=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         for i in range(len(CONTEXT_LAYERS) + 1):
             x = getattr(self, f"Conv_{i}")(x)
-        return x + flow
+        return at_least_f32(x) + flow
 
 
 def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -116,12 +128,14 @@ def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class PWCNet(nn.Module):
-    """PWC-Net on [B, S, H, W, 3] snippets (the last frame is the target)."""
+    """PWC-Net on [B, S, H, W, 3] snippets (the last frame is the target),
+    computing in ``dtype``."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder_l = PWCEncoder()
-        self.encoder_r = PWCEncoder()
+        self.compute_dtype = dtype
+        self.encoder_l = PWCEncoder(dtype=dtype)
+        self.encoder_r = PWCEncoder(dtype=dtype)
         # level 6 sees the cost volume only; levels 5..2 also the left
         # features, the upsampled flow and the upsampled predictor features
         in_channels = [correlation_channels(*level_displacement(6))]
@@ -129,15 +143,21 @@ class PWCNet(nn.Module):
             in_channels.append(correlation_channels(*level_displacement(level))
                                + ENCODER_CHANNELS[level - 1] + 2 + 2)
         for i, chans in enumerate(in_channels):
-            setattr(self, f"FlowPredictor_{i}", FlowPredictor(chans, up=i < 4))
-        self.ContextNetwork_0 = ContextNetwork(32)
+            setattr(self, f"FlowPredictor_{i}", FlowPredictor(chans, up=i < 4, dtype=dtype))
+        self.ContextNetwork_0 = ContextNetwork(32, dtype)
 
     def forward(self, image5d: torch.Tensor) -> dict:
+        with cast_parameters(self):
+            return self._flow_ms(image5d)
+
+    def _flow_ms(self, image5d: torch.Tensor) -> dict:
         batch, snippet, height, width, channels = image5d.shape
         numsrc = snippet - 1
-        target = image5d[:, -1].permute(0, 3, 1, 2).contiguous()
-        sources = image5d[:, :-1].reshape(batch * numsrc, height, width,
-                                          channels).permute(0, 3, 1, 2).contiguous()
+        cast = self.compute_dtype
+        target = to_compute(cast, image5d[:, -1].permute(0, 3, 1, 2)).contiguous()
+        sources = to_compute(cast, image5d[:, :-1].reshape(batch * numsrc, height, width,
+                                                           channels).permute(0, 3, 1, 2))
+        sources = sources.contiguous()
         feats_l = [torch.repeat_interleave(f, numsrc, dim=0)
                    for f in self.encoder_l(target)]
         feats_r = self.encoder_r(sources)
@@ -151,10 +171,10 @@ class PWCNet(nn.Module):
                                              (3, c3l, c3r), (2, c2l, c2r)), start=1):
             cr_warp = flow_bilinear_sample(_to_nhwc(cr),
                                            _to_nhwc(up_flow) * WARP_SCALES[level])
-            corr = correlation_cost(cl, cr_warp.permute(0, 3, 1, 2),
+            corr = correlation_cost(cl, to_compute(cast, cr_warp.permute(0, 3, 1, 2)),
                                     *level_displacement(level))
             outputs = getattr(self, f"FlowPredictor_{i}")(
-                torch.cat([corr, cl, up_flow, up_feat], dim=1))
+                torch.cat([corr, cl, to_compute(cast, up_flow), up_feat], dim=1))
             if level > 2:
                 flow, up_flow, up_feat = outputs
             else:

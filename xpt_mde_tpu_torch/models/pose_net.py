@@ -1,14 +1,15 @@
 """PoseNetImproved (port of ``xpt_mde_tpu.models.pose_net``): the snippet
 [B, S, H, W, 3] stacked on channels -> 6 stride-2 levels and a 3-conv
 tail (one more stride-2 block at high resolution) -> 1x1 conv to
-numsrc*6 -> spatial mean -> [B, numsrc, 6] target->source twists."""
+numsrc*6 -> spatial mean -> [B, numsrc, 6] target->source twists. The
+convs compute in ``dtype``; the mean is taken in float32."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from xpt_mde_tpu_torch.models.layers import Conv
+from xpt_mde_tpu_torch.models.layers import Conv, cast_parameters, to_compute
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 # (features, kernel, stride) of the conv stack, in flax's Conv_i order
@@ -18,15 +19,17 @@ _HIGH_RES = [(512, 3, 2), (512, 3, 1), (512, 3, 1)]
 
 
 class PoseNetImproved(nn.Module):
-    def __init__(self, snippet_len: int, high_res: bool = False):
+    def __init__(self, snippet_len: int, high_res: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.numsrc = snippet_len - 1
+        self.compute_dtype = dtype
         in_ch = snippet_len * 3
         self._convs = []
         for features, kernel, stride in _IMPROVED + (_HIGH_RES if high_res else []):
-            self._add_conv(Conv(in_ch, features, kernel, stride))
+            self._add_conv(Conv(in_ch, features, kernel, stride, dtype=dtype))
             in_ch = features
-        self._add_conv(Conv(in_ch, self.numsrc * 6, 1, use_activation=False))
+        self._add_conv(Conv(in_ch, self.numsrc * 6, 1, use_activation=False, dtype=dtype))
 
     def _add_conv(self, conv: Conv) -> None:
         self.add_module(f"Conv_{len(self._convs)}", conv)
@@ -35,8 +38,9 @@ class PoseNetImproved(nn.Module):
     def forward(self, image5d: torch.Tensor):
         b, s, h, w, c = image5d.shape
         # channel index s*C + c, as restack_on_channels orders it
-        x = image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w)
-        for conv in self._convs:
-            x = conv(x)
+        x = to_compute(self.compute_dtype, image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w))
+        with cast_parameters(self):
+            for conv in self._convs:
+                x = conv(x)
         poses = torch.mean(at_least_f32(x), dim=(2, 3))
         return {"pose": poses.reshape(-1, self.numsrc, 6)}

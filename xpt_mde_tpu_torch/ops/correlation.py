@@ -16,6 +16,12 @@ the three kernels, their oracles on the card, are
 :func:`correlation_cost_plain`, :func:`correlation_grad_cl_plain` and
 :func:`correlation_grad_cr_plain`; the autograd of the first is a second
 oracle of the other two.
+
+Float32 and bfloat16 operands (the JAX package's default compute dtype)
+are taken, as by the Pallas kernels: each operand is read as float32,
+products are summed in float32 and divided by C, and the result is
+rounded once to the operand dtype. (The JAX package's XLA fallback, its
+CPU route, rounds every product to bfloat16 first; the kernels do not.)
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from xpt_mde_tpu_torch.ops.kernels.correlation import Correlation, num_displacements
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 
 def correlation_cost_plain(cl: torch.Tensor, cr: torch.Tensor,
@@ -31,19 +38,22 @@ def correlation_cost_plain(cl: torch.Tensor, cr: torch.Tensor,
     """Plain PyTorch cost volume on any device (K2's oracle; its autograd
     is K3's and K4's).
 
-    :param cl, cr: left and right features [B, C, H, W]
+    :param cl, cr: left and right features [B, C, H, W], both float32 or
+        both bfloat16
     :param max_displacement: md, the largest displacement in pixels
     :param stride: the displacement grid's stride
-    :return: [B, n^2, H, W], n = len(range(-md, md + 1, stride))
+    :return: [B, n^2, H, W] in the operands' dtype,
+        n = len(range(-md, md + 1, stride))
     """
     height, width = cl.shape[-2:]
     md = max_displacement
-    cr_pad = F.pad(cr, (md, md, md, md))
+    clf = at_least_f32(cl)
+    cr_pad = F.pad(at_least_f32(cr), (md, md, md, md))
     offsets = range(-md, md + 1, stride)
-    slices = [torch.mean(cl * cr_pad[:, :, md + dy: md + dy + height,
+    slices = [torch.sum(clf * cr_pad[:, :, md + dy: md + dy + height,
                                      md + dx: md + dx + width], dim=1)
               for dy in offsets for dx in offsets]
-    return torch.stack(slices, dim=1)
+    return (torch.stack(slices, dim=1) / cl.shape[1]).to(cl.dtype)
 
 
 def correlation_grad_cl_plain(grad_out: torch.Tensor, cr: torch.Tensor,
@@ -51,18 +61,20 @@ def correlation_grad_cl_plain(grad_out: torch.Tensor, cr: torch.Tensor,
     """Plain PyTorch gradient of the cost volume for the left features
     (K3's oracle): dcl = (1/C) sum_k g_k * (cr shifted by +(dy_k, dx_k)).
 
-    :param grad_out: [B, n^2, H, W]; :param cr: [B, C, H, W]
-    :return: dcl [B, C, H, W]
+    :param grad_out: [B, n^2, H, W]; :param cr: [B, C, H, W], both float32
+        or both bfloat16
+    :return: dcl [B, C, H, W] in their dtype
     """
     height, width = cr.shape[-2:]
     md = max_displacement
-    cr_pad = F.pad(cr, (md, md, md, md))
+    g = at_least_f32(grad_out)
+    cr_pad = F.pad(at_least_f32(cr), (md, md, md, md))
     offsets = range(-md, md + 1, stride)
-    acc = torch.zeros_like(cr)
+    acc = torch.zeros_like(cr_pad[:, :, :height, :width])
     for k, (dy, dx) in enumerate((dy, dx) for dy in offsets for dx in offsets):
-        acc += grad_out[:, k:k + 1] * cr_pad[:, :, md + dy: md + dy + height,
-                                             md + dx: md + dx + width]
-    return acc / cr.shape[1]
+        acc += g[:, k:k + 1] * cr_pad[:, :, md + dy: md + dy + height,
+                                      md + dx: md + dx + width]
+    return (acc / cr.shape[1]).to(cr.dtype)
 
 
 def correlation_grad_cr_plain(grad_out: torch.Tensor, cl: torch.Tensor,
@@ -72,17 +84,19 @@ def correlation_grad_cr_plain(grad_out: torch.Tensor, cl: torch.Tensor,
     (y' - dy_k, x' - dx_k), formed by adding each product into a padded
     frame at its displacement.
 
-    :param grad_out: [B, n^2, H, W]; :param cl: [B, C, H, W]
-    :return: dcr [B, C, H, W]
+    :param grad_out: [B, n^2, H, W]; :param cl: [B, C, H, W], both float32
+        or both bfloat16
+    :return: dcr [B, C, H, W] in their dtype
     """
     height, width = cl.shape[-2:]
     md = max_displacement
+    g, clf = at_least_f32(grad_out), at_least_f32(cl)
     offsets = range(-md, md + 1, stride)
-    acc = F.pad(torch.zeros_like(cl), (md, md, md, md))
+    acc = F.pad(torch.zeros_like(clf), (md, md, md, md))
     for k, (dy, dx) in enumerate((dy, dx) for dy in offsets for dx in offsets):
         acc[:, :, md + dy: md + dy + height, md + dx: md + dx + width] += \
-            grad_out[:, k:k + 1] * cl
-    return acc[:, :, md: md + height, md: md + width] / cl.shape[1]
+            g[:, k:k + 1] * clf
+    return (acc[:, :, md: md + height, md: md + width] / cl.shape[1]).to(cl.dtype)
 
 
 def correlation_cost(cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,

@@ -3,12 +3,17 @@ and its two input gradients (``csrc/correlation.cu``).
 
 Port of ``xpt_mde_tpu/ops/pallas/correlation.py``: K2 is the forward
 kernel, K3 and K4 the kernels of its custom VJP (dcl and dcr). All three
-take and give NCHW float32 tensors and compute exactly
+take and give NCHW tensors, float32 or bfloat16, and compute exactly
 :func:`xpt_mde_tpu_torch.ops.correlation.correlation_cost_plain` and its
-autograd, up to the order of the float32 sums. :class:`Correlation` joins
-them into one differentiable op. The TPU's routing gate (``_pallas_pays``),
-its VMEM gates and the dy-row pre-slicing of its backward are not ported:
-every level takes these kernels.
+autograd, up to the order of the float32 sums. Each dtype has its own C
+entries and wrappers (``K2`` and ``K2_BF16``, ...), each with its own
+launch count; the bfloat16 kernels read and write bfloat16 in global
+memory, sum in float32 and round once, with the float32 kernels' plans
+(shared memory holds float32 in both). :class:`Correlation` joins them
+into one differentiable op and picks the kernels by the operands' dtype.
+The TPU's routing gate (``_pallas_pays``), its VMEM gates and the dy-row
+pre-slicing of its backward are not ported: every level takes these
+kernels.
 
 The three are tiled for Hopper, and their launch plans are computed here
 so that CPU tests can check them: a CUDA block owns one image row and a
@@ -365,10 +370,17 @@ def fwd_plan(batch: int, channels: int, height: int, width: int,
     return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride))
 
 
-def _check(feats, other, max_displacement, stride, grad_out=None):
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(feats, other, max_displacement, stride, grad_out=None, dtype=None):
     """Raise unless the kernels take these: two feature maps [B,C,H,W] of
     one shape, ``grad_out`` [B,n^2,H,W] or None, an int md >= 0 and an int
-    stride >= 1; all float32, contiguous, on one CUDA device."""
+    stride >= 1; all float32 or all bfloat16 (``dtype`` where given),
+    contiguous, on one CUDA device."""
+    dtype = feats.dtype if dtype is None else dtype
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the correlation kernels take float32 or bfloat16, got {dtype}")
     if not (isinstance(max_displacement, int) and max_displacement >= 0):
         raise ValueError(f"max_displacement must be an int >= 0, got {max_displacement!r}")
     if not (isinstance(stride, int) and stride >= 1):
@@ -385,20 +397,21 @@ def _check(feats, other, max_displacement, stride, grad_out=None):
                              f"got {tuple(grad_out.shape)}")
         tensors.append(("grad_out", grad_out))
     for name, t in tensors:
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must be on one CUDA device, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 class _CorrEntry:
-    """One C entry of ``correlation.cu``, built at first use. ``launches``
-    counts the launches this wrapper made."""
+    """One C entry of ``correlation.cu`` for operands of ``dtype``, built
+    at first use. ``launches`` counts the launches this wrapper made."""
 
-    def __init__(self, name: str, entry: str, n_launch_ints: int):
+    def __init__(self, name: str, entry: str, n_launch_ints: int, dtype: torch.dtype):
         self.name = name
+        self.dtype = dtype
         self.launches = 0
         self.build_log = ""
         self._entry = entry
@@ -434,17 +447,17 @@ class _CorrEntry:
 
 
 class CorrKernel(_CorrEntry):
-    """Launches K2, tiled by :func:`fwd_plan`."""
+    """Launches K2 (its float32 or bfloat16 entry), tiled by :func:`fwd_plan`."""
 
-    def __init__(self):
-        super().__init__("K2", "xpt_corr_fwd", len(FWD_LAUNCH_KEYS))
+    def __init__(self, name: str, entry: str, dtype: torch.dtype):
+        super().__init__(name, entry, len(FWD_LAUNCH_KEYS), dtype)
 
     def __call__(self, cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
                  stride: int) -> torch.Tensor:
-        """:param cl, cr: [B,C,H,W] float32, contiguous, on one CUDA device.
-        :return: [B,n^2,H,W]. Differentiable calls go through
+        """:param cl, cr: [B,C,H,W] in the kernel's dtype, contiguous, on one
+        CUDA device. :return: [B,n^2,H,W]. Differentiable calls go through
         :class:`Correlation`."""
-        _check(cl, cr, max_displacement, stride)
+        _check(cl, cr, max_displacement, stride, dtype=self.dtype)
         if torch.is_grad_enabled() and (cl.requires_grad or cr.requires_grad):
             raise ValueError("K2 called directly drops the gradient: use "
                              "Correlation.apply (ops.correlation.correlation_cost)")
@@ -466,10 +479,10 @@ class CorrKernel(_CorrEntry):
 class CorrGradKernel(_CorrEntry):
     """Launches K3 (the gradient of the left features, from the right
     ones) or K4 (the gradient of the right features, from the left ones),
-    both tiled by :func:`bwd_plan`."""
+    both tiled by :func:`bwd_plan`, for operands of ``dtype``."""
 
-    def __init__(self, name: str, entry: str):
-        super().__init__(name, entry, len(BWD_LAUNCH_KEYS))
+    def __init__(self, name: str, entry: str, dtype: torch.dtype):
+        super().__init__(name, entry, len(BWD_LAUNCH_KEYS), dtype)
 
     def __call__(self, grad_out: torch.Tensor, feats: torch.Tensor,
                  max_displacement: int, stride: int) -> torch.Tensor:
@@ -477,7 +490,7 @@ class CorrGradKernel(_CorrEntry):
         :param feats: [B,C,H,W], cr for K3, cl for K4. :return: dcl (K3) or
         dcr (K4), [B,C,H,W]."""
         grad_out = grad_out.contiguous()
-        _check(feats, feats, max_displacement, stride, grad_out)
+        _check(feats, feats, max_displacement, stride, grad_out, dtype=self.dtype)
         if feats.numel() == 0:
             return torch.empty_like(feats)
         num_sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
@@ -493,28 +506,46 @@ class CorrGradKernel(_CorrEntry):
                             launch)
 
 
-K2 = CorrKernel()
-K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl")
-K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr")
+K2 = CorrKernel("K2", "xpt_corr_fwd", torch.float32)
+K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl", torch.float32)
+K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr", torch.float32)
+K2_BF16 = CorrKernel("K2-bf16", "xpt_corr_fwd_bf16", torch.bfloat16)
+K3_BF16 = CorrGradKernel("K3-bf16", "xpt_corr_bwd_cl_bf16", torch.bfloat16)
+K4_BF16 = CorrGradKernel("K4-bf16", "xpt_corr_bwd_cr_bf16", torch.bfloat16)
+
+
+def kernels_for(dtype: torch.dtype) -> tuple:
+    """(K2, K3, K4) for operands of ``dtype`` (looked up at each call)."""
+    if dtype == torch.float32:
+        return K2, K3, K4
+    if dtype == torch.bfloat16:
+        return K2_BF16, K3_BF16, K4_BF16
+    raise ValueError(f"the correlation kernels take float32 or bfloat16, got {dtype}")
 
 
 class Correlation(torch.autograd.Function):
     """K2 forward; K3 and K4 backward, each only for an input that needs
-    its gradient."""
+    its gradient: the float32 kernels on float32 operands, the bfloat16
+    ones on bfloat16 operands; other or mixed dtypes raise."""
 
     @staticmethod
     def forward(ctx, cl, cr, max_displacement, stride):
+        if cr.dtype != cl.dtype:
+            raise ValueError(f"the correlation kernels take two feature maps of one dtype, "
+                             f"got {cl.dtype} and {cr.dtype}")
+        k2 = kernels_for(cl.dtype)[0]
         ctx.save_for_backward(cl, cr)
         ctx.md_stride = (max_displacement, stride)
-        return K2(cl, cr, max_displacement, stride)
+        return k2(cl, cr, max_displacement, stride)
 
     @staticmethod
     def backward(ctx, grad_out):
         cl, cr = ctx.saved_tensors
         md, stride = ctx.md_stride
+        _, k3, k4 = kernels_for(cl.dtype)
         dcl = dcr = None
         if ctx.needs_input_grad[0]:
-            dcl = K3(grad_out, cr, md, stride)
+            dcl = k3(grad_out, cr, md, stride)
         if ctx.needs_input_grad[1]:
-            dcr = K4(grad_out, cl, md, stride)
+            dcr = k4(grad_out, cl, md, stride)
         return dcl, dcr, None, None

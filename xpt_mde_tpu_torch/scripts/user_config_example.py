@@ -1,7 +1,9 @@
 """User configuration template: copy to ``user_config.py`` beside this
 file, set the paths and pick a plan. The entry scripts take no flags.
 
-The port runs float32 only (``compute_dtype``) and reads shards that the
+The nets compute in ``compute_dtype``: ``"bfloat16"`` by default, as in
+the JAX package, or ``"float32"`` for parity checks. The port reads shards
+that the
 JAX package's ``scripts/create_shards_main.py`` (or the port's
 ``ShardWriter``) wrote under ``{datapath}/shards/{dataset}_{split}``.
 Stereo datasets (``kitti_raw``, ``kitti_odom``, ``cityscapes``,

@@ -3,7 +3,7 @@
 Usage, from the repository root on a machine with a CUDA card:
 
     python -m xpt_mde_tpu_torch.tools.profile_steps [--steps NAMES] [--cudnn-benchmark]
-                                                    [--out FILE]
+                                                    [--dtype float32|bfloat16] [--out FILE]
 
 ``--steps`` is a comma-separated subset of ``predict,eval,train`` (the
 rigid stage: EfficientNetB5 + PoseNetImproved with the loss of
@@ -18,14 +18,18 @@ augmentation) and ``stereo-joint-train`` (the three nets on stereo
 snippets under ``LOSS_RIGID_COMB``, the flownet frozen, no
 augmentation); all eight by default. Every step runs at batch 8,
 128x512, seeded random weights, with Adam at 1e-4 and uint8-coded
-batches for the train steps. For each step:
+batches for the train steps, in the compute dtype of ``--dtype``
+(``float32``, the parity mode and the default here, or ``bfloat16``, the
+default of ``Config``). For each step:
 
 - times 5 steps on the host clock around ``torch.cuda.synchronize()``,
   without the profiler (wall ms/step);
 - traces 5 more under ``torch.profiler`` and reports, per step, the
   device busy time (the union of the kernels' intervals), the number of
-  kernels, the idle share ``1 - busy / wall`` against both walls, and the
-  20 operators and kernels by self device time.
+  kernels, the idle share ``1 - busy / wall`` against both walls, the 20
+  operators and kernels by self device time, and the convolution kernels
+  (cuDNN's, with its layout transforms, its FFT path's and the GEMMs) by
+  device time, with the FFT path's share of the device time.
 
 The first line of the output names the card and its power limit
 (``nvidia-smi``) and whether cuDNN picks its convolution algorithms by
@@ -36,6 +40,7 @@ timing them at first use. ``--out`` also writes the report to a file.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +62,14 @@ STEP_NAMES = ("predict", "eval", "train", "flow-predict", "flow-train", "joint-t
 BATCH, HEIGHT, WIDTH = 8, 128, 512
 STEPS = 5  # timed steps, and as many profiled
 TOP = 20  # operators and kernels listed per step
+TOP_CONV = 8  # convolution kernels listed per step
+# kernel names of cuDNN's convolutions: its FFT path, implicit GEMMs and
+# the Hopper/Ampere tensor-core kernels, and the weight/data gradients;
+# cuDNN's batch-norm kernels (``bn_...``) are not convolutions
+CONV_KERNEL = re.compile(r"fft|conv|cudnn|implicit|xmma|sm90_|sm80_|wgrad|dgrad|gemm",
+                         re.IGNORECASE)
+NOT_CONV_KERNEL = re.compile(r"\bbn_|::bn_|batch_?norm", re.IGNORECASE)
+FFT_KERNEL = re.compile(r"fft", re.IGNORECASE)
 
 
 def _device_line() -> str:
@@ -105,11 +118,33 @@ def profile_step(label: str, step, batches) -> list[str]:
     for avg in averages[:TOP]:
         lines.append(f"  {avg.self_device_time_total / 1000 / STEPS:9.4f} ms/step "
                      f"{avg.count / STEPS:7.0f}/step  {avg.key[:110]}")
+    lines += conv_kernel_lines(kernels, busy)
     return lines
 
 
-def _build_steps(names, batches):
-    """{name: (label, step)} for the requested step names."""
+def conv_kernel_lines(kernels, busy_ms: float) -> list[str]:
+    """The convolution kernels by device time per step, and the FFT
+    path's share of the device busy time. ``kernels``: profiler events
+    with ``name`` and ``time_range`` (µs)."""
+    totals: dict[str, list] = {}
+    for event in kernels:
+        if CONV_KERNEL.search(event.name) and not NOT_CONV_KERNEL.search(event.name):
+            entry = totals.setdefault(event.name, [0.0, 0])
+            entry[0] += event.time_range.end - event.time_range.start
+            entry[1] += 1
+    conv_ms = sum(t for t, _ in totals.values()) / 1000 / STEPS
+    fft_ms = sum(t for name, (t, _) in totals.items() if FFT_KERNEL.search(name)) / 1000 / STEPS
+    lines = [f"  convolution kernels {conv_ms:.3f} ms/step, of it FFT path {fft_ms:.3f} ms/step "
+             f"({fft_ms / busy_ms if busy_ms else 0.0:.3f} of the device busy time); the top:"]
+    for name, (total, count) in sorted(totals.items(), key=lambda kv: -kv[1][0])[:TOP_CONV]:
+        lines.append(f"    {total / 1000 / STEPS:9.4f} ms/step {count / STEPS:7.0f}/step  "
+                     f"{name[:110]}")
+    return lines
+
+
+def _build_steps(names, batches, dtype: str = "float32"):
+    """{name: (label, step)} for the requested step names, the nets
+    computing in ``dtype``."""
     from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, FLOW_NET, JOINT_NET,
                                           LOSS_RIGID_COMB, RIGID_NET, SCALE_WEIGHT_T1)
     from xpt_mde_tpu_torch.losses import loss_factory
@@ -122,7 +157,8 @@ def _build_steps(names, batches):
     device = batches[0]["image5d"].device
     steps = {}
     if {"predict", "eval", "train"} & set(names):
-        model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
+        model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0,
+                             compute_dtype=dtype).get_model()
         total_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
                                   batch_size=BATCH)
         label = f"{RIGID_NET['depth']} + {RIGID_NET['camera']}"
@@ -134,7 +170,8 @@ def _build_steps(names, batches):
         generator = torch.Generator().manual_seed(0)
         steps["train"] = (label, lambda features: train_step(features, generator))
     if {"flow-predict", "flow-train"} & set(names):
-        model = ModelFactory(keys, FLOW_NET, stereo=False, device=device, seed=0).get_model()
+        model = ModelFactory(keys, FLOW_NET, stereo=False, device=device, seed=0,
+                             compute_dtype=dtype).get_model()
         flow_loss = loss_factory(keys, FLOW_RECIPE, SCALE_WEIGHT_T1, stereo=False,
                                  batch_size=BATCH)
         steps["flow-predict"] = ("PWCNet", make_predict_step(model))
@@ -142,7 +179,8 @@ def _build_steps(names, batches):
             model, flow_loss, optimizer_factory("adam_constant", 1e-4, model),
             regularize_net="flownet"))
     if "joint-train" in names:
-        model = ModelFactory(keys, JOINT_NET, stereo=False, device=device, seed=0).get_model()
+        model = ModelFactory(keys, JOINT_NET, stereo=False, device=device, seed=0,
+                             compute_dtype=dtype).get_model()
         joint_loss = loss_factory(keys, JOINT_RECIPE, SCALE_WEIGHT_T1, stereo=False,
                                   batch_size=BATCH)
         steps["joint-train"] = ("B5 + PoseNetImproved + PWCNet, flownet frozen", make_train_step(
@@ -150,7 +188,8 @@ def _build_steps(names, batches):
             optimizer_factory("adam_constant", 1e-4, model, frozen_nets=["flownet"]),
             frozen_nets=["flownet"]))
     if "stereo-train" in names:
-        model = ModelFactory(STEREO_KEYS, RIGID_NET, device=device, seed=0).get_model()
+        model = ModelFactory(STEREO_KEYS, RIGID_NET, device=device, seed=0,
+                             compute_dtype=dtype).get_model()
         stereo_loss = loss_factory(STEREO_KEYS, STEREO_RECIPE, SCALE_WEIGHT_T1,
                                    batch_size=BATCH)
         stereo_train = make_train_step(model, stereo_loss,
@@ -160,7 +199,8 @@ def _build_steps(names, batches):
         steps["stereo-train"] = (f"{RIGID_NET['depth']} + {RIGID_NET['camera']}, MS recipe",
                                  lambda features: stereo_train(features, stereo_generator))
     if "stereo-joint-train" in names:
-        model = ModelFactory(STEREO_KEYS, JOINT_NET, device=device, seed=0).get_model()
+        model = ModelFactory(STEREO_KEYS, JOINT_NET, device=device, seed=0,
+                             compute_dtype=dtype).get_model()
         comb_loss = loss_factory(STEREO_KEYS, LOSS_RIGID_COMB, SCALE_WEIGHT_T1,
                                  batch_size=BATCH)
         steps["stereo-joint-train"] = (
@@ -183,6 +223,8 @@ def main(argv=None) -> int:
                         help=f"comma-separated subset of {','.join(STEP_NAMES)}")
     parser.add_argument("--cudnn-benchmark", action="store_true",
                         help="let cuDNN time its convolution algorithms at first use")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                        help="the nets' compute dtype (Config.compute_dtype)")
     parser.add_argument("--out", default=None, help="also write the report here")
     args = parser.parse_args(argv)
     names = [n for n in args.steps.split(",") if n]
@@ -204,10 +246,11 @@ def main(argv=None) -> int:
                       for b in dataset]
     mono_keys = ("image5d", "intrinsic", "depth_gt", "pose_gt")
     batches = [{k: b[k] for k in mono_keys} for b in stereo_batches]
-    report = [f"{_device_line()}; batch {BATCH}, {HEIGHT}x{WIDTH}, float32 (TF32 off), "
+    report = [f"{_device_line()}; batch {BATCH}, {HEIGHT}x{WIDTH}, compute {args.dtype} "
+              f"(TF32 off), "
               f"{STEPS} steps, cuDNN algorithms by "
               f"{'timing (benchmark)' if args.cudnn_benchmark else 'heuristics'}"]
-    for name, (label, step) in _build_steps(names, batches).items():
+    for name, (label, step) in _build_steps(names, batches, args.dtype).items():
         step_batches = stereo_batches if name.startswith("stereo") else batches
         if name.endswith("train"):
             step_batches = [uint8_coded(b) for b in step_batches]

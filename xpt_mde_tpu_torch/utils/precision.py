@@ -8,6 +8,13 @@ the float32 parity with the JAX reference (which pins
 the steps run inside :func:`full_f32`, and code that calls the geometry
 or the convolutions directly enters it itself. :func:`at_least_f32` keeps
 depth, pose and resampling in float32 or wider.
+
+:func:`compute_dtype` maps ``Config.compute_dtype`` to the dtype the nets
+compute in. In ``"bfloat16"`` (the default, as in the JAX package) each
+conv casts its input, weight and bias to bfloat16 at call time while the
+parameters stay float32, BatchNorm takes its statistics and normalizes
+in float32, and the heads return float32 depth, pose and flow; TF32 stays
+off either way, so the float32 math around the nets is exact float32.
 """
 
 from __future__ import annotations
@@ -15,6 +22,17 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` setting: ``"float32"`` or
+    ``"bfloat16"``; anything else raises ``ValueError``."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
