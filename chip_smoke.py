@@ -14,17 +14,22 @@ Usage, from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--earlier DIR]
 
 ``--earlier DIR`` names a checkout of an earlier commit (for example a
-``git archive`` of it under ``build/``): its phases 2 and 8 run first, in
-a subprocess on the same card, and their per-step kernel times become
-``earlier_ms`` in the kernels line (else ``earlier_ms`` is null).
+``git archive`` of it under ``build/``): its phases 2 and 8 (and 21,
+where its ``_corr_phase`` takes a dtype) run first, in a subprocess on
+the same card, and their per-step kernel times become ``earlier_ms`` in
+the kernels line (else ``earlier_ms`` is null); the kernels this tree
+did not change (the float32 K2, K3 and K4, the bfloat16 K3) must give
+that checkout's bits on the same seeded inputs
+(``unchanged_kernel_outputs``).
 
 It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) and
 K2, K3 and K4 in float32 and bfloat16 (``xpt_mde_tpu_torch/csrc/
 correlation.cu``) with ``nvcc``, one compiler per source started
 together, and prints one line per phase:
 
-1. the device (name, count, power limit) and the kernels' register/spill
-   report;
+1. the device (name, count, power limit), the kernels' register/spill
+   report, and the SASS of the tensor-core kernels (``HMMA`` in K2-bf16
+   and K4-bf16, from ``cuobjdump``; skipped, and said so, without it);
 2. K1 and K1-bwd against their plain PyTorch versions at the four
    headline scales (8 x 4 sources x {128x512, 64x256, 32x128, 16x64} x 3),
    on coordinates reprojected from synthetic depth and pose plus a band of
@@ -117,8 +122,10 @@ together, and prints one line per phase:
     bfloat16 inputs at the five PWC levels (and K3, K4 against the plain
     autograd), within one bfloat16 ulp plus BF16_CORR_ATOL of the largest
     value, and at the card tests' edge shapes (CORR_EDGE_SHAPES) on
-    aligned and offset inputs; their times per level and per flow step
-    beside the float32 kernels' of phase 8;
+    aligned (TMA-staged where W % 8 == 0) and offset inputs (staged by
+    the kernels' threads), bit-equal; their times per level beside the
+    float32 kernel's of phase 8 and the bfloat16 bound, and per flow
+    step;
 22. the bfloat16 steps at full width: rigid predict, rigid train, flow
     train, joint train and stereo train (MS), each with its launches per
     step checked (the bfloat16 correlation kernels, never the float32
@@ -295,17 +302,29 @@ BF16_CORR_ATOL = 1e-6
 # the vector paths
 CORR_EDGE_SHAPES = [((1, 5, 5, 7), 4, 3), ((2, 8, 3, 130), 0, 1), ((1, 13, 3, 4), 4, 1),
                     ((2, 20, 6, 24), 6, 2), ((1, 12, 6, 20), 8, 1), ((2, 16, 5, 34), 8, 4),
-                    ((2, 300, 4, 40), 4, 1), ((1, 300, 4, 128), 4, 1), ((2, 24, 6, 40), 8, 4)]
+                    ((2, 300, 4, 40), 4, 1), ((1, 300, 4, 128), 4, 1), ((2, 24, 6, 40), 8, 4),
+                    # the tensor-core tiles' edges (K2-bf16, K4-bf16): n = 5 with
+                    # TMA, n = 17 with TMA and W below one 16-pixel class tile,
+                    # 4 classes of 24 pixels at n = 7 (C % 16 != 0 in each)
+                    ((2, 20, 4, 40), 2, 1), ((1, 24, 5, 8), 8, 1), ((2, 36, 6, 96), 12, 4)]
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
-# device memory and for float32 outside the tensor cores
+# device memory, for float32 outside the tensor cores, and for bfloat16
+# operands on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # the kernels redesigned after their first port, and in which pull request
 REDESIGNED = {"K1": "PR 4", "K3": "PR 4", "K2": "PR 5", "K4": "PR 5"}
-# run in an earlier checkout: its phases 2 and 8, then each kernel's
-# device ms per train step as one JSON line
+# the bfloat16 kernels redesigned for the tensor cores (their CUDA kernels'
+# names, for the SASS check), and their design
+TENSOR_CORE_KERNELS = {"K2-bf16": "corr_fwd_bf16_kernel", "K4-bf16": "corr_bwd_cr_bf16_kernel"}
+TENSOR_CORE_DESIGN = "mma.sync band products on bfloat16 shared memory, TMA staging"
+# run in an earlier checkout: its phases 2 and 8
+# (and 21 where its _corr_phase takes a dtype), then each kernel's device
+# ms per train step as one JSON line; argv: the tag, this file, and where to
+# save unchanged_kernel_outputs of the checkout's kernels
 EARLIER_PHASES = """
-import json, sys
+import importlib.util, inspect, json, sys
 import numpy as np, torch
 import chip_smoke as cs
 from xpt_mde_tpu_torch.data import SyntheticDataset
@@ -316,6 +335,13 @@ with full_f32():
     device = torch.device("cuda", 0)
     stats = cs._warp_phase(batches, device, np.random.RandomState(0), sys.argv[1])
     stats.update(cs._corr_phase(device, sys.argv[1]))
+    if "dtype" in inspect.signature(cs._corr_phase).parameters:
+        bf16 = cs._corr_phase(device, sys.argv[1], torch.bfloat16)
+        stats.update({name + "-bf16": s for name, s in bf16.items()})
+    spec = importlib.util.spec_from_file_location("chip_smoke_now", sys.argv[2])
+    now = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(now)
+    torch.save(now.unchanged_kernel_outputs(device), sys.argv[3])
 print("EARLIER " + json.dumps({name: s["ms"] for name, s in stats.items()}), flush=True)
 """
 
@@ -363,31 +389,103 @@ def _graph_ms(fn, iters: int = 20) -> float:
     return _event_ms(graph.replay, iters=5, warmup=1) / iters
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float, bf16: bool = False) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time for moving ``nbytes``
-    once and doing ``flops`` float32 operations on one H100."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    once and doing ``flops`` operations on one H100: float32 operations at
+    the float32 rate, or (``bf16``) products of bfloat16 operands at the
+    bfloat16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
     return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _earlier_kernels(checkout: str, tag: str) -> dict:
-    """Phases 2 and 8 of the checkout ``checkout`` on this card, in a
+def unchanged_kernel_outputs(device) -> dict:
+    """The outputs of the float32 K2, K3 and K4 and the bfloat16 K3 (the
+    correlation kernels whose code the tensor-core redesign left as it
+    was) at the five PWC levels on seeded inputs (8 pairs), on the CPU.
+    Imports the package at call time, so an earlier checkout's kernels
+    answer when its package is the one on the path."""
+    import torch
+
+    from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+    from xpt_mde_tpu_torch.ops.kernels import correlation as kc
+
+    outputs = {}
+    for level in (6, 5, 4, 3, 2):
+        md, stride = level_displacement(level)
+        shape = (8, ENCODER_CHANNELS[level - 1], HEIGHT >> level, WIDTH >> level)
+        n2 = (2 * md // stride + 1) ** 2
+        generator = torch.Generator().manual_seed(100 + level)
+        cl, cr = ((torch.rand(shape, generator=generator) * 2 - 1) for _ in range(2))
+        g = torch.rand((shape[0], n2) + shape[2:], generator=generator) * 2 - 1
+        cl, cr, g = (t.to(device) for t in (cl, cr, g))
+        outputs[f"K2 L{level}"] = kc.K2(cl, cr, md, stride)
+        outputs[f"K3 L{level}"] = kc.K3(g, cr, md, stride)
+        outputs[f"K4 L{level}"] = kc.K4(g, cl, md, stride)
+        outputs[f"K3-bf16 L{level}"] = kc.K3_BF16(*(t.to(torch.bfloat16) for t in (g, cr)), md,
+                                                 stride)
+    torch.cuda.synchronize()
+    return {name: out.cpu() for name, out in outputs.items()}
+
+
+def _earlier_kernels(checkout: str, tag: str, device) -> dict:
+    """Phases 2, 8 and 21 of the checkout ``checkout`` on this card, in a
     subprocess (its package has this one's name): each kernel's device ms
     per train step. Its timing lines are echoed with the prefix
-    ``earlier``."""
+    ``earlier``. Raises unless the unchanged kernels give its bits."""
+    import torch
+
     env = dict(os.environ, PYTHONPATH=os.path.abspath(checkout))
-    proc = subprocess.run([sys.executable, "-c", EARLIER_PHASES, tag], cwd=checkout, env=env,
-                          capture_output=True, text=True, timeout=900)
-    result = None
-    for line in proc.stdout.splitlines():
-        if line.startswith("EARLIER "):
-            result = json.loads(line[len("EARLIER "):])
-        else:
-            print(f"earlier {line}", flush=True)
-    if proc.returncode != 0 or result is None:
-        raise RuntimeError(f"the earlier checkout's phases failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as tmp:
+        saved = os.path.join(tmp, "unchanged.pt")
+        proc = subprocess.run([sys.executable, "-c", EARLIER_PHASES, tag,
+                               os.path.abspath(__file__), saved], cwd=checkout, env=env,
+                              capture_output=True, text=True, timeout=900)
+        result = None
+        for line in proc.stdout.splitlines():
+            if line.startswith("EARLIER "):
+                result = json.loads(line[len("EARLIER "):])
+            else:
+                print(f"earlier {line}", flush=True)
+        if proc.returncode != 0 or result is None:
+            raise RuntimeError(f"the earlier checkout's phases failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        theirs = torch.load(saved)
+    ours = unchanged_kernel_outputs(device)
+    differ = [name for name in ours if not torch.equal(ours[name], theirs[name])]
+    if differ or set(ours) != set(theirs):
+        raise AssertionError(f"unchanged kernels differ from the earlier checkout's: {differ}")
+    print(f"phase 1 unchanged kernels: the float32 K2, K3, K4 and the bfloat16 K3 at the 5 "
+          f"levels ({len(ours)} outputs) bit-equal to the earlier checkout's", flush=True)
     return result
+
+
+def _sass_check(library: str) -> str:
+    """``HMMA`` (tensor-core) instructions in the SASS of K2-bf16 and
+    K4-bf16 in ``library``, from ``cuobjdump --dump-sass``; raises where
+    either has none. Returns a summary, or says that the check was
+    skipped where the toolkit has no ``cuobjdump``."""
+    import shutil
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return "skipped: no cuobjdump in the toolkit"
+    proc = subprocess.run([tool, "--dump-sass", library], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {proc.stderr[-2000:]}")
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            current = next((k for k in TENSOR_CORE_KERNELS.values() if k in line), None)
+            if current:
+                counts.setdefault(current, 0)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    missing = [k for k in TENSOR_CORE_KERNELS.values() if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"no HMMA in the SASS of {missing}: {counts}")
+    return ", ".join(f"{k} {v} HMMA" for k, v in counts.items())
 
 
 def _warp_case(batch, scale, device, rng, cross=False):
@@ -1031,13 +1129,15 @@ def bf16_ulp_excess(got, ref) -> tuple[float, float]:
     return float(diff.max()), float((diff / bound).max())
 
 
-def _corr_phase(device, tag, dtype=None):
+def _corr_phase(device, tag, dtype=None, f32=None):
     """Phase 8 (float32, the default) or 21 (``dtype`` bfloat16): K2, K3
     and K4 of that dtype against their plain versions at the five PWC-Net
     levels of the flow stage (float32 within CORR_RTOL of the largest plain
     value; bfloat16 within one ulp, ``bf16_ulp_excess``), and their times
-    beside the plain versions' and the bounds. Returns per-kernel sums over
-    the levels (one train step's launches)."""
+    beside the plain versions' and the bounds (and, given ``f32``, phase
+    8's stats, beside the float32 kernels' per level). Returns per-kernel
+    sums over the levels (one train step's launches) and each level's
+    ms."""
     import torch
 
     from xpt_mde_tpu_torch.config import NUM_SRC
@@ -1052,7 +1152,7 @@ def _corr_phase(device, tag, dtype=None):
     bf16 = dtype == torch.bfloat16
     K2, K3, K4 = kernels_for(dtype)
     keys = ("err", "ulps", "ms", "plain_ms", "bound_ms", "bytes", "flops")
-    stats = {name: dict.fromkeys(keys, 0.0) for name in ("K2", "K3", "K4")}
+    stats = {name: dict.fromkeys(keys, 0.0) | {"levels": {}} for name in ("K2", "K3", "K4")}
     notes = []
     generator = torch.Generator().manual_seed(2)
     pairs = BATCH * NUM_SRC
@@ -1112,11 +1212,14 @@ def _corr_phase(device, tag, dtype=None):
         line = []
         for name, (kernel, plain) in runs.items():
             t_k, t_p = _graph_ms(kernel), _graph_ms(plain)
-            bound_ms, bound_by = _bound(*work[name])
+            bound_ms, bound_by = _bound(*work[name], bf16=bf16)
             for key, value in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound_ms),
                                ("bytes", work[name][0]), ("flops", work[name][1])):
                 stats[name][key] += value
-            line.append(f"{name}{'-bf16' if bf16 else ''} {t_k:.4f} ms (plain {t_p:.4f}, "
+            stats[name]["levels"][level] = t_k
+            beside = (f"float32 {f32[name]['levels'][level]:.4f}, "
+                      if f32 is not None else "")
+            line.append(f"{name}{'-bf16' if bf16 else ''} {t_k:.4f} ms ({beside}plain {t_p:.4f}, "
                         f"bound {bound_ms:.4f} by {bound_by})")
         print(f"timing L{level} [{pairs},{chans},{h},{w}] {dtype} md {md} stride {stride} n^2 "
               f"{n2}: device (graph replay) {'; '.join(line)} {tag}", flush=True)
@@ -1126,8 +1229,9 @@ def _corr_phase(device, tag, dtype=None):
               f"{stats['K2']['err']:.3g}, K3 {stats['K3']['err']:.3g}, K4 "
               f"{stats['K4']['err']:.3g}, each within 1 bfloat16 ulp of the plain value + "
               f"{BF16_CORR_ATOL} x max |plain| (K3, K4 also vs the plain cost volume's "
-              f"autograd; {'; '.join(notes)}); edge shapes, aligned and offset by one value "
-              f"(the same bits): {edge}", flush=True)
+              f"autograd; {'; '.join(notes)}); edge shapes, aligned (TMA-staged where W % 8 "
+              f"== 0) and offset by one value (staged by the threads; the same bits): {edge}",
+              flush=True)
         return stats
     print(f"phase 8 correlation kernels vs plain: max abs err K2 {stats['K2']['err']:.3g}, "
           f"K3 {stats['K3']['err']:.3g}, K4 {stats['K4']['err']:.3g}, each <= {CORR_RTOL} x "
@@ -1433,11 +1537,14 @@ def main(argv=()) -> int:
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 (float32 and bfloat16) built in "
                   f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
+            phase = "SASS check"
+            print(f"phase 1 SASS of the tensor-core kernels: "
+                  f"{_sass_check(K2.library_path)}", flush=True)
 
             earlier = {}
             if args.earlier:
                 phase = "earlier kernels"
-                earlier = _earlier_kernels(args.earlier, tag)
+                earlier = _earlier_kernels(args.earlier, tag, device)
                 print(f"phase 1 earlier kernels ({args.earlier}), device ms per train step: "
                       f"{json.dumps(earlier)} {tag}", flush=True)
 
@@ -1872,11 +1979,13 @@ def main(argv=()) -> int:
 
             # 21. the bfloat16 correlation kernels against their plain versions
             phase = "bf16 correlation kernels vs plain"
-            cstats16 = _corr_phase(device, tag, torch.bfloat16)
+            cstats16 = _corr_phase(device, tag, torch.bfloat16, cstats)
             print("timing bf16 vs float32 correlation kernels, device ms per flow train step "
                   "(5 levels, graph replay, this call): " + "; ".join(
-                      f"{k}-bf16 {cstats16[k]['ms']:.4f} (float32 {cstats[k]['ms']:.4f}), "
-                      f"bound {cstats16[k]['bound_ms']:.4f} (float32 "
+                      f"{k}-bf16 {cstats16[k]['ms']:.4f} (float32 {cstats[k]['ms']:.4f}"
+                      + (f", earlier checkout {earlier[k + '-bf16']:.4f}"
+                         if k + "-bf16" in earlier else "")
+                      + f"), bound {cstats16[k]['bound_ms']:.4f} (float32 "
                       f"{cstats[k]['bound_ms']:.4f}), plain {cstats16[k]['plain_ms']:.4f}"
                       for k in ("K2", "K3", "K4")) + f" {tag}", flush=True)
 
@@ -1973,18 +2082,20 @@ def main(argv=()) -> int:
                                      ("K3", "K3-bf16 corr_bwd_cl_bf16"),
                                      ("K4", "K4-bf16 corr_bwd_cr_bf16")):
                 s = cstats16[kname]
+                bname = f"{kname}-bf16"
                 report.append({
-                    "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
+                    "name": full_name, "route": "cuda", "source": bf16_kernels[bname].source,
                     "replaces": corr_kernels.REPLACES[kname],
-                    "launches": bf16_plan_counts[f"{kname}-bf16"],
-                    "launches_by_path": {path: c.get(f"{kname}-bf16", 0)
+                    "launches": bf16_plan_counts[bname],
+                    "launches_by_path": {path: c.get(bname, 0)
                                          for path, c in bf16_paths.items()},
                     "max_abs_err": s["err"], "max_err_of_bound": s["ulps"], "ms": s["ms"],
                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                    "bound_by": _bound(s["bytes"], s["flops"])[1],
+                    "bound_by": _bound(s["bytes"], s["flops"], bf16=True)[1],
                     "library_ms": None,
                     "library": "none: no single PyTorch call computes the cost volume",
-                    "float32_ms": cstats[kname]["ms"]})
+                    "float32_ms": cstats[kname]["ms"], "earlier_ms": earlier.get(bname)}
+                    | ({"design": TENSOR_CORE_DESIGN} if bname in TENSOR_CORE_KERNELS else {}))
             print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result

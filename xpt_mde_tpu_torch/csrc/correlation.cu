@@ -23,8 +23,11 @@
 // (B=32, C=32, 32x128, n^2=81) must read 33.5 MB and write 42.5 MB, ~23 us at
 // 3.35 TB/s, against 2 * C * n^2 flops per pixel, 0.68 GFLOP or ~10 us at
 // the 67 TFLOP/s float32 rate; K3 and K4 read g (42.5 MB) and one feature map
-// and write the other. No tensor cores: wgmma takes no float32, and TF32
-// would break the 1e-5 tolerance; the work is FFMA fed from shared memory.
+// and write the other. No tensor cores for float32 operands: wgmma takes no
+// float32, and TF32 would break the 1e-5 tolerance; the work is FFMA fed
+// from shared memory. (bfloat16 operands are another matter: their products
+// are exact in float32, and the bfloat16 K2 and K4 in correlation_bf16.cu
+// take them on the tensor cores.)
 // The TPU design (whole padded frames resident in VMEM, one dy row per grid
 // step with an f32 scratch carried across grid steps, XLA pre-slicing the dy
 // windows so Mosaic only takes static lane slices) existed for VMEM and the
@@ -97,22 +100,23 @@
 // bfloat16. The JAX package computes in bfloat16 by default, and then its
 // Pallas kernels take and give bfloat16: each operand read as float32,
 // products summed in a float32 accumulator, divided by C, rounded once to
-// bfloat16 (ops/pallas/correlation.py:76-150). Every kernel here is a
-// template on T, the element type of global memory (float or
-// __nv_bfloat16), with its own C entries (xpt_corr_*_bf16). Shared memory
-// and the register loops stay float32: a bfloat16 row is staged through
-// registers (8-byte loads of 4 values where the row allows, else one value)
-// and converted as it is stored, so the layouts, plans, bank skews and inner
-// loops are the float32 ones, and global memory moves half the bytes. (A
-// bfloat16 row cannot take cp.async as it is: a copy is 4, 8 or 16 bytes of
-// raw data, and the stride padding puts 2-byte values of rows at odd
-// offsets at strides 1-4.) The float32 instantiation is the code as it was:
-// the same plans, the same instructions, the same bits. Results are
-// rounded once with __float2bfloat16_rn: K2's sum divided by C, as K3's
-// and K4's are (the float32 K2 keeps its multiplication by 1/C).
+// bfloat16 (ops/pallas/correlation.py:76-150). K3's bfloat16 form is this
+// file's template on T, the element type of global memory (float or
+// __nv_bfloat16), with its own C entry (xpt_corr_bwd_cl_bf16): shared
+// memory and the register loops stay float32, a bfloat16 row is staged
+// through registers (8-byte loads of 4 values where the row allows, else
+// one value) and converted as it is stored, so the layouts, plans, bank
+// skews and inner loops are the float32 ones, and global memory moves half
+// the bytes. (A bfloat16 row cannot take cp.async as it is: a copy is 4, 8
+// or 16 bytes of raw data, and the stride padding puts 2-byte values of
+// rows at odd offsets at strides 1-4.) The float32 instantiations are the
+// code as it was: the same plans, the same instructions, the same bits.
+// The result is rounded once with __float2bfloat16_rn of the sum divided by
+// C. The bfloat16 K2 and K4 are kernels of their own (correlation_bf16.cu,
+// the same library): bfloat16 in shared memory by TMA, band products on
+// the tensor cores.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,16 +180,8 @@ __device__ __forceinline__ void stage_unit(float* dst, const __nv_bfloat16* src)
 __device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
 
-// four results at a 4-value boundary: one float4, or 8 bytes of bfloat16
+// four results at a 4-value boundary: one float4
 __device__ __forceinline__ void put4(float* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
-__device__ __forceinline__ void put4(__nv_bfloat16* dst, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
 
 // How the block's warps walk rows of up to `units` units: each warp takes
 // 32 / units rows per pass where rows are shorter than a warp. One division
@@ -266,7 +262,8 @@ __host__ __device__ inline FwdLayout fwd_layout(int tile_x, int n, int stride, i
 // rows_per_stage displacement rows per stage, in one buffer.
 // kVec: rows are staged 4 values at a time (stride, md and W multiples of
 // 4, cl and cr aligned to 4 values). kVecOut: outputs go out 4 at a time (W
-// a multiple of 4, out aligned to 4 values). T: float or __nv_bfloat16.
+// a multiple of 4, out aligned to 4 values). T: float (the bfloat16 K2 is
+// correlation_bf16.cu's).
 // At most 128 registers (two blocks of 256 threads, or four of 128, an SM):
 // uncapped, K2 took 158-160 and levels 2-3 lost their fourth block an SM.
 template <typename T, bool kVec, bool kVecOut>
@@ -341,18 +338,9 @@ corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
   // are one aligned float4, and 8 lanes read 128 contiguous bytes: the
   // partial sums are read as float4.
   const int group_stride = rows_per_stage * n * lay.part_pitch;
-  const float c_f = static_cast<float>(channels);
-  const float inv_c = 1.0f / c_f;
+  const float inv_c = 1.0f / static_cast<float>(channels);
   const bool part4 = (s & 3) == 0;
-  // from a channel sum: the float32 kernel multiplies by 1/C, the bfloat16
-  // one divides by C, as the Pallas kernel does
-  auto scale = [&](float v) {
-    if constexpr (std::is_same_v<T, float>) {
-      return v * inv_c;
-    } else {
-      return v / c_f;
-    }
-  };
+  auto scale = [&](float v) { return v * inv_c; };  // from a channel sum
   auto store = [&](int rows, auto plane, auto part) {
     const RowLanes rl = row_lanes(kVecOut ? x_hi / 4 : x_hi);
     if (!rl.on) return;
@@ -811,17 +799,6 @@ extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
                   chan_groups, skew, slot_skew, threads, smem_bytes, stream);
 }
 
-// xpt_corr_fwd on bfloat16 cl, cr and out: the same plan (the layout is
-// float32 in shared memory), a float32 sum, divided by C, rounded once.
-extern "C" int xpt_corr_fwd_bf16(const __nv_bfloat16* cl, const __nv_bfloat16* cr,
-                                 __nv_bfloat16* out, int batch, int channels, int height,
-                                 int width, int md, int stride, int tile_x, int rows_per_stage,
-                                 int chan_groups, int skew, int slot_skew, int threads,
-                                 int smem_bytes, void* stream) {
-  return corr_fwd(cl, cr, out, batch, channels, height, width, md, stride, tile_x, rows_per_stage,
-                  chan_groups, skew, slot_skew, threads, smem_bytes, stream);
-}
-
 // g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H,W]; writes
 // dcl [B,C,H,W]. The tiling comes from the wrapper's plan
 // (ops/kernels/correlation.py::bwd_plan): tile_x (a multiple of
@@ -855,8 +832,8 @@ extern "C" int xpt_corr_bwd_cr(const float* g, const float* cl, float* dcr,
                         stream);
 }
 
-// xpt_corr_bwd_cl and xpt_corr_bwd_cr on bfloat16 g, features and result:
-// the same plans, float32 sums, divided by C, rounded once.
+// xpt_corr_bwd_cl on bfloat16 g, cr and dcl: the same plan, a float32
+// sum, divided by C, rounded once.
 extern "C" int xpt_corr_bwd_cl_bf16(const __nv_bfloat16* g, const __nv_bfloat16* cr,
                                     __nv_bfloat16* dcl, int batch, int channels, int height,
                                     int width, int md, int stride, int tile_x, int chan_blocks,
@@ -865,14 +842,4 @@ extern "C" int xpt_corr_bwd_cl_bf16(const __nv_bfloat16* g, const __nv_bfloat16*
   return corr_bwd<__nv_bfloat16, false>(g, cr, dcl, batch, channels, height, width, md, stride,
                                         tile_x, chan_blocks, cb_skew, rows_per_stage, buffers,
                                         threads, smem_bytes, stream);
-}
-
-extern "C" int xpt_corr_bwd_cr_bf16(const __nv_bfloat16* g, const __nv_bfloat16* cl,
-                                    __nv_bfloat16* dcr, int batch, int channels, int height,
-                                    int width, int md, int stride, int tile_x, int chan_blocks,
-                                    int cb_skew, int rows_per_stage, int buffers, int threads,
-                                    int smem_bytes, void* stream) {
-  return corr_bwd<__nv_bfloat16, true>(g, cl, dcr, batch, channels, height, width, md, stride,
-                                       tile_x, chan_blocks, cb_skew, rows_per_stage, buffers,
-                                       threads, smem_bytes, stream);
 }

@@ -1,5 +1,6 @@
 """Kernels K2, K3 and K4: the PWC-Net correlation cost volume on the card
-and its two input gradients (``csrc/correlation.cu``).
+and its two input gradients (``csrc/correlation.cu`` and, for the
+bfloat16 K2 and K4, ``csrc/correlation_bf16.cu``; one library).
 
 Port of ``xpt_mde_tpu/ops/pallas/correlation.py``: K2 is the forward
 kernel, K3 and K4 the kernels of its custom VJP (dcl and dcr). All three
@@ -8,18 +9,18 @@ take and give NCHW tensors, float32 or bfloat16, and compute exactly
 autograd, up to the order of the float32 sums. Each dtype has its own C
 entries and wrappers (``K2`` and ``K2_BF16``, ...), each with its own
 launch count; the bfloat16 kernels read and write bfloat16 in global
-memory, sum in float32 and round once, with the float32 kernels' plans
-(shared memory holds float32 in both). :class:`Correlation` joins them
-into one differentiable op and picks the kernels by the operands' dtype.
-The TPU's routing gate (``_pallas_pays``), its VMEM gates and the dy-row
-pre-slicing of its backward are not ported: every level takes these
-kernels.
+memory, sum in float32, divide by C and round once. :class:`Correlation`
+joins them into one differentiable op and picks the kernels by the
+operands' dtype. The TPU's routing gate (``_pallas_pays``), its VMEM
+gates and the dy-row pre-slicing of its backward are not ported: every
+level takes these kernels.
 
-The three are tiled for Hopper, and their launch plans are computed here
-so that CPU tests can check them: a CUDA block owns one image row and a
-tile of up to 128 columns, stages the rows it needs into shared memory
-with ``cp.async``, and a thread owns 4 pixels one stride apart, so that
-each staged value feeds several FMAs from a register.
+The float32 kernels and the bfloat16 K3 are tiled for FFMA from float32
+shared memory: a CUDA block owns one image row and a tile of up to 128
+columns, stages the rows it needs into shared memory with ``cp.async``
+(the bfloat16 K3 through registers, converting), and a thread owns 4
+pixels one stride apart, so that each staged value feeds several FMAs
+from a register.
 
 - K2 (:func:`fwd_plan`): the block stages its cl tile once and, per
   stage, the cr rows y + dy_i of its in-frame displacement rows i with
@@ -34,6 +35,23 @@ each staged value feeds several FMAs from a register.
   n g rows of the row (for K4 each from its own column window x' - dx_j
   and in reversed order, so the two kernels share one inner loop); a
   thread owns 4 pixels times 8 channels.
+
+The bfloat16 K2 and K4 run on the tensor cores instead: the
+rows stay bfloat16 in shared memory, staged by TMA boxes whose zero fill
+is the frame's outside (by the block's threads into the same layout
+where TMA cannot take the shape), and the work is cut by residue class
+of x mod stride, where the channel and window sums are small band
+products (``mma.sync`` m16n8k16, float32 accumulators):
+
+- K2-bf16 (:func:`fwd_plan_bf16`): a warp owns 16 pixels of one class
+  and 9 displacements, a 16 x 24 product per 16 channels of which 9
+  diagonals are outputs; a block holds up to 4 in-frame displacement
+  rows, and the rows are split into groups over the grid so that it has
+  two blocks an SM.
+- K4-bf16 (:func:`bwd_cr_plan_bf16`): a warp owns 16 pixels of one class
+  and up to 64 channels, one m16n8k16 per 16 channels, 8 pixels and 16
+  window columns against a banded matrix built from the staged g rows;
+  the block's channels are a chunk, split over the grid.
 
 Each C entry recomputes its plan's layout and refuses a plan that does
 not match; a shape that no plan fits raises ``ValueError`` here, before
@@ -51,6 +69,9 @@ import torch
 from xpt_mde_tpu_torch.ops.kernels.build import load_library
 
 SOURCE = "xpt_mde_tpu_torch/csrc/correlation.cu"
+BF16_SOURCE = "xpt_mde_tpu_torch/csrc/correlation_bf16.cu"
+# the one library's sources (csrc/): nvcc compiles them in one call
+LIBRARY_SOURCES = ("correlation.cu", "correlation_bf16.cu")
 REPLACES = {"K2": "xpt_mde_tpu/ops/pallas/correlation.py:68",
             "K3": "xpt_mde_tpu/ops/pallas/correlation.py:88",
             "K4": "xpt_mde_tpu/ops/pallas/correlation.py:119"}
@@ -370,6 +391,245 @@ def fwd_plan(batch: int, channels: int, height: int, width: int,
     return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride))
 
 
+# The bfloat16 K2 and K4 (csrc/correlation_bf16.cu): a warp owns one tile
+# of BF16_TILE_P pixels of one residue class of x mod stride and takes the
+# displacements BF16_DISP at a time (K2: a 16 x 24 band product, K4: one
+# k16 step of window columns); a block holds up to BF16_FWD_ROWS in-frame
+# displacement rows (K2) or stages BF16_ROWS_PER_STAGE at a time (K4), and
+# has at most BF16_MAX_WARPS warps, one a tile; a K4 warp accumulates up
+# to BF16_GROUP_BLOCKS blocks of 16 channels. TMA_BOX: the most elements
+# a TMA box spans in one dimension.
+BF16_TILE_P, BF16_DISP = 16, 9
+BF16_FWD_ROWS, BF16_ROWS_PER_STAGE, BF16_GROUP_BLOCKS, BF16_MAX_WARPS = 4, 4, 4, 8
+TMA_BOX = 256
+# A plan splits its blocks further, where the work allows, until an SM holds
+# this many warps of them: a block's phases (copies, MMAs, stores) overlap
+# only with other resident blocks'. K4 stops earlier, as each channel chunk
+# stages the n g rows again (both numbers timed on the card at the PWC
+# levels). BF16_REGS: registers a thread (launch bounds of three 8-warp
+# blocks an SM; ptxas allocates 8 at a time, so at most 80).
+BF16_FWD_WARPS_PER_SM, BF16_BWD_WARPS_PER_SM, BF16_REGS = 24, 16, 80
+FWD_BF16_LAUNCH_KEYS = ("tile_x", "groups", "threads", "smem_bytes")
+BWD_BF16_LAUNCH_KEYS = ("tile_x", "chan_blocks", "rows_per_stage", "threads", "smem_bytes")
+
+
+def stage_pitch(cols: int) -> int:
+    """Elements of one staged bfloat16 row of ``cols`` columns: whole
+    16-byte units, an odd count of them (``stage_pitch`` in
+    csrc/correlation_bf16.cu)."""
+    return (-(-cols // 8) | 1) * 8
+
+
+def _align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def bf16_window_cols(tile_x: int, stride: int, n: int) -> int:
+    """Staged columns of one row: the tile and the window that the last
+    chunk of BF16_DISP displacements reads, and up to 7 more on the left:
+    a row's box starts at the multiple of 8 columns at or left of its
+    window (a TMA box starts 16-byte aligned in its row)."""
+    return tile_x + stride * (BF16_DISP * -(-n // BF16_DISP) - 1) + 7
+
+
+def lead8(col: int) -> int:
+    """How far frame column ``col`` lies right of the multiple of 8 at or
+    left of it: the staged column of a window's first column."""
+    return col % 8
+
+
+def chan_boxes(channels: int) -> tuple[int, int]:
+    """(box, count): K2-bf16 stages a row's channels, rounded up to 16, as
+    ``count`` TMA boxes of ``box`` channels (a multiple of 8, at most 256)."""
+    padded = -(-channels // 16) * 16
+    count = -(-padded // TMA_BOX)
+    per_box = -(-padded // count)
+    return -(-per_box // 8) * 8, count
+
+
+def fwd_bf16_layout(channels: int, height: int, stride: int, n: int, tile_x: int,
+                    groups: int) -> dict:
+    """K2-bf16's shared memory, as ``fwd_layout`` in csrc/correlation_bf16.cu:
+    the cl tile [chans][cl_pitch] and ``rows`` cr rows [chans][row_pitch]
+    of bfloat16, the float32 sums [rows * n][part_pitch] in the rows'
+    region afterwards, 128 bytes to align the base."""
+    box, count = chan_boxes(channels)
+    lay = {"chans": box * count, "cl_pitch": stage_pitch(tile_x),
+           "row_pitch": stage_pitch(bf16_window_cols(tile_x, stride, n)),
+           "part_pitch": tile_x + 4, "rows": -(-rows_max(n, stride, height) // groups)}
+    lay["cl_bytes"] = lay["chans"] * lay["cl_pitch"] * 2
+    lay["row_bytes"] = lay["chans"] * lay["row_pitch"] * 2
+    lay["total"] = 128 + lay["cl_bytes"] + max(
+        lay["rows"] * lay["row_bytes"], _align128(lay["rows"] * n * lay["part_pitch"] * 4))
+    return lay
+
+
+def bwd_bf16_layout(stride: int, n: int, tile_x: int, chan_blocks: int, rows: int) -> dict:
+    """K4-bf16's shared memory, as ``bwd_layout`` in csrc/correlation_bf16.cu:
+    ``rows`` slots of one displacement row's cl rows [chans][pitch] and n g
+    rows [n][pitch] of bfloat16, the float32 sums [chans][part_pitch]
+    afterwards, 128 bytes to align the base."""
+    lay = {"chans": chan_blocks * 16, "pitch": stage_pitch(bf16_window_cols(tile_x, stride, n)),
+           "part_pitch": tile_x + 4}
+    lay["cl_bytes"] = lay["chans"] * lay["pitch"] * 2
+    lay["g_bytes"] = _align128(n * lay["pitch"] * 2)
+    lay["slot"] = lay["cl_bytes"] + lay["g_bytes"]
+    lay["total"] = 128 + max(rows * lay["slot"],
+                             _align128(lay["chans"] * lay["part_pitch"] * 4))
+    return lay
+
+
+def tma_staged(width: int, *pitches: int) -> bool:
+    """Whether the bfloat16 K2 and K4 stage rows of these pitches by TMA
+    (given 16-byte aligned operands, which the C entries check): a row of
+    the frame is whole 16-byte units (W % 8 == 0) and a box spans at most
+    TMA_BOX columns."""
+    return width % 8 == 0 and max(pitches) <= TMA_BOX
+
+
+def resident_warps(threads: int, smem_bytes: int) -> int:
+    """Warps of blocks of ``threads`` threads and ``smem_bytes`` of shared
+    memory that one SM of an H100 holds at once (shared memory, registers
+    at BF16_REGS a thread, 2048 threads, 32 blocks)."""
+    blocks = min(SMEM_PER_SM // (smem_bytes + 1024), 65536 // (BF16_REGS * threads),
+                 2048 // threads, 32)
+    return blocks * threads // 32
+
+
+def _bf16_tile(width: int, stride: int, per_tile: int, what: str) -> tuple[int, int]:
+    """(span, tile_x): a class tile of every residue class spans 16 *
+    stride columns; the tile is the fewest spans that cover min(width,
+    TILE_X), fewer where ``per_tile`` warps a span-sixteenth would exceed
+    BF16_MAX_WARPS."""
+    span = BF16_TILE_P * stride
+    if span // BF16_TILE_P * per_tile > BF16_MAX_WARPS:
+        raise ValueError(f"{what} needs {span // BF16_TILE_P * per_tile} warps (threads "
+                         f"{32 * span // BF16_TILE_P * per_tile}) a block at stride {stride}, "
+                         f"more than {BF16_MAX_WARPS}")
+    tile_x = span * -(-min(width, TILE_X) // span)
+    while tile_x // BF16_TILE_P * per_tile > BF16_MAX_WARPS:
+        tile_x -= span
+    return span, tile_x
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displacement: int,
+                   stride: int, num_sms: int) -> tuple:
+    if min(channels, width) < 1:
+        raise ValueError(f"K2-bf16 needs at least one channel and one column, got {channels} "
+                         f"and {width}")
+    n = num_displacements(max_displacement, stride)
+    chunks = -(-n // BF16_DISP)
+    span, tile_x = _bf16_tile(width, stride, chunks, "K2-bf16")
+    most_rows = rows_max(n, stride, height)
+
+    def groups_for(tile):
+        image_rows = -(-width // tile) * height * batch
+        return min(n, max(-(-most_rows // BF16_FWD_ROWS), -(-2 * num_sms // image_rows)))
+
+    groups = groups_for(tile_x)
+    while True:
+        lay = fwd_bf16_layout(channels, height, stride, n, tile_x, groups)
+        if lay["total"] <= SMEM_LIMIT:
+            break
+        if tile_x > span:
+            tile_x -= span
+            groups = max(groups, groups_for(tile_x))
+        elif lay["rows"] > 1:
+            groups += 1
+        else:
+            raise ValueError(f"K2-bf16 needs {lay['total']} bytes of shared memory for "
+                             f"{channels} channels at md {max_displacement}, stride {stride}, "
+                             f"more than {SMEM_LIMIT}")
+    threads = 32 * tile_x // BF16_TILE_P * chunks
+    while lay["rows"] > 1 and resident_warps(threads, lay["total"]) < BF16_FWD_WARPS_PER_SM:
+        groups += 1
+        lay = fwd_bf16_layout(channels, height, stride, n, tile_x, groups)
+    grid = (-(-width // tile_x), height, batch * groups)
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"K2-bf16's grid {grid} exceeds 65535 rows or images x groups")
+    return (("tile_x", tile_x), ("groups", groups), ("threads", threads),
+            ("smem_bytes", lay["total"]),
+            ("grid", grid), ("rows_per_group", lay["rows"]),
+            ("tma", tma_staged(width, lay["cl_pitch"], lay["row_pitch"])))
+
+
+def fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displacement: int,
+                  stride: int, num_sms: int = H100_SMS) -> dict:
+    """K2-bf16's launch for these shapes: ``tile_x`` (a multiple of 16 *
+    stride covering up to 128 columns, one warp per class tile and chunk
+    of 9 displacements, at most 8), ``groups`` (the displacement rows'
+    groups over the grid: enough that a block holds at most 4 in-frame
+    rows, the grid has two blocks per SM and, where the rows allow, an SM
+    holds BF16_FWD_WARPS_PER_SM warps of them), ``threads``,
+    ``smem_bytes`` and ``grid``; ``rows_per_group`` and ``tma`` (the rows
+    staged by TMA, given aligned operands) for the record. Narrows the
+    tile, then the groups, until 227 KB fit; raises ValueError where even
+    one class tile and one row do not, where one class tile needs more
+    than 8 warps, or the grid is too large."""
+    return dict(_fwd_plan_bf16(batch, channels, height, width, max_displacement, stride,
+                               num_sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
+                      max_displacement: int, stride: int, num_sms: int) -> tuple:
+    n = num_displacements(max_displacement, stride)
+    span, tile_x = _bf16_tile(width, stride, 1, "K4-bf16")
+    all_blocks = -(-channels // 16)
+    rows = min(rows_max(n, stride, height), BF16_ROWS_PER_STAGE)
+
+    def blocks_for(tile):
+        most = BF16_GROUP_BLOCKS * (BF16_MAX_WARPS // (tile // BF16_TILE_P))
+        cbb = min(all_blocks, most, TMA_BOX // 16)
+        image_rows = -(-width // tile) * height * batch
+        while cbb > 1 and image_rows * -(-all_blocks // cbb) < 2 * num_sms:
+            cbb -= 1
+        return -(-all_blocks // -(-all_blocks // cbb))  # the chunks evened out
+
+    chan_blocks = blocks_for(tile_x)
+    while bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)["total"] > SMEM_LIMIT:
+        if rows > 1:
+            rows -= 1
+        elif chan_blocks > 1:
+            chan_blocks -= 1
+        elif tile_x > span:
+            tile_x -= span
+        else:
+            total = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)["total"]
+            raise ValueError(f"K4-bf16 needs {total} bytes of shared memory at md "
+                             f"{max_displacement}, stride {stride}, more than {SMEM_LIMIT}")
+    lay = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)
+    warps = tile_x // BF16_TILE_P * -(-chan_blocks // BF16_GROUP_BLOCKS)
+    while chan_blocks > 1 and resident_warps(32 * warps, lay["total"]) < BF16_BWD_WARPS_PER_SM:
+        chan_blocks = -(-all_blocks // (-(-all_blocks // (chan_blocks - 1))))  # evened out
+        lay = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)
+        warps = tile_x // BF16_TILE_P * -(-chan_blocks // BF16_GROUP_BLOCKS)
+    grid = (-(-width // tile_x), height, batch * -(-all_blocks // chan_blocks))
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"K4-bf16's grid {grid} exceeds 65535 rows or chunks")
+    return (("tile_x", tile_x), ("chan_blocks", chan_blocks), ("rows_per_stage", rows),
+            ("threads", 32 * warps), ("smem_bytes", lay["total"]), ("grid", grid),
+            ("tma", tma_staged(width, lay["pitch"]) and n <= TMA_BOX))
+
+
+def bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
+                     max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+    """K4-bf16's launch for these shapes: ``tile_x`` (a multiple of 16 *
+    stride covering up to 128 columns), ``chan_blocks`` (16-channel blocks
+    a CUDA block: as many as 8 warps of 4 blocks allow, fewer, evened out,
+    where the grid would have under two blocks per SM or an SM would hold
+    under BF16_BWD_WARPS_PER_SM warps of them), ``rows_per_stage``
+    (in-frame displacement rows a stage holds, at most 4), ``threads``
+    (a warp per class tile and group of 4 blocks), ``smem_bytes`` and
+    ``grid``; ``tma`` for the record. Narrows the stage, the channels and
+    the tile until 227 KB fit; raises ValueError where one row of one
+    block does not, where one class tile needs more than 8 warps, or the
+    grid is too large."""
+    return dict(_bwd_cr_plan_bf16(batch, channels, height, width, max_displacement, stride,
+                                  num_sms))
+
+
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -405,36 +665,48 @@ def _check(feats, other, max_displacement, stride, grad_out=None, dtype=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-class _CorrEntry:
-    """One C entry of ``correlation.cu`` for operands of ``dtype``, built
-    at first use. ``launches`` counts the launches this wrapper made."""
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    def __init__(self, name: str, entry: str, n_launch_ints: int, dtype: torch.dtype):
+
+class _CorrEntry:
+    """One C entry of the correlation library for operands of ``dtype``,
+    built at first use (``library_path``); ``source`` is the kernel's file.
+    ``launches`` counts the launches this wrapper made; ``launch_keys`` are
+    its plan's launch ints, in the entry's order."""
+
+    launch_keys: tuple = ()
+
+    def __init__(self, name: str, entry: str, dtype: torch.dtype, source: str = SOURCE):
         self.name = name
         self.dtype = dtype
+        self.source = source
         self.launches = 0
         self.build_log = ""
+        self.library_path = None
         self._entry = entry
-        self._n_launch_ints = n_launch_ints
         self._fn = None
 
     def build(self):
         """Compile (or reuse) and load the library; return the C entry."""
         if self._fn is None:
-            lib, self.build_log = load_library("correlation", ("correlation.cu",))
+            lib, self.build_log = load_library("correlation", LIBRARY_SOURCES)
+            self.library_path = lib._name
             fn = getattr(lib, self._entry)
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + self._n_launch_ints)
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + len(self.launch_keys))
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def _launch(self, first, second, out, feats_shape, max_displacement, stride, launch):
+    def _launch(self, first, second, out, feats_shape, max_displacement, stride, plan):
         """Call the entry with the three pointers, the feature maps' shape,
-        md, stride, the ``launch`` ints and the current stream; raise on a
-        CUDA error."""
+        md, stride, the ``plan``'s launch ints and the current stream;
+        raise on a CUDA error."""
         fn = self.build()
         batch, channels, height, width = feats_shape
+        launch = tuple(plan[k] for k in self.launch_keys)
         with torch.cuda.device(out.device):
             stream = torch.cuda.current_stream(out.device).cuda_stream
             err = fn(first.data_ptr(), second.data_ptr(), out.data_ptr(),
@@ -447,10 +719,13 @@ class _CorrEntry:
 
 
 class CorrKernel(_CorrEntry):
-    """Launches K2 (its float32 or bfloat16 entry), tiled by :func:`fwd_plan`."""
+    """Launches K2 (its float32 entry, tiled by :func:`fwd_plan`)."""
 
-    def __init__(self, name: str, entry: str, dtype: torch.dtype):
-        super().__init__(name, entry, len(FWD_LAUNCH_KEYS), dtype)
+    launch_keys = FWD_LAUNCH_KEYS
+
+    def plan(self, shape, max_displacement, stride, device) -> dict:
+        """The launch plan for feature maps of ``shape`` on ``device``."""
+        return fwd_plan(*shape, max_displacement, stride)
 
     def __call__(self, cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
                  stride: int) -> torch.Tensor:
@@ -466,14 +741,23 @@ class CorrKernel(_CorrEntry):
         out = torch.empty((batch, n * n, height, width), dtype=cl.dtype, device=cl.device)
         if out.numel() == 0:
             return out
-        plan = fwd_plan(*cl.shape, max_displacement, stride)
+        plan = self.plan(cl.shape, max_displacement, stride, cl.device)
         return self.launch(cl, cr, out, max_displacement, stride, plan)
 
     def launch(self, cl, cr, out, max_displacement, stride, plan):
-        """Launch K2 with ``plan`` (:func:`fwd_plan`'s or
-        :func:`fwd_launch`'s keys) on checked inputs and ``out``."""
-        launch = tuple(plan[k] for k in FWD_LAUNCH_KEYS)
-        return self._launch(cl, cr, out, cl.shape, max_displacement, stride, launch)
+        """Launch with ``plan`` (the plan's keys, or for the float32 K2
+        :func:`fwd_launch`'s) on checked inputs and ``out``."""
+        return self._launch(cl, cr, out, cl.shape, max_displacement, stride, plan)
+
+
+class CorrKernelBf16(CorrKernel):
+    """Launches K2-bf16 (``csrc/correlation_bf16.cu``), tiled by
+    :func:`fwd_plan_bf16`."""
+
+    launch_keys = FWD_BF16_LAUNCH_KEYS
+
+    def plan(self, shape, max_displacement, stride, device) -> dict:
+        return fwd_plan_bf16(*shape, max_displacement, stride, _num_sms(device.index or 0))
 
 
 class CorrGradKernel(_CorrEntry):
@@ -481,8 +765,11 @@ class CorrGradKernel(_CorrEntry):
     ones) or K4 (the gradient of the right features, from the left ones),
     both tiled by :func:`bwd_plan`, for operands of ``dtype``."""
 
-    def __init__(self, name: str, entry: str, dtype: torch.dtype):
-        super().__init__(name, entry, len(BWD_LAUNCH_KEYS), dtype)
+    launch_keys = BWD_LAUNCH_KEYS
+
+    def plan(self, shape, max_displacement, stride, device) -> dict:
+        """The launch plan for feature maps of ``shape`` on ``device``."""
+        return bwd_plan(*shape, max_displacement, stride, _num_sms(device.index or 0))
 
     def __call__(self, grad_out: torch.Tensor, feats: torch.Tensor,
                  max_displacement: int, stride: int) -> torch.Tensor:
@@ -493,25 +780,32 @@ class CorrGradKernel(_CorrEntry):
         _check(feats, feats, max_displacement, stride, grad_out, dtype=self.dtype)
         if feats.numel() == 0:
             return torch.empty_like(feats)
-        num_sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
-        plan = bwd_plan(*feats.shape, max_displacement, stride, num_sms)
+        plan = self.plan(feats.shape, max_displacement, stride, feats.device)
         return self.launch(grad_out, feats, torch.empty_like(feats), max_displacement, stride,
                            plan)
 
     def launch(self, grad_out, feats, out, max_displacement, stride, plan):
-        """Launch with ``plan`` (:func:`bwd_plan`'s keys) on checked
-        inputs and ``out``."""
-        launch = tuple(plan[k] for k in BWD_LAUNCH_KEYS)
-        return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride,
-                            launch)
+        """Launch with ``plan`` (the plan's keys) on checked inputs and
+        ``out``."""
+        return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride, plan)
+
+
+class CorrGradKernelBf16(CorrGradKernel):
+    """Launches K4-bf16 (``csrc/correlation_bf16.cu``), tiled by
+    :func:`bwd_cr_plan_bf16`."""
+
+    launch_keys = BWD_BF16_LAUNCH_KEYS
+
+    def plan(self, shape, max_displacement, stride, device) -> dict:
+        return bwd_cr_plan_bf16(*shape, max_displacement, stride, _num_sms(device.index or 0))
 
 
 K2 = CorrKernel("K2", "xpt_corr_fwd", torch.float32)
 K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl", torch.float32)
 K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr", torch.float32)
-K2_BF16 = CorrKernel("K2-bf16", "xpt_corr_fwd_bf16", torch.bfloat16)
+K2_BF16 = CorrKernelBf16("K2-bf16", "xpt_corr_fwd_bf16", torch.bfloat16, BF16_SOURCE)
 K3_BF16 = CorrGradKernel("K3-bf16", "xpt_corr_bwd_cl_bf16", torch.bfloat16)
-K4_BF16 = CorrGradKernel("K4-bf16", "xpt_corr_bwd_cr_bf16", torch.bfloat16)
+K4_BF16 = CorrGradKernelBf16("K4-bf16", "xpt_corr_bwd_cr_bf16", torch.bfloat16, BF16_SOURCE)
 
 
 def kernels_for(dtype: torch.dtype) -> tuple:
