@@ -17,19 +17,21 @@ Usage, from the repository root on a machine with one CUDA card:
 ``git archive`` of it under ``build/``): its phases 2 and 8 (and 21,
 where its ``_corr_phase`` takes a dtype) run first, in a subprocess on
 the same card, and their per-step kernel times become ``earlier_ms`` in
-the kernels line (else ``earlier_ms`` is null); the kernels this tree
-did not change (the float32 K2, K3 and K4, the bfloat16 K3) must give
-that checkout's bits on the same seeded inputs
+the kernels line (else ``earlier_ms`` is null), their per-level times
+stand beside this tree's in phase 21; the kernels whose sums this tree
+did not reorder (the float32 K2, K3 and K4, and K2-bf16 and K4-bf16)
+must give that checkout's bits on the same seeded inputs
 (``unchanged_kernel_outputs``).
 
 It builds kernels K1 and K1-bwd (``xpt_mde_tpu_torch/csrc/warp.cu``) and
 K2, K3 and K4 in float32 and bfloat16 (``xpt_mde_tpu_torch/csrc/
-correlation.cu``) with ``nvcc``, one compiler per source started
-together, and prints one line per phase:
+correlation.cu`` and ``correlation_bf16.cu``) with ``nvcc``, one compiler
+per library started together, and prints one line per phase:
 
 1. the device (name, count, power limit), the kernels' register/spill
-   report, and the SASS of the tensor-core kernels (``HMMA`` in K2-bf16
-   and K4-bf16, from ``cuobjdump``; skipped, and said so, without it);
+   report, and the SASS of the tensor-core kernels (``HMMA`` in K2-bf16,
+   K3-bf16 and K4-bf16, from ``cuobjdump``; skipped, and said so, without
+   it);
 2. K1 and K1-bwd against their plain PyTorch versions at the four
    headline scales (8 x 4 sources x {128x512, 64x256, 32x128, 16x64} x 3),
    on coordinates reprojected from synthetic depth and pose plus a band of
@@ -124,8 +126,8 @@ together, and prints one line per phase:
     value, and at the card tests' edge shapes (CORR_EDGE_SHAPES) on
     aligned (TMA-staged where W % 8 == 0) and offset inputs (staged by
     the kernels' threads), bit-equal; their times per level beside the
-    float32 kernel's of phase 8 and the bfloat16 bound, and per flow
-    step;
+    float32 kernel's of phase 8, the earlier checkout's (``--earlier``)
+    and the bfloat16 bound, and per flow step;
 22. the bfloat16 steps at full width: rigid predict, rigid train, flow
     train, joint train and stereo train (MS), each with its launches per
     step checked (the bfloat16 correlation kernels, never the float32
@@ -303,10 +305,12 @@ BF16_CORR_ATOL = 1e-6
 CORR_EDGE_SHAPES = [((1, 5, 5, 7), 4, 3), ((2, 8, 3, 130), 0, 1), ((1, 13, 3, 4), 4, 1),
                     ((2, 20, 6, 24), 6, 2), ((1, 12, 6, 20), 8, 1), ((2, 16, 5, 34), 8, 4),
                     ((2, 300, 4, 40), 4, 1), ((1, 300, 4, 128), 4, 1), ((2, 24, 6, 40), 8, 4),
-                    # the tensor-core tiles' edges (K2-bf16, K4-bf16): n = 5 with
-                    # TMA, n = 17 with TMA and W below one 16-pixel class tile,
-                    # 4 classes of 24 pixels at n = 7 (C % 16 != 0 in each)
-                    ((2, 20, 4, 40), 2, 1), ((1, 24, 5, 8), 8, 1), ((2, 36, 6, 96), 12, 4)]
+                    # the tensor-core tiles' edges: n = 5 with TMA, n = 17 with
+                    # TMA and W below one 16-pixel class tile, 4 classes of 24
+                    # pixels at n = 7 (C % 16 != 0 in each), and offsets -4, -1,
+                    # 2 over 2 rows: image row 0 has no in-frame displacement row
+                    ((2, 20, 4, 40), 2, 1), ((1, 24, 5, 8), 8, 1), ((2, 36, 6, 96), 12, 4),
+                    ((2, 20, 2, 24), 4, 3)]
 # the least time one H100 SXM could take: NVIDIA's data sheet rates for
 # device memory, for float32 outside the tensor cores, and for bfloat16
 # operands on the tensor cores (dense)
@@ -317,12 +321,14 @@ BF16_FLOPS_PER_S = 989e12
 REDESIGNED = {"K1": "PR 4", "K3": "PR 4", "K2": "PR 5", "K4": "PR 5"}
 # the bfloat16 kernels redesigned for the tensor cores (their CUDA kernels'
 # names, for the SASS check), and their design
-TENSOR_CORE_KERNELS = {"K2-bf16": "corr_fwd_bf16_kernel", "K4-bf16": "corr_bwd_cr_bf16_kernel"}
+TENSOR_CORE_KERNELS = {"K2-bf16": "corr_fwd_bf16_kernel", "K3-bf16": "corr_bwd_cl_bf16_kernel",
+                       "K4-bf16": "corr_bwd_cr_bf16_kernel"}
 TENSOR_CORE_DESIGN = "mma.sync band products on bfloat16 shared memory, TMA staging"
 # run in an earlier checkout: its phases 2 and 8
 # (and 21 where its _corr_phase takes a dtype), then each kernel's device
-# ms per train step as one JSON line; argv: the tag, this file, and where to
-# save unchanged_kernel_outputs of the checkout's kernels
+# ms per train step and per level (where it has levels) as one JSON line;
+# argv: the tag, this file, and where to save unchanged_kernel_outputs of
+# the checkout's kernels
 EARLIER_PHASES = """
 import importlib.util, inspect, json, sys
 import numpy as np, torch
@@ -342,7 +348,8 @@ with full_f32():
     now = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(now)
     torch.save(now.unchanged_kernel_outputs(device), sys.argv[3])
-print("EARLIER " + json.dumps({name: s["ms"] for name, s in stats.items()}), flush=True)
+print("EARLIER " + json.dumps({name: {"ms": s["ms"], "levels": s.get("levels", {})}
+                              for name, s in stats.items()}), flush=True)
 """
 
 
@@ -400,9 +407,11 @@ def _bound(nbytes: float, flops: float, bf16: bool = False) -> tuple[float, str]
 
 
 def unchanged_kernel_outputs(device) -> dict:
-    """The outputs of the float32 K2, K3 and K4 and the bfloat16 K3 (the
-    correlation kernels whose code the tensor-core redesign left as it
-    was) at the five PWC levels on seeded inputs (8 pairs), on the CPU.
+    """The outputs of the float32 K2, K3 and K4 (the correlation kernels
+    whose code the tensor-core redesigns left as it was), and of K2-bf16
+    and K4-bf16 (whose sums' order their tensor-core redesign set and
+    later code keeps), at the five PWC levels on seeded inputs (8 pairs),
+    on the CPU.
     Imports the package at call time, so an earlier checkout's kernels
     answer when its package is the one on the path."""
     import torch
@@ -422,17 +431,19 @@ def unchanged_kernel_outputs(device) -> dict:
         outputs[f"K2 L{level}"] = kc.K2(cl, cr, md, stride)
         outputs[f"K3 L{level}"] = kc.K3(g, cr, md, stride)
         outputs[f"K4 L{level}"] = kc.K4(g, cl, md, stride)
-        outputs[f"K3-bf16 L{level}"] = kc.K3_BF16(*(t.to(torch.bfloat16) for t in (g, cr)), md,
-                                                 stride)
+        cl16, cr16, g16 = (t.to(torch.bfloat16) for t in (cl, cr, g))
+        outputs[f"K2-bf16 L{level}"] = kc.K2_BF16(cl16, cr16, md, stride)
+        outputs[f"K4-bf16 L{level}"] = kc.K4_BF16(g16, cl16, md, stride)
     torch.cuda.synchronize()
     return {name: out.cpu() for name, out in outputs.items()}
 
 
-def _earlier_kernels(checkout: str, tag: str, device) -> dict:
+def _earlier_kernels(checkout: str, tag: str, device) -> tuple[dict, dict]:
     """Phases 2, 8 and 21 of the checkout ``checkout`` on this card, in a
     subprocess (its package has this one's name): each kernel's device ms
-    per train step. Its timing lines are echoed with the prefix
-    ``earlier``. Raises unless the unchanged kernels give its bits."""
+    per train step, and per PWC level (keys "6" .. "2") where it has
+    levels. Its timing lines are echoed with the prefix ``earlier``.
+    Raises unless the unchanged kernels give its bits."""
     import torch
 
     env = dict(os.environ, PYTHONPATH=os.path.abspath(checkout))
@@ -455,15 +466,17 @@ def _earlier_kernels(checkout: str, tag: str, device) -> dict:
     differ = [name for name in ours if not torch.equal(ours[name], theirs[name])]
     if differ or set(ours) != set(theirs):
         raise AssertionError(f"unchanged kernels differ from the earlier checkout's: {differ}")
-    print(f"phase 1 unchanged kernels: the float32 K2, K3, K4 and the bfloat16 K3 at the 5 "
-          f"levels ({len(ours)} outputs) bit-equal to the earlier checkout's", flush=True)
-    return result
+    print(f"phase 1 unchanged kernels: the float32 K2, K3 and K4 and K2-bf16 and K4-bf16 at "
+          f"the 5 levels "
+          f"({len(ours)} outputs) bit-equal to the earlier checkout's", flush=True)
+    return ({name: r["ms"] for name, r in result.items()},
+            {name: r["levels"] for name, r in result.items() if r["levels"]})
 
 
 def _sass_check(library: str) -> str:
-    """``HMMA`` (tensor-core) instructions in the SASS of K2-bf16 and
-    K4-bf16 in ``library``, from ``cuobjdump --dump-sass``; raises where
-    either has none. Returns a summary, or says that the check was
+    """``HMMA`` (tensor-core) instructions in the SASS of each kernel of
+    TENSOR_CORE_KERNELS in ``library``, from ``cuobjdump --dump-sass``;
+    raises where one has none. Returns a summary, or says that the check was
     skipped where the toolkit has no ``cuobjdump``."""
     import shutil
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1129,15 +1142,16 @@ def bf16_ulp_excess(got, ref) -> tuple[float, float]:
     return float(diff.max()), float((diff / bound).max())
 
 
-def _corr_phase(device, tag, dtype=None, f32=None):
+def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
     """Phase 8 (float32, the default) or 21 (``dtype`` bfloat16): K2, K3
     and K4 of that dtype against their plain versions at the five PWC-Net
     levels of the flow stage (float32 within CORR_RTOL of the largest plain
     value; bfloat16 within one ulp, ``bf16_ulp_excess``), and their times
     beside the plain versions' and the bounds (and, given ``f32``, phase
-    8's stats, beside the float32 kernels' per level). Returns per-kernel
-    sums over the levels (one train step's launches) and each level's
-    ms."""
+    8's stats, beside the float32 kernels' per level; given ``earlier``,
+    an earlier checkout's ms per level by kernel name, beside those).
+    Returns per-kernel sums over the levels (one train step's launches) and
+    each level's ms."""
     import torch
 
     from xpt_mde_tpu_torch.config import NUM_SRC
@@ -1197,12 +1211,15 @@ def _corr_phase(device, tag, dtype=None, f32=None):
                 notes.append(f"L{level} {name} {err:.3g} / {scale:.3g}")
             stats[name]["err"] = max(stats[name]["err"], err)
 
-        # bytes: each input read once, each output written once; flops: a
-        # multiply-add per channel for every in-frame (pixel, displacement)
+        # bytes: each input read once, each output written once, where K3
+        # and K4 need g only at the in-frame (pixel, displacement) terms (the
+        # others meet the frame's outside) and K2 writes every plane; flops:
+        # a multiply-add per channel for every in-frame term
+        terms = pairs * _valid_terms(h, w, md, stride)
         feat_bytes, g_bytes = cl.numel() * cl.element_size(), g.numel() * g.element_size()
-        flops = 2 * pairs * chans * _valid_terms(h, w, md, stride)
+        g_used, flops = terms * g.element_size(), 2 * chans * terms
         work = {"K2": (2 * feat_bytes + g_bytes, flops),
-                "K3": (g_bytes + 2 * feat_bytes, flops), "K4": (g_bytes + 2 * feat_bytes, flops)}
+                "K3": (g_used + 2 * feat_bytes, flops), "K4": (g_used + 2 * feat_bytes, flops)}
         runs = {"K2": (lambda: K2(cl, cr, md, stride),
                        lambda: correlation_cost_plain(cl, cr, md, stride)),
                 "K3": (lambda: K3(g, cr, md, stride),
@@ -1219,7 +1236,10 @@ def _corr_phase(device, tag, dtype=None, f32=None):
             stats[name]["levels"][level] = t_k
             beside = (f"float32 {f32[name]['levels'][level]:.4f}, "
                       if f32 is not None else "")
-            line.append(f"{name}{'-bf16' if bf16 else ''} {t_k:.4f} ms ({beside}plain {t_p:.4f}, "
+            full_name = f"{name}{'-bf16' if bf16 else ''}"
+            if str(level) in (earlier or {}).get(full_name, {}):
+                beside += f"earlier checkout {earlier[full_name][str(level)]:.4f}, "
+            line.append(f"{full_name} {t_k:.4f} ms ({beside}plain {t_p:.4f}, "
                         f"bound {bound_ms:.4f} by {bound_by})")
         print(f"timing L{level} [{pairs},{chans},{h},{w}] {dtype} md {md} stride {stride} n^2 "
               f"{n2}: device (graph replay) {'; '.join(line)} {tag}", flush=True)
@@ -1541,10 +1561,10 @@ def main(argv=()) -> int:
             print(f"phase 1 SASS of the tensor-core kernels: "
                   f"{_sass_check(K2.library_path)}", flush=True)
 
-            earlier = {}
+            earlier, earlier_levels = {}, {}
             if args.earlier:
                 phase = "earlier kernels"
-                earlier = _earlier_kernels(args.earlier, tag, device)
+                earlier, earlier_levels = _earlier_kernels(args.earlier, tag, device)
                 print(f"phase 1 earlier kernels ({args.earlier}), device ms per train step: "
                       f"{json.dumps(earlier)} {tag}", flush=True)
 
@@ -1979,7 +1999,7 @@ def main(argv=()) -> int:
 
             # 21. the bfloat16 correlation kernels against their plain versions
             phase = "bf16 correlation kernels vs plain"
-            cstats16 = _corr_phase(device, tag, torch.bfloat16, cstats)
+            cstats16 = _corr_phase(device, tag, torch.bfloat16, cstats, earlier_levels)
             print("timing bf16 vs float32 correlation kernels, device ms per flow train step "
                   "(5 levels, graph replay, this call): " + "; ".join(
                       f"{k}-bf16 {cstats16[k]['ms']:.4f} (float32 {cstats[k]['ms']:.4f}"

@@ -1,11 +1,14 @@
-"""The tensor-core tilings of the bfloat16 correlation kernels K2-bf16 and
-K4-bf16 (``csrc/correlation_bf16.cu``) on the CPU: their launch plans
-(``fwd_plan_bf16``, ``bwd_cr_plan_bf16``) and numpy emulations of their
-algebra, block by block with each plan's tile: the rows staged as a TMA
-box stages them (zeros outside the frame and past the last channel), the
-work cut by residue class of x mod stride, K2's 16 x 24 band product per
-16 channels with its diagonals taken as outputs, K4's m16n8k16 products
-against the banded matrix built from the staged g rows, float32 partial
+"""The tensor-core tilings of the bfloat16 correlation kernels K2-bf16,
+K3-bf16 and K4-bf16 (``csrc/correlation_bf16.cu``) on the CPU: their
+launch plans (``fwd_plan_bf16``, ``bwd_cl_plan_bf16``,
+``bwd_cr_plan_bf16``) and numpy emulations of their algebra, block by
+block with each plan's tile: the rows staged as a TMA box stages them
+(zeros outside the frame and past the last channel), the work cut by
+residue class of x mod stride, K2's 16 x 24 band product per 16 channels
+with its diagonals taken as outputs, K3's and K4's m16n8k16 products
+against the banded matrix built from the staged g rows (K3: those of its
+in-frame displacement rows at the block's own image row, over its tile,
+staged once; K4: those at each cl row over the window), float32 partial
 sums added per 16-wide K step in the kernels' order.
 
 The emulations are held to the plain versions on float32 inputs (1e-5 of
@@ -36,7 +39,7 @@ P, J = kcorr.BF16_TILE_P, kcorr.BF16_DISP
 # the card tests' edge shapes (tests/test_torch_kernels.py) and the new
 # tiles' edges: C % 16 != 0 with TMA staging, W below one 16-pixel class
 # tile, n = 5 and n = 17 with TMA, stride 2 with W % 8 == 0, several
-# channel boxes
+# channel boxes, an image row with no in-frame displacement row
 EDGE_SHAPES = [
     ((1, 5, 5, 7), 4, 3),      # a stride that does not divide md; W % 8 != 0
     ((2, 8, 3, 130), 0, 1),    # md 0, two x tiles
@@ -47,6 +50,7 @@ EDGE_SHAPES = [
     ((2, 20, 4, 40), 2, 1),    # n = 5 with TMA
     ((1, 24, 5, 8), 8, 1),     # n = 17 with TMA, W below one class tile
     ((2, 36, 6, 96), 12, 4),   # stride 4, n = 7, 4 classes of 24 pixels
+    ((2, 20, 2, 24), 4, 3),    # offsets -4, -1, 2: row 0 has no in-frame row
 ]
 LEVELS = [6, 5, 4, 3, 2]
 
@@ -123,7 +127,7 @@ def _emulate_k4_bf16(g, cl, md, stride, plan):
     batch, chans, height, width = cl.shape
     s, n = stride, kcorr.num_displacements(md, stride)
     tile_x, chan_blocks = plan["tile_x"], plan["chan_blocks"]
-    lay = kcorr.bwd_bf16_layout(s, n, tile_x, chan_blocks, plan["rows_per_stage"])
+    lay = kcorr.bwd_cr_bf16_layout(s, n, tile_x, chan_blocks, plan["rows_per_stage"])
     cc, pitch = lay["chans"], lay["pitch"]
     out = np.full(cl.shape, np.nan, np.float32)
     kk = np.arange(16)[:, None]
@@ -160,6 +164,52 @@ def _emulate_k4_bf16(g, cl, md, stride, plan):
     return out
 
 
+def _emulate_k3_bf16(g, cr, md, stride, plan):
+    """K3-bf16 (corr_bwd_cl_bf16_kernel) in numpy with ``plan``'s tile and
+    channel blocks: the block's g tile (the g rows of image row y from its
+    first in-frame displacement row on, over the tile) staged once, each
+    in-frame row's cr row over the window; float32 sums, divided by C (not
+    rounded)."""
+    batch, chans, height, width = cr.shape
+    s, n = stride, kcorr.num_displacements(md, stride)
+    tile_x, chan_blocks = plan["tile_x"], plan["chan_blocks"]
+    lay = kcorr.bwd_cl_bf16_layout(s, n, tile_x, chan_blocks, plan["rows_per_stage"], height)
+    cc, pitch = lay["chans"], lay["pitch"]
+    out = np.full(cr.shape, np.nan, np.float32)
+    kk = np.arange(16)[:, None]
+    pp = np.arange(8)[None, :]
+    for b in range(batch):
+        for y in range(height):
+            i_lo = -(-(md - y) // s) if md > y else 0
+            i_hi = min(n - 1, (height - 1 - y + md) // s)
+            for xt in range(0, width, tile_x):
+                x_hi = min(tile_x, width - xt)
+                col0 = xt - md
+                sh = kcorr.lead8(col0)
+                g_tile = _stage(g[b, i_lo * n:i_lo * n + lay["g_planes"], y], xt, lay["g_pitch"],
+                                lay["g_planes"])
+                for c0 in range(0, chans, cc):
+                    acc = np.zeros((cc, tile_x), np.float32)
+                    for i in range(i_lo, i_hi + 1):
+                        feat = _stage(cr[b, c0:c0 + cc, y - md + i * s], col0 - sh, pitch, cc)
+                        grows = g_tile[(i - i_lo) * n:(i - i_lo + 1) * n]
+                        for tile in range(tile_x // P):
+                            cls, ct = tile % s, tile // s
+                            for m0 in range(0, n, J):
+                                for pt in range(2):
+                                    wcol = sh + cls + s * (P * ct + 8 * pt + m0 + kk[:, 0])
+                                    px = cls + s * (P * ct + 8 * pt + np.arange(8))
+                                    j = m0 + kk - pp
+                                    on = (j >= m0) & (j < m0 + J) & (j < n)
+                                    band = np.where(on, grows[np.where(on, j, 0), px[None, :]],
+                                                    0)
+                                    acc[:, px] += feat[:, wcol] @ band.astype(np.float32)
+                    keep = min(cc, chans - c0)
+                    out[b, c0:c0 + keep, y, xt:xt + x_hi] = acc[:keep, :x_hi] / np.float32(chans)
+    assert not np.isnan(out).any(), "an output the kernel never writes"
+    return out
+
+
 # ------------------------------------------------------------------ plans
 
 
@@ -172,6 +222,7 @@ def test_bf16_plans_fit_and_fill_the_card_at_pwc_levels(level):
     shape, md, stride = _level_shape(level)
     n = kcorr.num_displacements(md, stride)
     for name, plan in (("K2", kcorr.fwd_plan_bf16(*shape, md, stride)),
+                       ("K3", kcorr.bwd_cl_plan_bf16(*shape, md, stride)),
                        ("K4", kcorr.bwd_cr_plan_bf16(*shape, md, stride))):
         assert plan["tile_x"] % (P * stride) == 0 and plan["tile_x"] >= shape[3], name
         assert plan["grid"][0] * plan["grid"][1] * plan["grid"][2] >= 2 * kcorr.H100_SMS, name
@@ -184,33 +235,52 @@ def test_bf16_plans_fit_and_fill_the_card_at_pwc_levels(level):
     assert k2["smem_bytes"] == lay["total"] and lay["rows"] == k2["rows_per_group"] <= 4
     assert k2["threads"] == 32 * k2["tile_x"] // P
     k4 = kcorr.bwd_cr_plan_bf16(*shape, md, stride)
-    assert k4["smem_bytes"] == kcorr.bwd_bf16_layout(stride, n, k4["tile_x"], k4["chan_blocks"],
-                                                     k4["rows_per_stage"])["total"]
+    assert k4["smem_bytes"] == kcorr.bwd_cr_bf16_layout(stride, n, k4["tile_x"],
+                                                        k4["chan_blocks"],
+                                                        k4["rows_per_stage"])["total"]
+    k3 = kcorr.bwd_cl_plan_bf16(*shape, md, stride)
+    assert k3["smem_bytes"] == kcorr.bwd_cl_bf16_layout(stride, n, k3["tile_x"],
+                                                        k3["chan_blocks"],
+                                                        k3["rows_per_stage"],
+                                                        shape[2])["total"]
     assert k4["rows_per_stage"] == kcorr.rows_max(n, stride, shape[2])
-    assert k4["grid"][2] == 32 * -(-shape[1] // (16 * k4["chan_blocks"]))
+    # K3 stages fewer rows at a time before it splits its channels further
+    assert 1 <= k3["rows_per_stage"] <= kcorr.rows_max(n, stride, shape[2])
+    assert k3["chan_blocks"] == -(-shape[1] // 16) or level > 3
+    for plan in (k3, k4):
+        assert plan["grid"][2] == 32 * -(-shape[1] // (16 * plan["chan_blocks"]))
+        assert (kcorr.resident_warps(plan["threads"], plan["smem_bytes"])
+                >= kcorr.BF16_BWD_WARPS_PER_SM or plan["chan_blocks"] == 1)
     # split until an SM holds enough warps, where the rows or channels allow
     assert (kcorr.resident_warps(k2["threads"], k2["smem_bytes"])
             >= kcorr.BF16_FWD_WARPS_PER_SM or lay["rows"] == 1)
-    assert (kcorr.resident_warps(k4["threads"], k4["smem_bytes"])
-            >= kcorr.BF16_BWD_WARPS_PER_SM or k4["chan_blocks"] == 1)
 
 
 @pytest.mark.parametrize("shape,md,stride", EDGE_SHAPES)
 def test_bf16_plans_at_edge_shapes(shape, md, stride):
     """TMA staging exactly where W % 8 == 0 and the rows fit one box; the
-    tile covers the row in class tiles; one warp a tile; the layouts."""
+    tile covers the row in class tiles; one warp a tile; at most 227 KB;
+    the layouts the entries recompute."""
     n = kcorr.num_displacements(md, stride)
     k2 = kcorr.fwd_plan_bf16(*shape, md, stride)
+    k3 = kcorr.bwd_cl_plan_bf16(*shape, md, stride)
     k4 = kcorr.bwd_cr_plan_bf16(*shape, md, stride)
     width = shape[3]
-    for plan in (k2, k4):
+    for plan in (k2, k3, k4):
         assert plan["tile_x"] % (P * stride) == 0
         assert plan["grid"][0] * plan["tile_x"] >= width
         assert plan["tma"] == (width % 8 == 0)
+        assert plan["smem_bytes"] <= kcorr.SMEM_LIMIT
     assert k2["threads"] == 32 * k2["tile_x"] // P * -(-n // J)
     assert 1 <= k2["groups"] <= n and k2["rows_per_group"] <= kcorr.BF16_FWD_ROWS
-    assert k4["threads"] == 32 * k4["tile_x"] // P * -(-k4["chan_blocks"] // 4)
-    assert 1 <= k4["rows_per_stage"] <= kcorr.BF16_ROWS_PER_STAGE
+    layouts = {"K3": kcorr.bwd_cl_bf16_layout(stride, n, k3["tile_x"], k3["chan_blocks"],
+                                              k3["rows_per_stage"], shape[2]),
+               "K4": kcorr.bwd_cr_bf16_layout(stride, n, k4["tile_x"], k4["chan_blocks"],
+                                              k4["rows_per_stage"])}
+    for name, plan in (("K3", k3), ("K4", k4)):
+        assert plan["threads"] == 32 * plan["tile_x"] // P * -(-plan["chan_blocks"] // 4)
+        assert 1 <= plan["rows_per_stage"] <= kcorr.BF16_ROWS_PER_STAGE
+        assert plan["smem_bytes"] == layouts[name]["total"], name
 
 
 def test_bf16_plans_refuse_what_cannot_fit():
@@ -221,10 +291,14 @@ def test_bf16_plans_refuse_what_cannot_fit():
         kcorr.fwd_plan_bf16(1, 4000, 4, 64, 8, 1)
     with pytest.raises(ValueError, match="shared memory"):
         kcorr.bwd_cr_plan_bf16(1, 8, 4, 64, 2000, 1)
+    with pytest.raises(ValueError, match="K3-bf16 needs .* shared memory"):
+        kcorr.bwd_cl_plan_bf16(1, 8, 4, 64, 2000, 1)
     with pytest.raises(ValueError, match="threads"):
         kcorr.fwd_plan_bf16(1, 8, 4, 64, 40, 3)  # 3 classes x 3 chunks of 9 displacements
     with pytest.raises(ValueError, match="threads"):
         kcorr.bwd_cr_plan_bf16(1, 8, 4, 64, 300, 300)
+    with pytest.raises(ValueError, match="threads"):
+        kcorr.bwd_cl_plan_bf16(1, 8, 4, 64, 300, 300)
     with pytest.raises(ValueError, match="channel"):
         kcorr.fwd_plan_bf16(1, 0, 4, 64, 4, 1)
 
@@ -254,6 +328,7 @@ def _plain_f32(shape, md, stride, seed):
     g = rng.uniform(-1, 1, (shape[0], n2) + shape[2:]).astype(np.float32)
     t_cl, t_cr, t_g = (torch.from_numpy(a) for a in (cl, cr, g))
     ref = {"K2": corr.correlation_cost_plain(t_cl, t_cr, md, stride).numpy(),
+           "K3": corr.correlation_grad_cl_plain(t_g, t_cr, md, stride).numpy(),
            "K4": corr.correlation_grad_cr_plain(t_g, t_cl, md, stride).numpy()}
     return cl, cr, g, ref
 
@@ -263,15 +338,18 @@ def _plain_f32(shape, md, stride, seed):
     (_level_shape(level, 2)[0],) + _level_shape(level)[1:] + (_level_shape(level)[0],)
     for level in (2, 6)])
 def test_bf16_tilings_match_plain_on_the_cpu(shape, md, stride, plan_shape):
-    """The band products of K2-bf16 and K4-bf16, emulated with the plan of
-    ``plan_shape`` (the levels' own 32-pair plans on 2 pairs), against the
-    plain versions on float32 inputs: within 1e-5 of the largest value."""
+    """The band products of K2-bf16, K3-bf16 and K4-bf16, emulated with the
+    plan of ``plan_shape`` (the levels' own 32-pair plans on 2 pairs),
+    against the plain versions on float32 inputs: within 1e-5 of the
+    largest value."""
     cl, cr, g, ref = _plain_f32(shape, md, stride, sum(shape))
     got = {"K2": _emulate_k2_bf16(cl, cr, md, stride, kcorr.fwd_plan_bf16(*plan_shape, md,
                                                                           stride)),
+           "K3": _emulate_k3_bf16(g, cr, md, stride, kcorr.bwd_cl_plan_bf16(*plan_shape, md,
+                                                                           stride)),
            "K4": _emulate_k4_bf16(g, cl, md, stride, kcorr.bwd_cr_plan_bf16(*plan_shape, md,
                                                                            stride))}
-    for name in ("K2", "K4"):
+    for name in ("K2", "K3", "K4"):
         scale = float(np.abs(ref[name]).max())
         assert float(np.abs(got[name] - ref[name]).max()) <= 1e-5 * scale, name
 
@@ -279,8 +357,9 @@ def test_bf16_tilings_match_plain_on_the_cpu(shape, md, stride, plan_shape):
 @pytest.mark.parametrize("level", LEVELS)
 def test_bf16_tilings_match_the_pallas_kernels(level):
     """On bfloat16 inputs at each level's (md, stride), the emulations
-    rounded once to bfloat16 against the JAX Pallas kernel and its VJP in
-    interpret mode: within one bfloat16 ulp + 1e-6 x max |JAX|."""
+    rounded once to bfloat16 against the JAX Pallas kernel and its VJP (dcl
+    for K3, dcr for K4) in interpret mode: within one bfloat16 ulp + 1e-6 x
+    max |JAX|."""
     import jax
     import jax.numpy as jnp
 
@@ -294,7 +373,7 @@ def test_bf16_tilings_match_the_pallas_kernels(level):
                    for s in (shape_nhwc, shape_nhwc, shape_nhwc[:3] + (n2,)))
     out, vjp = jax.vjp(lambda a, b: correlation_cost_pallas(a, b, md, stride, interpret=True),
                        jnp.asarray(cl), jnp.asarray(cr))
-    _, dcr = vjp(jnp.asarray(cot))
+    dcl, dcr = vjp(jnp.asarray(cot))
 
     def nchw(x):
         return np.ascontiguousarray(np.asarray(x, np.float32).transpose(0, 3, 1, 2))
@@ -302,15 +381,39 @@ def test_bf16_tilings_match_the_pallas_kernels(level):
     plan_shape = (32,) + _level_shape(level)[0][1:]  # the level's own plan
     got = {"K2": _emulate_k2_bf16(nchw(cl), nchw(cr), md, stride,
                                   kcorr.fwd_plan_bf16(*plan_shape, md, stride)),
+           "K3": _emulate_k3_bf16(nchw(cot), nchw(cr), md, stride,
+                                  kcorr.bwd_cl_plan_bf16(*plan_shape, md, stride)),
            "K4": _emulate_k4_bf16(nchw(cot), nchw(cl), md, stride,
                                   kcorr.bwd_cr_plan_bf16(*plan_shape, md, stride))}
-    for name, want in (("K2", out), ("K4", dcr)):
+    for name, want in (("K2", out), ("K3", dcl), ("K4", dcr)):
         rounded = torch.from_numpy(got[name]).to(torch.bfloat16).float()
         err, excess = chip_smoke.bf16_ulp_excess(rounded, torch.from_numpy(nchw(want)))
         assert excess <= 1.0, (name, err, excess)
 
 
 # --------------------------------------------------------------- the card
+
+
+@pytest.mark.parametrize("shape,md,stride", EDGE_SHAPES + [((1, 4, 8, 16), 4, 2)])
+def test_the_gradients_need_g_only_at_the_terms_the_bound_counts(shape, md, stride):
+    """``chip_smoke._valid_terms`` counts the (pixel, displacement) terms
+    whose displaced position lies in the frame, and K3 and K4 read g only
+    there: g zeroed at every other term gives the same dcl and dcr. The
+    byte count of their bound takes g at those terms alone."""
+    batch, chans, height, width = shape
+    n = kcorr.num_displacements(md, stride)
+    rng = np.random.RandomState(7)
+    cl, cr = (torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+              for _ in range(2))
+    g = torch.from_numpy(rng.uniform(-1, 1, (batch, n * n, height, width)).astype(np.float32))
+    ones = torch.ones((1, 1, height, width))
+    in_frame = corr.correlation_cost_plain(ones, ones, md, stride) != 0
+    assert int(in_frame.sum()) == chip_smoke._valid_terms(height, width, md, stride)
+    g_in = g * in_frame
+    assert torch.equal(corr.correlation_grad_cl_plain(g_in, cr, md, stride),
+                       corr.correlation_grad_cl_plain(g, cr, md, stride))
+    assert torch.equal(corr.correlation_grad_cr_plain(g_in, cl, md, stride),
+                       corr.correlation_grad_cr_plain(g, cl, md, stride))
 
 
 @pytest.fixture
@@ -341,28 +444,34 @@ def _card_case(shape, md, stride, seed, device):
 
 def _check_on_card(cl, cr, g, md, stride):
     ref = {"K2": corr.correlation_cost_plain(cl, cr, md, stride),
+           "K3": corr.correlation_grad_cl_plain(g, cr, md, stride),
            "K4": corr.correlation_grad_cr_plain(g, cl, md, stride)}
-    before = (kcorr.K2_BF16.launches, kcorr.K4_BF16.launches)
-    got = {"K2": kcorr.K2_BF16(cl, cr, md, stride), "K4": kcorr.K4_BF16(g, cl, md, stride)}
+    kernels = (kcorr.K2_BF16, kcorr.K3_BF16, kcorr.K4_BF16)
+    before = [k.launches for k in kernels]
+    got = {"K2": kcorr.K2_BF16(cl, cr, md, stride), "K3": kcorr.K3_BF16(g, cr, md, stride),
+           "K4": kcorr.K4_BF16(g, cl, md, stride)}
     shifted = {"K2": kcorr.K2_BF16(_offset_copy(cl), _offset_copy(cr), md, stride),
+               "K3": kcorr.K3_BF16(_offset_copy(g), _offset_copy(cr), md, stride),
                "K4": kcorr.K4_BF16(_offset_copy(g), _offset_copy(cl), md, stride)}
-    assert (kcorr.K2_BF16.launches, kcorr.K4_BF16.launches) == (before[0] + 2, before[1] + 2)
+    assert [k.launches for k in kernels] == [c + 2 for c in before]
     leaves = [cl.clone().requires_grad_(True), cr.clone().requires_grad_(True)]
-    auto_dcr = torch.autograd.grad(corr.correlation_cost_plain(*leaves, md, stride), leaves,
-                                   g)[1]
+    auto = dict(zip(("K3", "K4"), torch.autograd.grad(
+        corr.correlation_cost_plain(*leaves, md, stride), leaves, g)))
     torch.cuda.synchronize()
-    for name in ("K2", "K4"):
+    for name in ("K2", "K3", "K4"):
         assert got[name].dtype == torch.bfloat16, name
         assert chip_smoke.bf16_ulp_excess(got[name], ref[name])[1] <= 1.0, name
         assert torch.equal(got[name], shifted[name]), name
-    assert chip_smoke.bf16_ulp_excess(got["K4"], auto_dcr)[1] <= 1.0
+    for name in ("K3", "K4"):
+        assert chip_smoke.bf16_ulp_excess(got[name], auto[name])[1] <= 1.0, name
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("level", LEVELS)
 def test_bf16_tc_kernels_match_plain_at_pwc_levels(cuda, level):
-    """K2-bf16 and K4-bf16 at the flow stage's shapes: one ulp of the plain
-    versions (K4 also of the plain autograd), offset runs bit-equal."""
+    """K2-bf16, K3-bf16 and K4-bf16 at the flow stage's shapes: one ulp of
+    the plain versions (K3 and K4 also of the plain autograd), offset runs
+    bit-equal."""
     shape, md, stride = _level_shape(level)
     _check_on_card(*_card_case(shape, md, stride, level + 10, cuda), md, stride)
 

@@ -5,7 +5,7 @@ import torch
 
 from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
 from xpt_mde_tpu_torch.ops.kernels import correlation as kcorr
-from xpt_mde_tpu_torch.tools import corr_sweep, profile_steps
+from xpt_mde_tpu_torch.tools import corr_sweep, corr_variants, profile_steps
 
 
 def test_busy_time_is_the_union_of_intervals():
@@ -58,6 +58,34 @@ def test_corr_sweep_variants_hold_each_plan(level):
         assert any(all(v[k] == plan[k] for k in keys) for v in variants)
         assert all(v["smem_bytes"] <= kcorr.SMEM_LIMIT for v in variants)
         assert all(v["threads"] <= kcorr.MAX_THREADS for v in variants)
+
+
+@pytest.mark.parametrize("level", [6, 5, 4, 3, 2])
+def test_corr_sweep_k3_bf16_variants_hold_its_plan(level):
+    """At every PWC level the K3-bf16 variants include its own plan and
+    every count of rows a stage, and every variant fits 227 KB and 8 warps
+    and holds the layout the C entry recomputes."""
+    md, stride = level_displacement(level)
+    shape = (32, ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level)
+    n = kcorr.num_displacements(md, stride)
+    variants = list(corr_sweep.k3_bf16_variants(*shape[1:], md, stride))
+    plan = kcorr.bwd_cl_plan_bf16(*shape, md, stride)
+    assert any(all(v[k] == plan[k] for k in kcorr.BWD_BF16_LAUNCH_KEYS) for v in variants)
+    most = min(kcorr.rows_max(n, stride, shape[2]), kcorr.BF16_ROWS_PER_STAGE)
+    assert {v["rows_per_stage"] for v in variants} == set(range(1, most + 1))
+    for v in variants:
+        assert v["threads"] <= 32 * kcorr.BF16_MAX_WARPS
+        assert v["smem_bytes"] == kcorr.bwd_cl_bf16_layout(
+            stride, n, v["tile_x"], v["chan_blocks"], v["rows_per_stage"], shape[2])["total"]
+        assert v["smem_bytes"] <= kcorr.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", sorted(corr_variants.VARIANTS))
+def test_corr_variants_edits_apply_to_the_source(name):
+    """Each variant's edits find their text exactly once in the kernels'
+    source and change it (all but the source as built)."""
+    text = corr_variants.variant_source(name)
+    assert (text == corr_variants.SOURCE.read_text()) == (name == "as built")
 
 
 def test_profile_steps_builds_the_stereo_steps(monkeypatch):

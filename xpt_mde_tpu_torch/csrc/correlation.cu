@@ -26,8 +26,8 @@
 // and write the other. No tensor cores for float32 operands: wgmma takes no
 // float32, and TF32 would break the 1e-5 tolerance; the work is FFMA fed
 // from shared memory. (bfloat16 operands are another matter: their products
-// are exact in float32, and the bfloat16 K2 and K4 in correlation_bf16.cu
-// take them on the tensor cores.)
+// are exact in float32, and the bfloat16 K2, K3 and K4 in
+// correlation_bf16.cu take them on the tensor cores.)
 // The TPU design (whole padded frames resident in VMEM, one dy row per grid
 // step with an f32 scratch carried across grid steps, XLA pre-slicing the dy
 // windows so Mosaic only takes static lane slices) existed for VMEM and the
@@ -96,29 +96,9 @@
 // each kernel places its window from its own first offset. The sum over
 // displacements keeps a fixed order and adds exact zeros for out-of-frame
 // columns.
-//
-// bfloat16. The JAX package computes in bfloat16 by default, and then its
-// Pallas kernels take and give bfloat16: each operand read as float32,
-// products summed in a float32 accumulator, divided by C, rounded once to
-// bfloat16 (ops/pallas/correlation.py:76-150). K3's bfloat16 form is this
-// file's template on T, the element type of global memory (float or
-// __nv_bfloat16), with its own C entry (xpt_corr_bwd_cl_bf16): shared
-// memory and the register loops stay float32, a bfloat16 row is staged
-// through registers (8-byte loads of 4 values where the row allows, else
-// one value) and converted as it is stored, so the layouts, plans, bank
-// skews and inner loops are the float32 ones, and global memory moves half
-// the bytes. (A bfloat16 row cannot take cp.async as it is: a copy is 4, 8
-// or 16 bytes of raw data, and the stride padding puts 2-byte values of
-// rows at odd offsets at strides 1-4.) The float32 instantiations are the
-// code as it was: the same plans, the same instructions, the same bits.
-// The result is rounded once with __float2bfloat16_rn of the sum divided by
-// C. The bfloat16 K2 and K4 are kernels of their own (correlation_bf16.cu,
-// the same library): bfloat16 in shared memory by TMA, band products on
-// the tensor cores.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -155,34 +135,6 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   }
 }
 
-// One unit of kUnit values from global to shared memory, as float32. A
-// float row is copied raw with cp.async; a bfloat16 row is loaded through
-// registers (kUnit 4: one 8-byte load, 8-byte aligned) and converted. (Four
-// units a thread in flight before their stores timed slower on the card.)
-template <int kUnit>
-__device__ __forceinline__ void stage_unit(float* dst, const float* src) {
-  cp_async<kUnit>(dst, src);
-}
-
-template <int kUnit>
-__device__ __forceinline__ void stage_unit(float* dst, const __nv_bfloat16* src) {
-  if constexpr (kUnit == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(src);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
-  } else {
-    *dst = __bfloat162float(*src);
-  }
-}
-
-// A float32 result in T: float as it is, bfloat16 rounded to nearest even.
-__device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
-
-// four results at a 4-value boundary: one float4
-__device__ __forceinline__ void put4(float* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
-
 // How the block's warps walk rows of up to `units` units: each warp takes
 // 32 / units rows per pass where rows are shorter than a warp. One division
 // per thread, none in the loops.
@@ -217,7 +169,7 @@ __device__ __forceinline__ void stage_rows(SrcRow src_row, DstRow dst_row, Cols 
     const auto* srow = src_row(r);
     float* drow = dst_row(r);
     for (int u = rl.u0; u < c.y; u += rl.step) {
-      stage_unit<kUnit>(drow + padded(c.x + u * kUnit, stride), srow + u * kUnit);
+      cp_async<kUnit>(drow + padded(c.x + u * kUnit, stride), srow + u * kUnit);
     }
   }
 }
@@ -262,14 +214,13 @@ __host__ __device__ inline FwdLayout fwd_layout(int tile_x, int n, int stride, i
 // rows_per_stage displacement rows per stage, in one buffer.
 // kVec: rows are staged 4 values at a time (stride, md and W multiples of
 // 4, cl and cr aligned to 4 values). kVecOut: outputs go out 4 at a time (W
-// a multiple of 4, out aligned to 4 values). T: float (the bfloat16 K2 is
-// correlation_bf16.cu's).
+// a multiple of 4, out aligned to 4 values).
 // At most 128 registers (two blocks of 256 threads, or four of 128, an SM):
 // uncapped, K2 took 158-160 and levels 2-3 lost their fourth block an SM.
-template <typename T, bool kVec, bool kVecOut>
+template <bool kVec, bool kVecOut>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
-                T* __restrict__ out, int channels, int height, int width, int md,
+corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
+                float* __restrict__ out, int channels, int height, int width, int md,
                 int stride, int n, int tile_x, int rows_per_stage, int chan_groups, int skew,
                 int slot_skew) {
   constexpr int kUnit = kVec ? 4 : 1;
@@ -283,9 +234,9 @@ corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
   const int y = blockIdx.y;
   const int xt = blockIdx.x * tile_x;
   const int hw = height * width;
-  const T* clb = cl + static_cast<size_t>(b) * channels * hw + y * width + xt;
-  const T* crb = cr + static_cast<size_t>(b) * channels * hw;
-  T* outb = out + static_cast<size_t>(b) * n * n * hw + y * width + xt;
+  const float* clb = cl + static_cast<size_t>(b) * channels * hw + y * width + xt;
+  const float* crb = cr + static_cast<size_t>(b) * channels * hw;
+  float* outb = out + static_cast<size_t>(b) * n * n * hw + y * width + xt;
   float* s_cl = smem;
   float* s_buf = smem + lay.cl_area;
   float* s_part = smem + lay.part;
@@ -320,7 +271,7 @@ corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
   // stage displacement rows i0 .. i0 + count - 1, one slot each
   auto stage = [&](int i0, int count) {
     for (int k = 0; k < count; ++k) {
-      const T* cr_k = crb + ((y + (i0 + k) * s - md) * width + xt - md + l_lo);
+      const float* cr_k = crb + ((y + (i0 + k) * s - md) * width + xt - md + l_lo);
       float* slot_k = s_buf + k * slot;
       stage_rows<kUnit>([=](int r) { return cr_k + static_cast<size_t>(r) * hw; },
                         [=](int r) { return slot_k + r * cr_pitch; },
@@ -345,7 +296,7 @@ corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
     const RowLanes rl = row_lanes(kVecOut ? x_hi / 4 : x_hi);
     if (!rl.on) return;
     for (int e = rl.first; e < rows; e += rl.next) {
-      T* dst = outb + static_cast<size_t>(plane(e)) * hw;
+      float* dst = outb + static_cast<size_t>(plane(e)) * hw;
       const float* src = part(e);
       auto value = [&](int x) {
         if (src == nullptr) return 0.0f;
@@ -372,10 +323,10 @@ corr_fwd_kernel(const T* __restrict__ cl, const T* __restrict__ cr,
           } else if (src != nullptr) {
             v4 = make_float4(value(x), value(x + 1), value(x + 2), value(x + 3));
           }
-          put4(dst + x, v4);
+          *reinterpret_cast<float4*>(dst + x) = v4;
         }
       } else {
-        for (int x = rl.u0; x < x_hi; x += rl.step) put(dst + x, value(x));
+        for (int x = rl.u0; x < x_hi; x += rl.step) dst[x] = value(x);
       }
     }
   };
@@ -498,12 +449,11 @@ __host__ __device__ inline BwdLayout bwd_layout(int tile_x, int chan_blocks, int
 // chan_blocks * kChan channels; rows_per_stage displacement rows per stage,
 // in `buffers` (1 or 2) buffers. kDcr: K4 (feat = cl, out = dcr), else K3
 // (feat = cr, out = dcl). kVec: the rows are staged 4 values at a time
-// (stride, md and W multiples of 4, g and feat aligned to 4 values). T:
-// float or __nv_bfloat16.
-template <typename T, bool kVec, bool kDcr>
+// (stride, md and W multiples of 4, g and feat aligned to 4 values).
+template <bool kVec, bool kDcr>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
-                T* __restrict__ dfeat, int channels, int height, int width, int md,
+corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
+                float* __restrict__ dfeat, int channels, int height, int width, int md,
                 int stride, int n, int tile_x, int chan_blocks, int cb_skew,
                 int rows_per_stage, int buffers) {
   constexpr int kUnit = kVec ? 4 : 1;
@@ -518,8 +468,8 @@ corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
   const int y = blockIdx.y;
   const int xt = blockIdx.x * tile_x;
   const int hw = height * width;
-  const T* gb = g + static_cast<size_t>(b) * n * n * hw + xt;
-  const T* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw;
+  const float* gb = g + static_cast<size_t>(b) * n * n * hw + xt;
+  const float* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw;
 
   // Zero the buffers once. Staging then writes only in-frame columns and
   // real channels, the same set for every displacement row, so the frame's
@@ -557,7 +507,7 @@ corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
     for (int k = 0; k < count; ++k) {
       const int i = i0 + k;
       const int row = kDcr ? y + md - i * s : y - md + i * s;
-      const T* f_k = fb + (row * width + xt - lead + l_lo);
+      const float* f_k = fb + (row * width + xt - lead + l_lo);
       float* slot_k = buffer + k * slot;
       float* g_slot = slot_k + chan_blocks * cb_pitch;
       stage_rows<kUnit>(
@@ -568,7 +518,7 @@ corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
       if (kDcr) {
         // g row (i, j) at the cl row, in slot position m = n - 1 - j, from
         // frame column x' - o_j: staged column x holds column xt + x - o_j
-        const T* g_k = gb + static_cast<size_t>(i) * n * hw + row * width;
+        const float* g_k = gb + static_cast<size_t>(i) * n * hw + row * width;
         stage_rows<kUnit>(
             [=](int m) {
               const int j = n - 1 - m, o = j * s - md;
@@ -583,7 +533,7 @@ corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
             n, x_hi / kUnit, s);
       } else {
         // g rows (i, j) of the block's own row, in slot position j
-        const T* g_k = gb + static_cast<size_t>(i) * n * hw + y * width;
+        const float* g_k = gb + static_cast<size_t>(i) * n * hw + y * width;
         stage_rows<kUnit>([=](int m) { return g_k + static_cast<size_t>(m) * hw; },
                           [=](int m) { return g_slot + m * g_pitch; },
                           [=](int) { return make_int2(0, x_hi / kUnit); }, n, x_hi / kUnit, s);
@@ -676,20 +626,19 @@ corr_bwd_kernel(const T* __restrict__ g, const T* __restrict__ feat,
   __syncthreads();
   const RowLanes rl = row_lanes(x_hi);
   if (!rl.on) return;
-  T* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw + y * width + xt;
+  float* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw + y * width + xt;
   for (int r = rl.first; r < c_hi; r += rl.next) {
     for (int x = rl.u0; x < x_hi; x += rl.step) {
-      put(out + static_cast<size_t>(r) * hw + x,
-          smem[r * g_pitch + padded(x, s)] / static_cast<float>(channels));
+      out[static_cast<size_t>(r) * hw + x] =
+          smem[r * g_pitch + padded(x, s)] / static_cast<float>(channels);
     }
   }
 }
 
 int displacements(int md, int stride) { return 2 * md / stride + 1; }
 
-// the 4-value vector paths need 4 * sizeof(T) byte alignment
-template <typename T>
-bool aligned4(const T* p) { return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0; }
+// the 4-value vector paths need 16-byte alignment
+bool aligned4(const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Opts in above the default 48 KB of dynamic shared memory, then launches.
 template <typename Kernel, typename... Args>
@@ -705,8 +654,8 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, void* stream, 
 
 // K3 (kDcr false) or K4 (true): checks the plan, picks the staging width and
 // launches.
-template <typename T, bool kDcr>
-int corr_bwd(const T* g, const T* feat, T* dfeat, int batch, int channels,
+template <bool kDcr>
+int corr_bwd(const float* g, const float* feat, float* dfeat, int batch, int channels,
              int height, int width, int md, int stride, int tile_x, int chan_blocks,
              int cb_skew, int rows_per_stage, int buffers, int threads, int smem_bytes,
              void* stream) {
@@ -733,17 +682,16 @@ int corr_bwd(const T* g, const T* feat, T* dfeat, int batch, int channels,
   }
   const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned4(g)
                    && aligned4(feat);
-  const auto kernel = vec ? corr_bwd_kernel<T, true, kDcr> : corr_bwd_kernel<T, false, kDcr>;
+  const auto kernel = vec ? corr_bwd_kernel<true, kDcr> : corr_bwd_kernel<false, kDcr>;
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
   return launch(kernel, grid, threads, smem_bytes, stream, g, feat, dfeat, channels, height,
                 width, md, stride, n, tile_x, chan_blocks, cb_skew, rows_per_stage, buffers);
 }
 
 // K2: checks the plan, picks the staging and store widths and launches.
-template <typename T>
-int corr_fwd(const T* cl, const T* cr, T* out, int batch, int channels, int height, int width,
-             int md, int stride, int tile_x, int rows_per_stage, int chan_groups, int skew,
-             int slot_skew, int threads, int smem_bytes, void* stream) {
+int corr_fwd(const float* cl, const float* cr, float* out, int batch, int channels, int height,
+             int width, int md, int stride, int tile_x, int rows_per_stage, int chan_groups,
+             int skew, int slot_skew, int threads, int smem_bytes, void* stream) {
   if (static_cast<long long>(batch) * height * width == 0) return static_cast<int>(cudaSuccess);
   if (tile_x <= 0 || stride <= 0 || md < 0 || channels <= 0 || chan_groups <= 0
       || chan_groups > channels) {
@@ -768,10 +716,9 @@ int corr_fwd(const T* cl, const T* cr, T* out, int batch, int channels, int heig
   const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned4(cl)
                    && aligned4(cr);
   const bool vec_out = width % 4 == 0 && aligned4(out);
-  const auto kernel = vec ? (vec_out ? corr_fwd_kernel<T, true, true>
-                                     : corr_fwd_kernel<T, true, false>)
-                          : (vec_out ? corr_fwd_kernel<T, false, true>
-                                     : corr_fwd_kernel<T, false, false>);
+  const auto kernel = vec ? (vec_out ? corr_fwd_kernel<true, true> : corr_fwd_kernel<true, false>)
+                          : (vec_out ? corr_fwd_kernel<false, true>
+                                     : corr_fwd_kernel<false, false>);
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch);
   return launch(kernel, grid, threads, smem_bytes, stream, cl, cr, out, channels, height, width,
                 md, stride, n, tile_x, rows_per_stage, chan_groups, skew, slot_skew);
@@ -815,7 +762,7 @@ extern "C" int xpt_corr_bwd_cl(const float* g, const float* cr, float* dcl,
                                int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<float, false>(g, cr, dcl, batch, channels, height, width, md, stride, tile_x,
+  return corr_bwd<false>(g, cr, dcl, batch, channels, height, width, md, stride, tile_x,
                          chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
                          stream);
 }
@@ -827,19 +774,7 @@ extern "C" int xpt_corr_bwd_cr(const float* g, const float* cl, float* dcr,
                                int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<float, true>(g, cl, dcr, batch, channels, height, width, md, stride, tile_x,
+  return corr_bwd<true>(g, cl, dcr, batch, channels, height, width, md, stride, tile_x,
                         chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
                         stream);
-}
-
-// xpt_corr_bwd_cl on bfloat16 g, cr and dcl: the same plan, a float32
-// sum, divided by C, rounded once.
-extern "C" int xpt_corr_bwd_cl_bf16(const __nv_bfloat16* g, const __nv_bfloat16* cr,
-                                    __nv_bfloat16* dcl, int batch, int channels, int height,
-                                    int width, int md, int stride, int tile_x, int chan_blocks,
-                                    int cb_skew, int rows_per_stage, int buffers, int threads,
-                                    int smem_bytes, void* stream) {
-  return corr_bwd<__nv_bfloat16, false>(g, cr, dcl, batch, channels, height, width, md, stride,
-                                        tile_x, chan_blocks, cb_skew, rows_per_stage, buffers,
-                                        threads, smem_bytes, stream);
 }

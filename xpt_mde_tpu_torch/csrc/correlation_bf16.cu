@@ -1,39 +1,45 @@
-// K2-bf16 and K4-bf16: the PWC-Net cost volume and the gradient of its
-// right features on bfloat16 operands, CUDA C++ for Hopper (sm_90a).
+// K2-bf16, K3-bf16 and K4-bf16: the PWC-Net cost volume and the gradients
+// of its left and right features on bfloat16 operands, CUDA C++ for Hopper
+// (sm_90a).
 //
 // K2-bf16 replaces the Pallas TPU kernel xpt_mde_tpu/ops/pallas/
-// correlation.py::_corr_kernel (:68, launched by _corr_forward) and K4-bf16
-// _corr_grad_cr_kernel (:119, launched by _bwd_dcr_spmd), both as the JAX
+// correlation.py::_corr_kernel (:68, launched by _corr_forward), K3-bf16
+// _corr_grad_cl_kernel (:88, launched by _bwd_dcl_spmd) and K4-bf16
+// _corr_grad_cr_kernel (:119, launched by _bwd_dcr_spmd), all as the JAX
 // package runs them at its default compute dtype: bfloat16 operands, each
 // read as float32, products summed in float32, the sum divided by C and
 // rounded once to bfloat16 (round to nearest even). With offsets
 // o_i = -md + i * stride (i < n, n = 2 * md / stride + 1), NCHW:
 //
 //   K2  out[b,i*n+j,y,x]  = bf16((sum_c cl[b,c,y,x] * cr[b,c,y+o_i,x+o_j]) / C)
+//   K3  dcl[b,c,y,x]      = bf16((sum_{i,j} g[b,i*n+j,y,x] * cr[b,c,y+o_i,x+o_j]) / C)
 //   K4  dcr[b,c,y',x']    = bf16((sum_{i,j} g[b,i*n+j,y'-o_i,x'-o_j]
 //                                           * cl[b,c,y'-o_i,x'-o_j]) / C)
 //
 // where a term whose shifted position lies outside the frame is zero: the
-// plain versions xpt_mde_tpu_torch/ops/correlation.py::correlation_cost_plain
-// and correlation_grad_cr_plain, up to the order of the float32 sums. Every
-// sum has a fixed order and nothing is added atomically: the same inputs
-// give the same bits on every run and on every staging path.
+// plain versions xpt_mde_tpu_torch/ops/correlation.py::correlation_cost_plain,
+// correlation_grad_cl_plain and correlation_grad_cr_plain, up to the order
+// of the float32 sums. Every sum has a fixed order and nothing is added
+// atomically: the same inputs give the same bits on every run and on every
+// staging path.
 //
-// What bounds them on this card. Bytes at levels 2-3 (level 2: 38 MB of
-// bfloat16 in and out, 11.4 us at 3.35 TB/s); at levels 4-6 latency and
-// the size of the grid (64 to 256 image rows of work, a copy round trip
-// and a few barriers each). The arithmetic is not the bound: products of
-// two bfloat16 values are exact in float32, so the tensor cores take it
-// (mma.sync m16n8k16, bfloat16 in, float32 accumulators), and the cost
-// left is feeding them from shared memory.
+// What bounds them on this card. Bytes at levels 2-3 (level 2, 32 pairs:
+// K2 38 MB of bfloat16 in and out, 11.3 us at 3.35 TB/s; K3 and K4 25 MB,
+// 7.4 us, as they need g only at the in-frame terms, as chip_smoke.py's
+// bound counts them); at levels 4-6 latency and the size of the grid (64
+// to 256 image rows of work, a copy round trip and a few barriers each).
+// The arithmetic is not the bound: products of two bfloat16 values are
+// exact in float32, so the tensor cores take it (mma.sync m16n8k16,
+// bfloat16 in, float32 accumulators), and the cost left is feeding them
+// from shared memory.
 //
-// The design, for both kernels:
+// The design, for the three kernels:
 // - a block owns one image row and a tile of columns (K2: and a group of
-//   displacement rows; K4: and a chunk of channels), and stages the rows it
-//   needs as raw bfloat16 in shared memory: one TMA box ([W, H, C, B] tensor
-//   maps from cuTensorMapEncodeTiled, looked up in libcuda.so.1 at run time,
-//   so the library links no -lcuda) per staged row, completing on an
-//   mbarrier.
+//   displacement rows; K3 and K4: and a chunk of channels), and stages the
+//   rows it needs as raw bfloat16 in shared memory: one TMA box ([W, H, C,
+//   B] tensor maps from cuTensorMapEncodeTiled, looked up in libcuda.so.1
+//   at run time, so the library links no -lcuda) per staged row, completing
+//   on an mbarrier.
 //   A box starts at a multiple of 8 columns (16 bytes; a box starting
 //   elsewhere in its row faults), so a window is staged from the multiple
 //   of 8 at or left of its first column and read 0-7 columns on. A box
@@ -52,25 +58,31 @@
 //   K2: D[p, q] = sum_c cl[c, p] * cr_i[c, q], a 16 x 24 product of which the
 //     9 diagonals q - p = j are the outputs: per 16 channels one A fragment
 //     and three n8 tiles;
+//   K3: D[c, p] = sum_q cr_i[c, q] * G[q, p] with G[q, p] = g[(i, m)] at
+//     the pixel's own column p where m = q - p lies in the band, else 0;
 //   K4: D[c, p] = sum_q cl_r[c, q] * G[q, p] with G[q, p] = g[(i, n-1-m)]
-//     at window column q where m = q - p lies in the band, else 0: per 16
-//     channels and 8 pixels one m16n8k16 over 16 window columns, the
-//     B fragment built by each thread from the staged g rows;
+//     at window column q where m = q - p lies in the band, else 0;
+//   K3 and K4: per 16 channels and 8 pixels one m16n8k16 over 16 window
+//     columns, the B fragment built by each thread from the staged g;
 //   a warp owns one such tile (its fragments gathered from the staged rows
 //   as pairs of bfloat16), and the float32 accumulators go out through
 //   shared memory as whole rows, 16 bytes a lane where W % 8 == 0;
 // - K2 holds a group of at most kFwdRows in-frame displacement rows at once
 //   and takes the channels outermost, so one A fragment feeds every row of
-//   the group; K4 accumulates all in-frame rows in registers and stages
-//   them kRowsPerStage at a time, each row on its own mbarrier so that the
-//   first rows' MMAs start while the last ones are still in flight;
+//   the group; K3 and K4 accumulate all in-frame rows in registers and
+//   stage them kRowsPerStage at a time, each row on its own mbarrier so
+//   that the first rows' MMAs start while the last ones are still in
+//   flight. K4 stages the n g rows of each displacement row with its cl
+//   row, over the window; K3 reads g only at its own image row and stages
+//   the g rows of its in-frame displacement rows once, over the tile, on a
+//   barrier of their own (g of an out-of-frame row is never read);
 // - the grid has at least two blocks an SM at every PWC level: K2 splits
 //   the displacement rows into groups (a group with no in-frame row writes
-//   zero planes), K4 the channels into chunks;
-// - the launch plans are Python (ops/kernels/correlation.py::fwd_plan_bf16
-//   and bwd_cr_plan_bf16), so CPU tests check them and an emulation of the
-//   band products; each entry recomputes the layout and refuses a plan that
-//   does not match.
+//   zero planes), K3 and K4 the channels into chunks;
+// - the launch plans are Python (ops/kernels/correlation.py::fwd_plan_bf16,
+//   bwd_cl_plan_bf16 and bwd_cr_plan_bf16), so CPU tests check them and an
+//   emulation of the band products; each entry recomputes the layout and
+//   refuses a plan that does not match.
 //
 // The last step keeps the JAX kernel's: the float32 sum divided by C,
 // rounded to nearest (div_rn gives the division's bits without its slow
@@ -91,8 +103,8 @@ using u16 = unsigned short;
 constexpr int kTileP = 16;        // pixels of one residue class in a tile
 constexpr int kJ = 9;             // displacements one band product takes
 constexpr int kFwdRows = 4;       // K2: in-frame displacement rows a block holds
-constexpr int kGroupBlocks = 4;   // K4: 16-channel blocks one warp accumulates
-constexpr int kRowsPerStage = 4;  // K4: rows one stage holds at most
+constexpr int kGroupBlocks = 4;   // K3, K4: 16-channel blocks one warp accumulates
+constexpr int kRowsPerStage = 4;  // K3, K4: rows one stage holds at most
 constexpr int kMaxWarps = 8;      // one tile a warp; at most 80 registers a thread, so
                                   // three blocks of 8 warps fit an SM
 constexpr int kSmemLimit = 232448;
@@ -137,6 +149,13 @@ __host__ __device__ inline ChanBoxes chan_boxes(int channels) {
   return {((padded + count - 1) / count + 7) / 8 * 8, count};
 }
 
+// K3 stages the planes of its g tile as `count` boxes of `box` planes (each
+// at most 256, a multiple of 8: each box starts 128-byte aligned).
+__host__ __device__ inline ChanBoxes plane_boxes(int planes) {
+  const int count = (planes + kBoxMax - 1) / kBoxMax;
+  return {((planes + count - 1) / count + 7) / 8 * 8, count};
+}
+
 // K2's shared memory: the cl tile [chans][cl_pitch], then `rows` cr rows
 // [chans][row_pitch]; after the MMAs the rows' region holds the float32
 // sums [rows * n][part_pitch]. `total` includes 128 bytes to align the base.
@@ -179,6 +198,32 @@ __host__ __device__ inline BwdLayout bwd_layout(int stride, int n, int tile_x, i
   lay.slot = lay.cl_bytes + lay.g_bytes;
   const int part_bytes = align128(lay.chans * lay.part_pitch * 4);
   lay.total = 128 + (rows * lay.slot > part_bytes ? rows * lay.slot : part_bytes);
+  return lay;
+}
+
+// K3's shared memory: the g tile [g_planes][g_pitch] (the n g rows of each
+// displacement row that can lie in the frame, rows_max of them, from the
+// block's first in-frame row on: as plane_boxes stages them, over the
+// tile's columns), then `rows` slots of the chunk's cr row [chans][pitch];
+// after the MMAs the float32 sums [chans][part_pitch].
+struct BwdClLayout {
+  int chans, pitch, g_pitch, g_planes, g_bytes, row_bytes, part_pitch, total;
+};
+
+__host__ __device__ inline BwdClLayout bwd_cl_layout(int stride, int n, int tile_x,
+                                                     int chan_blocks, int rows, int height) {
+  BwdClLayout lay;
+  const ChanBoxes planes = plane_boxes(rows_max(n, stride, height) * n);
+  lay.chans = chan_blocks * 16;
+  lay.pitch = stage_pitch(window_cols(tile_x, stride, n));
+  lay.g_pitch = stage_pitch(tile_x);
+  lay.g_planes = planes.box * planes.count;
+  lay.g_bytes = align128(lay.g_planes * lay.g_pitch * 2);
+  lay.row_bytes = lay.chans * lay.pitch * 2;
+  lay.part_pitch = tile_x + 4;
+  const int staged = lay.g_bytes + rows * lay.row_bytes;
+  const int part_bytes = align128(lay.chans * lay.part_pitch * 4);
+  lay.total = 128 + (staged > part_bytes ? staged : part_bytes);
   return lay;
 }
 
@@ -328,6 +373,69 @@ __device__ void store_rows(u16* dst, size_t plane, int rows, const float* src, i
       }
     }
   }
+}
+
+// A K3 or K4 warp's float32 accumulators: kGroupBlocks 16-channel blocks x
+// two n8 pixel tiles, one m16n8 fragment each.
+using BwdAcc = float[kGroupBlocks][2][4];
+
+// One 16-column step of a K3 or K4 warp's band products: A is the staged
+// feature row s_f (row pitch `pitch`), channel rows gq and gq + 8 of each
+// of the warp's `blocks` 16-channel blocks (16 (kGroupBlocks grp + q) on);
+// pixel tile 0 takes window columns wa + s kk for kk = 0, 1, 8, 9 (wa: the
+// lane's kk = 2 tig), tile 1 slides 8 columns on; B is the lane's bf.
+__device__ __forceinline__ void band_mma(BwdAcc& acc, const u16* s_f, int pitch, int wa, int s,
+                                         int grp, int blocks, int gq,
+                                         const uint32_t (&bf)[2][2]) {
+#pragma unroll
+  for (int q = 0; q < kGroupBlocks; ++q) {
+    if (q < blocks) {
+      const u16* pa = s_f + (16 * (kGroupBlocks * grp + q) + gq) * pitch + wa;
+      const u16* pc = pa + 8 * pitch;
+      const uint32_t a0 = pack(pa[0], pa[s]);
+      const uint32_t a1 = pack(pc[0], pc[s]);
+      const uint32_t a2 = pack(pa[8 * s], pa[9 * s]);
+      const uint32_t a3 = pack(pc[8 * s], pc[9 * s]);
+      mma(acc[q][0], a0, a1, a2, a3, bf[0][0], bf[0][1]);
+      mma(acc[q][1], a2, a3, pack(pa[16 * s], pa[17 * s]), pack(pc[16 * s], pc[17 * s]),
+          bf[1][0], bf[1][1]);
+    }
+  }
+}
+
+// The last step of a K3 or K4 block, reached by all its threads: once every
+// warp has read the staged rows, the working warps put their sums D[c][p]
+// into s_part [chans][part_pitch] (the lane holds channel rows gq + 8h and
+// pixels 2 tig + e of each tile of class cls, class tile ct), and the
+// block writes the chunk's `rows` output rows from `out` (plane pitch hw),
+// x_hi columns each, as store_rows does over `channels`.
+__device__ __forceinline__ void store_sums(const BwdAcc& acc, bool working, int grp, int blocks,
+                                           int cls, int ct, int s, float* s_part,
+                                           int part_pitch, u16* out, size_t hw, int rows,
+                                           int x_hi, bool vec_out, int channels) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tig = lane & 3;
+  __syncthreads();  // every warp has read the staged rows: their region takes the sums
+  if (working) {
+#pragma unroll
+    for (int q = 0; q < kGroupBlocks; ++q) {
+      if (q < blocks) {
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ch = 16 * (kGroupBlocks * grp + q) + gq + 8 * h;
+              const int x = cls + s * (kTileP * ct + 8 * pt + 2 * tig + e);
+              s_part[ch * part_pitch + x] = acc[q][pt][2 * h + e];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  store_rows(out, hw, rows, s_part, part_pitch, x_hi, vec_out, static_cast<float>(channels));
 }
 
 // ---------------------------------------------------------------- K2-bf16
@@ -484,6 +592,136 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
              x_hi, vec_out, c_f);
 }
 
+// ---------------------------------------------------------------- K3-bf16
+
+// grid (x tiles, H, B * channel chunks); block: one warp per (class tile,
+// group of up to kGroupBlocks 16-channel blocks), as K4-bf16. The block
+// stages its g tile once, on a barrier of its own: the g rows (i, j) of
+// image row y from its first in-frame displacement row i_lo on, frame
+// columns xt .. (g of an out-of-frame row is never read). Its in-frame
+// rows' cr rows y - md + i * s go through `rows_per_stage` slots, one
+// mbarrier each, from frame column xt - md on: pixel x = xt + X of term j
+// reads window column X + s * j of the cr row and column X of g row (i, j).
+__global__ void __launch_bounds__(kMaxWarps * 32, 3)
+corr_bwd_cl_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
+                        const __grid_constant__ CUtensorMap map_cr, const u16* __restrict__ g,
+                        const u16* __restrict__ cr, u16* __restrict__ dcl, int channels,
+                        int height, int width, int md, int s, int n, int tile_x,
+                        int chan_blocks, int rows_per_stage, int tma, int vec_out) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kRowsPerStage + 1];  // the slots', then the g tile's
+  uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  const BwdClLayout lay = bwd_cl_layout(s, n, tile_x, chan_blocks, rows_per_stage, height);
+  const ChanBoxes planes = plane_boxes(rows_max(n, s, height) * n);
+  const int pitch = lay.pitch, g_pitch = lay.g_pitch, row_elems = lay.row_bytes / 2;
+  u16* s_g = reinterpret_cast<u16*>(smem);
+  u16* s_rows = reinterpret_cast<u16*>(smem + lay.g_bytes);
+  float* s_part = reinterpret_cast<float*>(smem);
+  uint64_t* g_bar = &bars[kRowsPerStage];
+
+  const int chunks_c = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
+  const int b = blockIdx.z / chunks_c, c0 = (blockIdx.z - b * chunks_c) * lay.chans;
+  const int y = blockIdx.y, xt = blockIdx.x * tile_x;
+  const size_t hw = static_cast<size_t>(height) * width;
+  // the displacement rows i whose cr row y - md + i * s lies in the frame
+  const int i_lo = md > y ? (md - y + s - 1) / s : 0;
+  const int i_hi = min(n - 1, (height - 1 - y + md) / s);
+  const int in_frame = max(0, i_hi - i_lo + 1);
+  const int stages = (in_frame + rows_per_stage - 1) / rows_per_stage;
+  // the cr window starts at frame column col0, staged column sh
+  const int col0 = xt - md;
+  const int sh = lead8(col0);
+
+  // this warp's tile: class cls, class tile ct, channel blocks 4 grp ..
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tig = lane & 3;
+  const int wgroups = (chan_blocks + kGroupBlocks - 1) / kGroupBlocks;
+  const bool working = warp < (tile_x / kTileP) * wgroups;
+  const int grp = warp % wgroups;
+  const int cls = (warp / wgroups) % s, ct = (warp / wgroups) / s;
+  const int blocks = min(kGroupBlocks, chan_blocks - kGroupBlocks * grp);
+  // the lane's pixel (B's column gq) of n8 tile 0, a tile column; tile 1's
+  // is 8 * s on
+  const int xg = cls + s * (kTileP * ct + gq);
+  BwdAcc acc = {};
+
+  // the g tile, once; a block with no in-frame row stages nothing and
+  // writes zeros
+  if (stages > 0) {
+    if (tma) {
+      if (threadIdx.x == 0) {
+        for (int k = 0; k <= kRowsPerStage; ++k) mbar_init(&bars[k]);
+        mbar_fence_init();
+        mbar_expect(g_bar, lay.g_planes * g_pitch * 2);
+        for (int q = 0; q < planes.count; ++q) {
+          tma_load(s_g + q * planes.box * g_pitch, &map_g, xt, y, i_lo * n + q * planes.box, b,
+                   g_bar);
+        }
+      }
+    } else {
+      stage_plain(s_g, g + (static_cast<size_t>(b) * n * n + i_lo * n) * hw
+                           + static_cast<size_t>(y) * width,
+                  hw, lay.g_planes, (n - i_lo) * n, g_pitch, xt, width);
+    }
+  }
+  for (int st = 0; st < stages; ++st) {
+    const int i0 = i_lo + st * rows_per_stage;
+    const int count = min(rows_per_stage, i_hi - i0 + 1);
+    __syncthreads();  // the barriers are set up; the last stage's rows are read
+    if (tma) {
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        for (int k = 0; k < count; ++k) {
+          mbar_expect(&bars[k], lay.row_bytes);
+          tma_load(s_rows + k * row_elems, &map_cr, col0 - sh, y - md + (i0 + k) * s, c0, b,
+                   &bars[k]);
+        }
+      }
+    } else {
+      for (int k = 0; k < count; ++k) {
+        stage_plain(s_rows + k * row_elems,
+                    cr + (static_cast<size_t>(b) * channels + c0) * hw
+                        + static_cast<size_t>(y - md + (i0 + k) * s) * width,
+                    hw, lay.chans, channels - c0, pitch, col0 - sh, width);
+      }
+      __syncthreads();
+    }
+    if (tma && working && st == 0) mbar_wait(g_bar, 0);
+    for (int k = 0; working && k < count; ++k) {
+      if (tma) mbar_wait(&bars[k], st & 1);
+      const u16* s_cr = s_rows + k * row_elems;
+      const u16* s_gi = s_g + (i0 + k - i_lo) * n * g_pitch;  // g row (i, 0)
+      for (int m0 = 0; m0 < n; m0 += kJ) {
+        // B of n8 tile pt: (q = 8 pt + m0 + kk, p = 8 pt + gq) for the lane's
+        // kk = 2 tig + e + 8 h; j = q - p = m0 + kk - gq in the band: g row
+        // (i, j) at the pixel's column, the same j for both tiles
+        uint32_t bf[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          u16 v[2][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = m0 + 2 * tig + e + 8 * h - gq;
+            const bool on = j >= m0 && j < m0 + kJ && j < n;
+            // off the band the loads read g row (i, 0), in range, and are dropped
+            const u16* pg = s_gi + (on ? j : 0) * g_pitch + xg;
+            v[0][e] = on ? pg[0] : u16(0);
+            v[1][e] = on ? pg[8 * s] : u16(0);
+          }
+          bf[0][h] = pack(v[0][0], v[0][1]);
+          bf[1][h] = pack(v[1][0], v[1][1]);
+        }
+        band_mma(acc, s_cr, pitch, sh + cls + s * (kTileP * ct + m0 + 2 * tig), s, grp,
+                 blocks, gq, bf);
+      }
+    }
+  }
+  store_sums(acc, working, grp, blocks, cls, ct, s, s_part, lay.part_pitch,
+             dcl + (static_cast<size_t>(b) * channels + c0) * hw + static_cast<size_t>(y) * width
+                 + xt,
+             hw, min(lay.chans, channels - c0), min(tile_x, width - xt), vec_out, channels);
+}
+
 // ---------------------------------------------------------------- K4-bf16
 
 // grid (x tiles, H, B * channel chunks); block: one warp per (class tile,
@@ -528,15 +766,7 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
   const int grp = warp % wgroups;
   const int cls = (warp / wgroups) % s, ct = (warp / wgroups) / s;
   const int blocks = min(kGroupBlocks, chan_blocks - kGroupBlocks * grp);
-  float acc[kGroupBlocks][2][4];
-#pragma unroll
-  for (int q = 0; q < kGroupBlocks; ++q) {
-#pragma unroll
-    for (int pt = 0; pt < 2; ++pt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][pt][e] = 0.0f;
-    }
-  }
+  BwdAcc acc = {};
 
   if (tma && stages > 0 && threadIdx.x == 0) {
     for (int k = 0; k < rows_per_stage; ++k) mbar_init(&bars[k]);
@@ -595,53 +825,15 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
             bf[pt][h] = pack(v[0], v[1]);
           }
         }
-        // A of pt 0: channel rows gq, gq + 8 at window columns kk = 2 tig,
-        // 2 tig + 1, 2 tig + 8, 2 tig + 9; pt 1 slides 8 columns on
-        const int wa = sh + cls + s * (kTileP * ct + m0 + 2 * tig);
-#pragma unroll
-        for (int q = 0; q < kGroupBlocks; ++q) {
-          if (q < blocks) {
-            const u16* pa = s_f + (16 * (kGroupBlocks * grp + q) + gq) * pitch + wa;
-            const u16* pc = pa + 8 * pitch;
-            const uint32_t a0 = pack(pa[0], pa[s]);
-            const uint32_t a1 = pack(pc[0], pc[s]);
-            const uint32_t a2 = pack(pa[8 * s], pa[9 * s]);
-            const uint32_t a3 = pack(pc[8 * s], pc[9 * s]);
-            mma(acc[q][0], a0, a1, a2, a3, bf[0][0], bf[0][1]);
-            mma(acc[q][1], a2, a3, pack(pa[16 * s], pa[17 * s]), pack(pc[16 * s], pc[17 * s]),
-                bf[1][0], bf[1][1]);
-          }
-        }
+        band_mma(acc, s_f, pitch, sh + cls + s * (kTileP * ct + m0 + 2 * tig), s, grp,
+                 blocks, gq, bf);
       }
     }
   }
-  __syncthreads();  // every warp has read the slots: their region takes the sums
-  if (working) {
-    // D[c][p]: the lane holds channel rows gq + 8h and pixels 2 tig + e
-#pragma unroll
-    for (int q = 0; q < kGroupBlocks; ++q) {
-      if (q < blocks) {
-#pragma unroll
-        for (int pt = 0; pt < 2; ++pt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int ch = 16 * (kGroupBlocks * grp + q) + gq + 8 * h;
-              const int x = cls + s * (kTileP * ct + 8 * pt + 2 * tig + e);
-              s_part[ch * lay.part_pitch + x] = acc[q][pt][2 * h + e];
-            }
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const int x_hi = min(tile_x, width - xt);
-  store_rows(dcr + (static_cast<size_t>(b) * channels + c0) * hw + static_cast<size_t>(y) * width
+  store_sums(acc, working, grp, blocks, cls, ct, s, s_part, lay.part_pitch,
+             dcr + (static_cast<size_t>(b) * channels + c0) * hw + static_cast<size_t>(y) * width
                  + xt,
-             hw, min(lay.chans, channels - c0), s_part, lay.part_pitch, x_hi, vec_out,
-             static_cast<float>(channels));
+             hw, min(lay.chans, channels - c0), min(tile_x, width - xt), vec_out, channels);
 }
 
 // ------------------------------------------------------------------- host
@@ -684,6 +876,21 @@ bool encode_map(CUtensorMap* map, const void* base, int batch, int planes, int h
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 int displacements(int md, int stride) { return 2 * md / stride + 1; }
+
+// Whether a K3 or K4 plan holds: tile_x a multiple of 16 * stride, at most
+// 16 channel blocks and 8 warps (one per class tile and group of 4 blocks),
+// 1..4 rows a stage, `threads` the warps', `smem_bytes` the layout's
+// `total` within 227 KB, a grid of at most 65535 rows and images x chunks.
+bool bwd_plan_holds(int batch, int channels, int height, int stride, int tile_x,
+                    int chan_blocks, int rows_per_stage, int threads, int smem_bytes,
+                    int total) {
+  const int chunks = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
+  const int warps = tile_x / kTileP * ((chan_blocks + kGroupBlocks - 1) / kGroupBlocks);
+  return tile_x % (kTileP * stride) == 0 && chan_blocks <= kBoxMax / 16 && rows_per_stage >= 1
+         && rows_per_stage <= kRowsPerStage && warps <= kMaxWarps && threads == 32 * warps
+         && smem_bytes == total && smem_bytes <= kSmemLimit && height <= 65535
+         && static_cast<long long>(batch) * chunks <= 65535;
+}
 
 // Opts in above the default 48 KB of dynamic shared memory, then launches.
 template <typename Kernel, typename... Args>
@@ -742,14 +949,52 @@ extern "C" int xpt_corr_fwd_bf16(const void* cl, const void* cr, void* out, int 
                 vec_out ? 1 : 0);
 }
 
-// g [B,n^2,H,W] (the cotangent of K2's output), cl [B,C,H,W], bfloat16;
-// writes dcr [B,C,H,W] bfloat16. The plan comes from ops/kernels/
-// correlation.py::bwd_cr_plan_bf16: tile_x (a multiple of 16 * stride),
+// g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H,W], bfloat16;
+// writes dcl [B,C,H,W] bfloat16. The plan comes from ops/kernels/
+// correlation.py::bwd_cl_plan_bf16: tile_x (a multiple of 16 * stride),
 // chan_blocks (16-channel blocks a CUDA block, at most 16, one warp per
 // class tile and group of 4), rows_per_stage (1..4), threads and
 // smem_bytes, which must equal this layout and fit 227 KB. Stages by TMA
-// where W % 8 == 0, g and cl are 16-byte aligned and a row fits one box.
-// Launches K4-bf16 on `stream`; returns as xpt_corr_fwd_bf16.
+// where W % 8 == 0, g and cr are 16-byte aligned and a cr row fits one
+// box. Launches K3-bf16 on `stream`; returns as xpt_corr_fwd_bf16.
+extern "C" int xpt_corr_bwd_cl_bf16(const void* g, const void* cr, void* dcl, int batch,
+                                    int channels, int height, int width, int md, int stride,
+                                    int tile_x, int chan_blocks, int rows_per_stage, int threads,
+                                    int smem_bytes, void* stream) {
+  if (static_cast<long long>(batch) * channels * height * width == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (stride <= 0 || md < 0 || tile_x <= 0 || chan_blocks <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n = displacements(md, stride);
+  const BwdClLayout lay = bwd_cl_layout(stride, n, tile_x, chan_blocks, rows_per_stage,
+                                        height);
+  if (!bwd_plan_holds(batch, channels, height, stride, tile_x, chan_blocks, rows_per_stage,
+                      threads, smem_bytes, lay.total)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap map_g{}, map_cr{};
+  const bool tma = width % 8 == 0 && aligned16(g) && aligned16(cr) && lay.pitch <= kBoxMax;
+  if (tma && !(encode_map(&map_g, g, batch, n * n, height, width, lay.g_pitch,
+                          plane_boxes(rows_max(n, stride, height) * n).box)
+               && encode_map(&map_cr, cr, batch, channels, height, width, lay.pitch, lay.chans))) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const bool vec_out = width % 8 == 0 && aligned16(dcl);
+  const int chunks = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
+  const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
+  return launch(corr_bwd_cl_bf16_kernel, grid, threads, smem_bytes, stream, map_g, map_cr,
+                static_cast<const u16*>(g), static_cast<const u16*>(cr), static_cast<u16*>(dcl),
+                channels, height, width, md, stride, n, tile_x, chan_blocks, rows_per_stage,
+                tma ? 1 : 0, vec_out ? 1 : 0);
+}
+
+// g [B,n^2,H,W], cl [B,C,H,W], bfloat16; writes dcr [B,C,H,W] bfloat16.
+// The plan comes from ops/kernels/correlation.py::bwd_cr_plan_bf16, with
+// the keys and limits of xpt_corr_bwd_cl_bf16's, for this layout. Stages by
+// TMA where W % 8 == 0, g and cl are 16-byte aligned and a row fits one
+// box. Launches K4-bf16 on `stream`; returns as xpt_corr_fwd_bf16.
 extern "C" int xpt_corr_bwd_cr_bf16(const void* g, const void* cl, void* dcr, int batch,
                                     int channels, int height, int width, int md, int stride,
                                     int tile_x, int chan_blocks, int rows_per_stage, int threads,
@@ -761,13 +1006,9 @@ extern "C" int xpt_corr_bwd_cr_bf16(const void* g, const void* cl, void* dcr, in
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
-  const int chunks = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
   const BwdLayout lay = bwd_layout(stride, n, tile_x, chan_blocks, rows_per_stage);
-  const int warps = tile_x / kTileP * ((chan_blocks + kGroupBlocks - 1) / kGroupBlocks);
-  if (tile_x % (kTileP * stride) != 0 || chan_blocks > kBoxMax / 16 || rows_per_stage < 1
-      || rows_per_stage > kRowsPerStage || warps > kMaxWarps || threads != 32 * warps
-      || smem_bytes != lay.total || smem_bytes > kSmemLimit || height > 65535
-      || static_cast<long long>(batch) * chunks > 65535) {
+  if (!bwd_plan_holds(batch, channels, height, stride, tile_x, chan_blocks, rows_per_stage,
+                      threads, smem_bytes, lay.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap map_g{}, map_cl{};
@@ -778,6 +1019,7 @@ extern "C" int xpt_corr_bwd_cr_bf16(const void* g, const void* cl, void* dcr, in
     return static_cast<int>(cudaErrorNotSupported);
   }
   const bool vec_out = width % 8 == 0 && aligned16(dcr);
+  const int chunks = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
   return launch(corr_bwd_cr_bf16_kernel, grid, threads, smem_bytes, stream, map_g, map_cl,
                 static_cast<const u16*>(g), static_cast<const u16*>(cl), static_cast<u16*>(dcr),

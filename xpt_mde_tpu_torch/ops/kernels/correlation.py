@@ -1,6 +1,6 @@
 """Kernels K2, K3 and K4: the PWC-Net correlation cost volume on the card
-and its two input gradients (``csrc/correlation.cu`` and, for the
-bfloat16 K2 and K4, ``csrc/correlation_bf16.cu``; one library).
+and its two input gradients (``csrc/correlation.cu`` in float32,
+``csrc/correlation_bf16.cu`` in bfloat16; one library).
 
 Port of ``xpt_mde_tpu/ops/pallas/correlation.py``: K2 is the forward
 kernel, K3 and K4 the kernels of its custom VJP (dcl and dcr). All three
@@ -15,10 +15,9 @@ operands' dtype. The TPU's routing gate (``_pallas_pays``), its VMEM
 gates and the dy-row pre-slicing of its backward are not ported: every
 level takes these kernels.
 
-The float32 kernels and the bfloat16 K3 are tiled for FFMA from float32
-shared memory: a CUDA block owns one image row and a tile of up to 128
-columns, stages the rows it needs into shared memory with ``cp.async``
-(the bfloat16 K3 through registers, converting), and a thread owns 4
+The float32 kernels are tiled for FFMA from float32 shared memory: a
+CUDA block owns one image row and a tile of up to 128 columns, stages the
+rows it needs into shared memory with ``cp.async``, and a thread owns 4
 pixels one stride apart, so that each staged value feeds several FMAs
 from a register.
 
@@ -36,7 +35,7 @@ from a register.
   and in reversed order, so the two kernels share one inner loop); a
   thread owns 4 pixels times 8 channels.
 
-The bfloat16 K2 and K4 run on the tensor cores instead: the
+The bfloat16 K2, K3 and K4 run on the tensor cores instead: the
 rows stay bfloat16 in shared memory, staged by TMA boxes whose zero fill
 is the frame's outside (by the block's threads into the same layout
 where TMA cannot take the shape), and the work is cut by residue class
@@ -48,10 +47,14 @@ products (``mma.sync`` m16n8k16, float32 accumulators):
   diagonals are outputs; a block holds up to 4 in-frame displacement
   rows, and the rows are split into groups over the grid so that it has
   two blocks an SM.
-- K4-bf16 (:func:`bwd_cr_plan_bf16`): a warp owns 16 pixels of one class
-  and up to 64 channels, one m16n8k16 per 16 channels, 8 pixels and 16
-  window columns against a banded matrix built from the staged g rows;
-  the block's channels are a chunk, split over the grid.
+- K3-bf16 (:func:`bwd_cl_plan_bf16`) and K4-bf16
+  (:func:`bwd_cr_plan_bf16`): a warp owns 16 pixels of one class and up
+  to 64 channels, one m16n8k16 per 16 channels, 8 pixels and 16 window
+  columns against a banded matrix built from the staged g rows (K3: those
+  of the block's in-frame displacement rows at its own image row, staged
+  once and read at the pixels' columns; K4: the n g rows at each cl row,
+  read at the window's columns); the block's channels are a chunk, split
+  over the grid.
 
 Each C entry recomputes its plan's layout and refuses a plan that does
 not match; a shape that no plan fits raises ``ValueError`` here, before
@@ -391,21 +394,21 @@ def fwd_plan(batch: int, channels: int, height: int, width: int,
     return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride))
 
 
-# The bfloat16 K2 and K4 (csrc/correlation_bf16.cu): a warp owns one tile
-# of BF16_TILE_P pixels of one residue class of x mod stride and takes the
-# displacements BF16_DISP at a time (K2: a 16 x 24 band product, K4: one
-# k16 step of window columns); a block holds up to BF16_FWD_ROWS in-frame
-# displacement rows (K2) or stages BF16_ROWS_PER_STAGE at a time (K4), and
-# has at most BF16_MAX_WARPS warps, one a tile; a K4 warp accumulates up
-# to BF16_GROUP_BLOCKS blocks of 16 channels. TMA_BOX: the most elements
-# a TMA box spans in one dimension.
+# The bfloat16 K2, K3 and K4 (csrc/correlation_bf16.cu): a warp owns one
+# tile of BF16_TILE_P pixels of one residue class of x mod stride and takes
+# the displacements BF16_DISP at a time (K2: a 16 x 24 band product, K3 and
+# K4: one k16 step of window columns); a block holds up to BF16_FWD_ROWS
+# in-frame displacement rows (K2) or stages BF16_ROWS_PER_STAGE at a time
+# (K3, K4), and has at most BF16_MAX_WARPS warps, one a tile; a K3 or K4
+# warp accumulates up to BF16_GROUP_BLOCKS blocks of 16 channels. TMA_BOX:
+# the most elements a TMA box spans in one dimension.
 BF16_TILE_P, BF16_DISP = 16, 9
 BF16_FWD_ROWS, BF16_ROWS_PER_STAGE, BF16_GROUP_BLOCKS, BF16_MAX_WARPS = 4, 4, 4, 8
 TMA_BOX = 256
 # A plan splits its blocks further, where the work allows, until an SM holds
 # this many warps of them: a block's phases (copies, MMAs, stores) overlap
-# only with other resident blocks'. K4 stops earlier, as each channel chunk
-# stages the n g rows again (both numbers timed on the card at the PWC
+# only with other resident blocks'. K3 and K4 stop earlier, as each channel
+# chunk stages g again (K4's and K2's numbers timed on the card at the PWC
 # levels). BF16_REGS: registers a thread (launch bounds of three 8-warp
 # blocks an SM; ptxas allocates 8 at a time, so at most 80).
 BF16_FWD_WARPS_PER_SM, BF16_BWD_WARPS_PER_SM, BF16_REGS = 24, 16, 80
@@ -464,13 +467,45 @@ def fwd_bf16_layout(channels: int, height: int, stride: int, n: int, tile_x: int
     return lay
 
 
-def bwd_bf16_layout(stride: int, n: int, tile_x: int, chan_blocks: int, rows: int) -> dict:
+def plane_boxes(planes: int) -> tuple[int, int]:
+    """(box, count): K3-bf16 stages the planes of its g tile as ``count``
+    TMA boxes of ``box`` planes (a multiple of 8, so that each box starts
+    128-byte aligned, at most 256)."""
+    count = -(-planes // TMA_BOX)
+    per_box = -(-planes // count)
+    return -(-per_box // 8) * 8, count
+
+
+def bwd_cl_bf16_layout(stride: int, n: int, tile_x: int, chan_blocks: int, rows: int,
+                       height: int) -> dict:
+    """K3-bf16's shared memory, as ``bwd_cl_layout`` in
+    csrc/correlation_bf16.cu: the g tile [g_planes][g_pitch] (the n g rows
+    of each of the rows_max displacement rows that can lie in the frame,
+    over the tile, as :func:`plane_boxes` stages them), then ``rows`` slots
+    of the chunk's cr row [chans][pitch], bfloat16; the float32 sums
+    [chans][part_pitch] afterwards, 128 bytes to align the base. ``g_box``:
+    the planes of one g box."""
+    box, count = plane_boxes(rows_max(n, stride, height) * n)
+    lay = {"chans": chan_blocks * 16, "pitch": stage_pitch(bf16_window_cols(tile_x, stride, n)),
+           "g_pitch": stage_pitch(tile_x), "g_planes": box * count, "g_box": box,
+           "part_pitch": tile_x + 4}
+    lay["g_bytes"] = _align128(lay["g_planes"] * lay["g_pitch"] * 2)
+    lay["row_bytes"] = lay["chans"] * lay["pitch"] * 2
+    lay["total"] = 128 + max(lay["g_bytes"] + rows * lay["row_bytes"],
+                             _align128(lay["chans"] * lay["part_pitch"] * 4))
+    return lay
+
+
+def bwd_cr_bf16_layout(stride: int, n: int, tile_x: int, chan_blocks: int, rows: int,
+                       height: int | None = None) -> dict:
     """K4-bf16's shared memory, as ``bwd_layout`` in csrc/correlation_bf16.cu:
     ``rows`` slots of one displacement row's cl rows [chans][pitch] and n g
     rows [n][pitch] of bfloat16, the float32 sums [chans][part_pitch]
-    afterwards, 128 bytes to align the base."""
+    afterwards, 128 bytes to align the base. ``g_box``: the planes of one
+    g box (n). ``height`` does not change it; it is taken so that K4's and
+    K3's layouts are called alike."""
     lay = {"chans": chan_blocks * 16, "pitch": stage_pitch(bf16_window_cols(tile_x, stride, n)),
-           "part_pitch": tile_x + 4}
+           "g_box": n, "part_pitch": tile_x + 4}
     lay["cl_bytes"] = lay["chans"] * lay["pitch"] * 2
     lay["g_bytes"] = _align128(n * lay["pitch"] * 2)
     lay["slot"] = lay["cl_bytes"] + lay["g_bytes"]
@@ -480,7 +515,7 @@ def bwd_bf16_layout(stride: int, n: int, tile_x: int, chan_blocks: int, rows: in
 
 
 def tma_staged(width: int, *pitches: int) -> bool:
-    """Whether the bfloat16 K2 and K4 stage rows of these pitches by TMA
+    """Whether the bfloat16 K2, K3 and K4 stage rows of these pitches by TMA
     (given 16-byte aligned operands, which the C entries check): a row of
     the frame is whole 16-byte units (W % 8 == 0) and a box spans at most
     TMA_BOX columns."""
@@ -572,10 +607,21 @@ def fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displa
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
-                      max_displacement: int, stride: int, num_sms: int) -> tuple:
+def _bwd_plan_bf16(kernel: str, kernel_layout, rows_first: bool, batch: int, channels: int,
+                   height: int, width: int, max_displacement: int, stride: int,
+                   num_sms: int) -> tuple:
+    """The plan of ``kernel`` (K3-bf16 or K4-bf16, named in errors): one
+    search over its layout ``kernel_layout`` (:func:`bwd_cl_bf16_layout` or
+    :func:`bwd_cr_bf16_layout`), as both take the same launch. Where an SM
+    would hold too few warps, it stages fewer rows at a time before it
+    splits the channels further where ``rows_first``, else only splits the
+    channels."""
     n = num_displacements(max_displacement, stride)
-    span, tile_x = _bf16_tile(width, stride, 1, "K4-bf16")
+
+    def layout(tile, blocks, stage_rows):
+        return kernel_layout(stride, n, tile, blocks, stage_rows, height)
+
+    span, tile_x = _bf16_tile(width, stride, 1, kernel)
     all_blocks = -(-channels // 16)
     rows = min(rows_max(n, stride, height), BF16_ROWS_PER_STAGE)
 
@@ -588,7 +634,7 @@ def _bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
         return -(-all_blocks // -(-all_blocks // cbb))  # the chunks evened out
 
     chan_blocks = blocks_for(tile_x)
-    while bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)["total"] > SMEM_LIMIT:
+    while layout(tile_x, chan_blocks, rows)["total"] > SMEM_LIMIT:
         if rows > 1:
             rows -= 1
         elif chan_blocks > 1:
@@ -596,21 +642,45 @@ def _bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
         elif tile_x > span:
             tile_x -= span
         else:
-            total = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)["total"]
-            raise ValueError(f"K4-bf16 needs {total} bytes of shared memory at md "
+            total = layout(tile_x, chan_blocks, rows)["total"]
+            raise ValueError(f"{kernel} needs {total} bytes of shared memory at md "
                              f"{max_displacement}, stride {stride}, more than {SMEM_LIMIT}")
-    lay = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)
+    lay = layout(tile_x, chan_blocks, rows)
     warps = tile_x // BF16_TILE_P * -(-chan_blocks // BF16_GROUP_BLOCKS)
-    while chan_blocks > 1 and resident_warps(32 * warps, lay["total"]) < BF16_BWD_WARPS_PER_SM:
-        chan_blocks = -(-all_blocks // (-(-all_blocks // (chan_blocks - 1))))  # evened out
-        lay = bwd_bf16_layout(stride, n, tile_x, chan_blocks, rows)
+    while resident_warps(32 * warps, lay["total"]) < BF16_BWD_WARPS_PER_SM:
+        if rows_first and rows > 1:
+            rows -= 1
+        elif chan_blocks > 1:
+            chan_blocks = -(-all_blocks // (-(-all_blocks // (chan_blocks - 1))))  # evened out
+        else:
+            break
+        lay = layout(tile_x, chan_blocks, rows)
         warps = tile_x // BF16_TILE_P * -(-chan_blocks // BF16_GROUP_BLOCKS)
     grid = (-(-width // tile_x), height, batch * -(-all_blocks // chan_blocks))
     if grid[1] > 65535 or grid[2] > 65535:
-        raise ValueError(f"K4-bf16's grid {grid} exceeds 65535 rows or chunks")
+        raise ValueError(f"{kernel}'s grid {grid} exceeds 65535 rows or chunks")
+    tma = tma_staged(width, lay["pitch"]) and lay["g_box"] <= TMA_BOX
     return (("tile_x", tile_x), ("chan_blocks", chan_blocks), ("rows_per_stage", rows),
             ("threads", 32 * warps), ("smem_bytes", lay["total"]), ("grid", grid),
-            ("tma", tma_staged(width, lay["pitch"]) and n <= TMA_BOX))
+            ("tma", tma))
+
+
+def bwd_cl_plan_bf16(batch: int, channels: int, height: int, width: int,
+                     max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+    """K3-bf16's launch for these shapes, chosen as :func:`bwd_cr_plan_bf16`
+    chooses K4-bf16's, for K3's layout (:func:`bwd_cl_bf16_layout`), but
+    with fewer rows a stage before fewer channels a block where an SM would
+    hold too few warps. Each channel chunk stages the block's g tile again,
+    the n g rows of each in-frame displacement row over the tile, 2 * n *
+    tile_x bytes a row: at the flow stage's levels 4-6, where the channels
+    are split into 2-5 chunks so that the grid has two blocks an SM,
+    0.2-0.6 KB a row against 3.8-5.4 KB of the chunk's cr row; the chunks
+    after the first find g in L2. Levels 2 and 3 take all channels in one
+    chunk; at level 3 fewer rows a stage let the grid's 512 one-chunk
+    blocks be resident at once (``tools/corr_sweep.py``). Raises as
+    :func:`bwd_cr_plan_bf16` does."""
+    return dict(_bwd_plan_bf16("K3-bf16", bwd_cl_bf16_layout, True, batch, channels, height, width,
+                               max_displacement, stride, num_sms))
 
 
 def bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
@@ -626,8 +696,8 @@ def bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
     the tile until 227 KB fit; raises ValueError where one row of one
     block does not, where one class tile needs more than 8 warps, or the
     grid is too large."""
-    return dict(_bwd_cr_plan_bf16(batch, channels, height, width, max_displacement, stride,
-                                  num_sms))
+    return dict(_bwd_plan_bf16("K4-bf16", bwd_cr_bf16_layout, False, batch, channels, height, width,
+                               max_displacement, stride, num_sms))
 
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -791,21 +861,25 @@ class CorrGradKernel(_CorrEntry):
 
 
 class CorrGradKernelBf16(CorrGradKernel):
-    """Launches K4-bf16 (``csrc/correlation_bf16.cu``), tiled by
-    :func:`bwd_cr_plan_bf16`."""
+    """Launches K3-bf16 or K4-bf16 (``csrc/correlation_bf16.cu``), tiled by
+    ``plan_fn`` (:func:`bwd_cl_plan_bf16` or :func:`bwd_cr_plan_bf16`)."""
 
     launch_keys = BWD_BF16_LAUNCH_KEYS
 
+    def __init__(self, name: str, entry: str, plan_fn):
+        super().__init__(name, entry, torch.bfloat16, BF16_SOURCE)
+        self._plan_fn = plan_fn
+
     def plan(self, shape, max_displacement, stride, device) -> dict:
-        return bwd_cr_plan_bf16(*shape, max_displacement, stride, _num_sms(device.index or 0))
+        return self._plan_fn(*shape, max_displacement, stride, _num_sms(device.index or 0))
 
 
 K2 = CorrKernel("K2", "xpt_corr_fwd", torch.float32)
 K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl", torch.float32)
 K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr", torch.float32)
 K2_BF16 = CorrKernelBf16("K2-bf16", "xpt_corr_fwd_bf16", torch.bfloat16, BF16_SOURCE)
-K3_BF16 = CorrGradKernel("K3-bf16", "xpt_corr_bwd_cl_bf16", torch.bfloat16)
-K4_BF16 = CorrGradKernelBf16("K4-bf16", "xpt_corr_bwd_cr_bf16", torch.bfloat16, BF16_SOURCE)
+K3_BF16 = CorrGradKernelBf16("K3-bf16", "xpt_corr_bwd_cl_bf16", bwd_cl_plan_bf16)
+K4_BF16 = CorrGradKernelBf16("K4-bf16", "xpt_corr_bwd_cr_bf16", bwd_cr_plan_bf16)
 
 
 def kernels_for(dtype: torch.dtype) -> tuple:

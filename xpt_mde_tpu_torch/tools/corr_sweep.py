@@ -1,18 +1,22 @@
-"""Time the correlation kernels K2 and K4 under other launch plans than
-their own, at the flow stage's five PWC-Net levels, on one CUDA card.
+"""Time the correlation kernels K2 and K4, and the bfloat16 K3-bf16, under
+other launch plans than their own, at the flow stage's five PWC-Net
+levels, on one CUDA card.
 
 Usage, from the repository root:
 
-    python -m xpt_mde_tpu_torch.tools.corr_sweep [--levels 2,3] [--kernels K2,K4]
+    python -m xpt_mde_tpu_torch.tools.corr_sweep [--levels 2,3] [--kernels K2,K4,K3-bf16]
 
 For K2 it tries its plan's tile and half of it, each displacement-row
 staging (one row a stage, or all in-frame rows at once) and a range of
-channel-group counts; for K4 every channel-block
-count with both stagings. Each variant is checked against
-the plain version (within 1e-5 of the largest plain value) and timed as
-the mean device time of 20 launches replayed from one CUDA graph. One
-line per variant, the kernel's own plan marked ``plan``, each tagged with
-the card's name and power limit. It fails without a card.
+channel-group counts; for K4 every channel-block count with both
+stagings; for K3-bf16 every channel-block count (of 16 channels) with
+every count of rows a stage. Each float32 variant is checked against the
+plain version (within 1e-5 of the largest plain value), each K3-bf16
+variant against its own plan's bits (the sums' order does not depend on
+the plan), and each is timed as the mean device time of 20 launches
+replayed from one CUDA graph. One line per variant, the kernel's own plan
+marked ``plan``, each tagged with the card's name and power limit. It
+fails without a card.
 """
 
 from __future__ import annotations
@@ -95,6 +99,23 @@ def k4_variants(batch, channels, height, width, md, stride):
                            threads=max(kcorr.MIN_THREADS, -(-working // 32) * 32))
 
 
+def k3_bf16_variants(channels, height, width, md, stride):
+    """K3-bf16 launches to time: its plan's tile with each channel block
+    count that fits 8 warps and each count of rows a stage, within 227
+    KB."""
+    tile_x = kcorr.bwd_cl_plan_bf16(1, channels, height, width, md, stride)["tile_x"]
+    n = kcorr.num_displacements(md, stride)
+    most = min(kcorr.rows_max(n, stride, height), kcorr.BF16_ROWS_PER_STAGE)
+    for chan_blocks in range(1, min(-(-channels // 16), kcorr.TMA_BOX // 16) + 1):
+        warps = tile_x // kcorr.BF16_TILE_P * -(-chan_blocks // kcorr.BF16_GROUP_BLOCKS)
+        for rows in range(1, most + 1):
+            smem = kcorr.bwd_cl_bf16_layout(stride, n, tile_x, chan_blocks, rows,
+                                            height)["total"]
+            if warps <= kcorr.BF16_MAX_WARPS and smem <= kcorr.SMEM_LIMIT:
+                yield {"tile_x": tile_x, "chan_blocks": chan_blocks, "rows_per_stage": rows,
+                       "threads": 32 * warps, "smem_bytes": smem}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--levels", default="6,5,4,3,2")
@@ -132,13 +153,27 @@ def main(argv=None) -> int:
                       lambda launch=launch, out=out: kcorr.K4.launch(g, cl, out, md, stride,
                                                                      launch))
                      for launch in k4_variants(*shape, md, stride)]
+        if "K3-bf16" in kernels:
+            g16, cr16 = g.to(torch.bfloat16), cr.to(torch.bfloat16)
+            ref = kcorr.K3_BF16(g16, cr16, md, stride)
+            out = torch.empty_like(ref)
+            own = kcorr.bwd_cl_plan_bf16(*shape, md, stride)
+            runs += [("K3-bf16", ref, out, launch, own,
+                      lambda launch=launch, out=out: kcorr.K3_BF16.launch(g16, cr16, out, md,
+                                                                          stride, launch))
+                     for launch in k3_bf16_variants(*shape[1:], md, stride)]
         for name, ref, out, launch, own, fn in runs:
             fn()
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            if not err <= 1e-5 * float(ref.abs().max()):
-                raise AssertionError(f"{name} at L{level} with {launch} differs by {err}")
-            keys = kcorr.FWD_LAUNCH_KEYS if name == "K2" else kcorr.BWD_LAUNCH_KEYS
+            if name == "K3-bf16":
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{name} at L{level} with {launch} changed the bits")
+            else:
+                err = float((out - ref).abs().max())
+                if not err <= 1e-5 * float(ref.abs().max()):
+                    raise AssertionError(f"{name} at L{level} with {launch} differs by {err}")
+            keys = {"K2": kcorr.FWD_LAUNCH_KEYS, "K4": kcorr.BWD_LAUNCH_KEYS,
+                    "K3-bf16": kcorr.BWD_BF16_LAUNCH_KEYS}[name]
             mark = " plan" if all(launch[k] == own[k] for k in keys) else ""
             print(f"sweep {name} L{level} {' '.join(f'{k} {launch[k]}' for k in keys)}: "
                   f"{_graph_ms(fn):.4f} ms{mark} [{smi}]", flush=True)
