@@ -7,7 +7,8 @@ joint row on synthetic shards, then predict and evaluate), the stereo
 stereo shards, all in float32 (the parity mode); then the bfloat16
 compute mode, the default of ``Config()``: the bfloat16 correlation
 kernels, the steps at full width, their cross-check against float32, and
-the stereo plan at the default ``Config()``.
+the stereo plan at the default ``Config()``; then the learning chain: the
+miniature plan in both dtypes, which must learn in float32.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -112,7 +113,7 @@ per library started together, and prints one line per phase:
     bit-unchanged; images/s and peak memory;
 19. the stereo flow row's step: PWC-Net under LOSS_FLOW in full,
     STEREO_FLOW_PER_STEP launches a step;
-20. the stereo plan, this slice's main path: stereo shards at 128x512 in
+20. the stereo plan: stereo shards at 128x512 in
     the kitti_raw schema (``write_stereo_shards``; STEREO_PLAN_SNIPPETS),
     ``train_by_plan`` over a flow row (LOSS_FLOW), a rigid row
     (LOSS_RIGID_T2) and a joint row (LOSS_RIGID_COMB), one epoch each,
@@ -138,14 +139,33 @@ per library started together, and prints one line per phase:
     batch, held to the CPU's bfloat16-vs-float32 distance at the same size
     (BF16_MEDIAN_RATIO, BF16_MAX_RATIO): loss terms, parameter gradients,
     BN statistics;
-24. the stereo plan of phase 20 at the default ``Config()``, bfloat16,
-    this slice's main path: K1, K1-bwd and the bfloat16 K2, K3 and K4 must
-    launch in its run, the float32 K2, K3 and K4 never; float32 npz
-    predictions and finite metrics.
+24. the stereo plan of phase 20 at the default ``Config()``, bfloat16: K1,
+    K1-bwd and the bfloat16 K2, K3 and K4 must launch in its run, the
+    float32 K2, K3 and K4 never; float32 npz predictions and finite
+    metrics;
+25. the kernels against their plain versions at the miniature plan's
+    shapes (``training/mini_plan.py``): K1 and K1-bwd at 32x64, 16x32,
+    8x16 and 4x8 (batch 8 x 4 sources, the plan's world), K2, K3 and K4
+    in float32 and bfloat16 at the five PWC levels of 64x128 (16x32 down
+    to 1x2), as in phases 2, 8 and 21;
+26. the miniature plan in float32, this slice's main path
+    (``tools/check_learns.py::check_plan``, the JAX check's protocol:
+    12 rigid epochs of 42 steps at 32x64 with DepthNetBasic +
+    PoseNetBasic, 3 flow epochs and 3 joint epochs at 64x128, batch 8):
+    after the rigid rows AbsRel and the trajectory relative error below
+    half their init values, after the joint rows AbsRel too, the flownet
+    after the joint rows equal to the flow row's tensor for tensor, the
+    depth net changed; every float32 kernel launches, no bfloat16 one;
+    each row's seconds, images/s and launches per step;
+27. the same plan in bfloat16: the hand-off exact and the metrics finite;
+    whether it meets the criteria is reported (``bf16_meets_criteria``)
+    and fails nothing; K1, K1-bwd and the bfloat16 K2-K4 launch, the
+    float32 K2-K4 never. Both results go to ``RESULTS_torch.jsonl``.
 
-Then a JSON line with each kernel's launches on its main path's run (the
-float32 kernels': the float32 stereo plan; the bfloat16 ones': the
-bfloat16 stereo plan) and on every path, error, device time (K1 and
+Then the script's seconds, a JSON line with each kernel's launches on its
+main path's run (the float32 kernels': the float32 mini plan; the
+bfloat16 ones': the bfloat16 mini plan) and on every path, error (over
+the headline shapes and the mini plan's), device time (K1 and
 K1-bwd also at N = 1), bound, the plain version's, the nearest library
 call's and the earlier checkout's times (``redesigned_in`` names the pull
 request that redesigned a kernel), the ``nvidia-smi`` name/power line, and
@@ -515,8 +535,8 @@ def _warp_case(batch, scale, device, rng, cross=False):
     from xpt_mde_tpu_torch.utils import se3
     from xpt_mde_tpu_torch.utils.image import resize_image
 
-    b = BATCH
-    h, w = HEIGHT // scale, WIDTH // scale
+    b, _, height, width = batch["image5d"].shape[:4]
+    h, w = height // scale, width // scale
     depth = resize_image(torch.from_numpy(batch["depth_gt"]).to(device), h, w, "nearest")
     intrinsic = scale_intrinsics(torch.from_numpy(batch["intrinsic"]).to(device), float(scale))
     if cross:
@@ -527,7 +547,7 @@ def _warp_case(batch, scale, device, rng, cross=False):
         sources = torch.from_numpy(batch["image5d"][:, :-1]).to(device)
         pose = torch.from_numpy(batch["pose_gt"]).to(device)
     n = sources.shape[1]
-    src = resize_image(sources.reshape(b * n, HEIGHT, WIDTH, 3), h, w)
+    src = resize_image(sources.reshape(b * n, height, width, 3), h, w)
     src = src.reshape(b, n, h, w, 3).contiguous()
     coords = reproject_pixel_coords(depth, pose, intrinsic).contiguous()
     rows = max(1, h // 8)
@@ -611,11 +631,12 @@ def _cross_warp_check(stereo_batch, device, rng, tag):
     return errs, times
 
 
-def _warp_phase(batches, device, rng, tag):
-    """Phase 2: K1 and K1-bwd against their plain versions at each
-    headline scale, and their times beside the plain versions', the
-    nearest library calls' and the bounds. Returns per-kernel sums over
-    the four scales (one train step's warps)."""
+def _warp_phase(batches, device, rng, tag, phase_no=2):
+    """Phase 2 (or ``phase_no``): K1 and K1-bwd against their plain
+    versions at each scale of the batches' frames (the headline 128x512
+    in phase 2), and their times beside the plain versions', the nearest
+    library calls' and the bounds. Returns per-kernel sums over the four
+    scales (one train step's warps)."""
     import torch
     import torch.nn.functional as F
 
@@ -678,7 +699,8 @@ def _warp_phase(batches, device, rng, tag):
                   f"{t_l:.4f} ms, bound {bound_ms:.4f} ms ({work[name][0] / 1e6:.1f} MB); "
                   f"eager per call "
                   f"{name} {e_k:.4f} ms, plain {e_p:.4f} ms {tag}", flush=True)
-    print(f"phase 2 kernels vs plain: K1 max abs err {stats['K1']['err']:.3g} <= {K1_ATOL}, "
+    print(f"phase {phase_no} kernels vs plain: K1 max abs err {stats['K1']['err']:.3g} <= "
+          f"{K1_ATOL}, "
           f"K1-bwd {stats['K1-bwd']['err']:.3g} <= {K1_BWD_ATOL} (vs the plain backward and "
           f"the plain sampler's autograd; {'; '.join(notes)})", flush=True)
     return stats
@@ -1105,6 +1127,83 @@ def _stereo_plan_phase(workdir, device, counts, zero_counts, tag, compute_dtype=
     return counts(), note
 
 
+def _mini_plan_kernels(device, tag):
+    """Phase 25: the kernels against their plain versions at the shapes of
+    the miniature plan (``training/mini_plan.py``): K1 and K1-bwd at the
+    rigid rows' four scales of 32x64 (batch 8 x 4 sources, the plan's
+    world), and K2, K3 and K4 in float32 and bfloat16 at the five PWC
+    levels of 64x128 (16x32 down to 1x2, smaller than the 9x9 window, with
+    W % 8 != 0 at levels 5 and 6). Returns {kernel: max abs err}."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.training import mini_plan as mp
+
+    height, width = mp.RIGID_SIZE
+    world = SyntheticDataset(batch_size=BATCH, height=height, width=width, num_batches=1,
+                             varying_depth=True, vary_motion=True, seed=0)
+    errs = {name: s["err"] for name, s in _warp_phase(
+        list(world), device, np.random.RandomState(5), tag, phase_no=25).items()}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "-bf16")):
+        stats = _corr_phase(device, tag, dtype, size=mp.FLOW_SIZE, phase_no=25)
+        errs.update({name + suffix: s["err"] for name, s in stats.items()})
+    return errs
+
+
+def _learning_phase(device, counts, zero_counts, tag):
+    """Phases 26 and 27: the miniature plan's learning check
+    (``tools/check_learns.py::check_plan``, the JAX check's protocol) in
+    float32, then in bfloat16, each in a temporary directory under
+    ``build/`` with its counts read from zero. float32 must meet the JAX
+    check's criteria; bfloat16 must keep the hand-off exact and its
+    metrics finite (``check_plan`` raises otherwise) and reports whether
+    it meets them. Each result goes to RESULTS_torch.jsonl. Returns
+    {dtype: (launches of the run, result)}."""
+    from xpt_mde_tpu_torch.tools.check_learns import check_plan, result_payload
+    from xpt_mde_tpu_torch.utils.results import record
+
+    runs = {}
+    for phase_no, dtype in ((26, "float32"), (27, "bfloat16")):
+        zero_counts()
+        with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+            result = check_plan(workdir, dtype, device=device,
+                                log=lambda line, d=dtype: print(f"mini plan {d} {line}",
+                                                                flush=True))
+        runs[dtype] = (counts(), result)
+        for row in result["rows"]:
+            per_step = {k: round(v, 3) for k, v in row["launches_per_step"].items()}
+            print(f"timing mini plan {dtype} {row['row']} row: {row['steps']} steps at batch "
+                  f"{result['protocol']['batch']}, {row['seconds']:.1f} s in train_by_plan "
+                  f"({row['train_seconds']:.1f} s in its train epochs, "
+                  f"{row['images_per_s']:.1f} images/s; rendering the world on the host "
+                  f"{row['render_share']:.3f} of the train seconds), launches per train step "
+                  f"{json.dumps(per_step)} (validation and the scale log included) {tag}",
+                  flush=True)
+        payload = result_payload(result)
+        record("plan_learns", dict(payload, source="chip_smoke.py"), dtype)
+        print(f"phase {phase_no} mini plan {dtype}: criteria (value, limit) "
+              f"{json.dumps(payload['criteria'])}, meets them: {result['meets_criteria']}; "
+              f"hand-off {json.dumps(result['handoff'])}; the phase took "
+              f"{result['seconds']:.1f} s {tag}", flush=True)
+    f32, bf16 = runs["float32"][1], runs["bfloat16"][1]
+    if not f32["meets_criteria"]:
+        raise AssertionError(f"the float32 miniature plan missed the JAX check's criteria: "
+                             f"{f32['criteria']}")
+    for stage in f32["trajectory"]:
+        a, b = f32["trajectory"][stage], bf16["trajectory"][stage]
+        print(f"mini plan trajectory {stage}: AbsRel float32 {a['abs_rel']:.4f} / bfloat16 "
+              f"{b['abs_rel']:.4f}, trajectory rel err {a['trj_rel_err']:.4f} / "
+              f"{b['trj_rel_err']:.4f}"
+              + (f", flow EPE {a['flow_epe']:.4f} / {b['flow_epe']:.4f} px"
+                 if "flow_epe" in a else ""), flush=True)
+    print(json.dumps({"mini_plan": {"bf16_meets_criteria": bool(bf16["meets_criteria"]),
+                                    "float32_meets_criteria": True,
+                                    "seconds": {d: round(r[1]["seconds"], 1)
+                                                for d, r in runs.items()}}}), flush=True)
+    return runs
+
+
 def _timed_rounds(step, step_batches, rounds, steps):
     """Images/s of ``rounds`` rounds of ``steps`` steps each (host clock
     around a synchronize), sorted, and the peak memory over them."""
@@ -1142,7 +1241,7 @@ def bf16_ulp_excess(got, ref) -> tuple[float, float]:
     return float(diff.max()), float((diff / bound).max())
 
 
-def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
+def _corr_phase(device, tag, dtype=None, f32=None, earlier=None, size=None, phase_no=None):
     """Phase 8 (float32, the default) or 21 (``dtype`` bfloat16): K2, K3
     and K4 of that dtype against their plain versions at the five PWC-Net
     levels of the flow stage (float32 within CORR_RTOL of the largest plain
@@ -1150,6 +1249,8 @@ def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
     beside the plain versions' and the bounds (and, given ``f32``, phase
     8's stats, beside the float32 kernels' per level; given ``earlier``,
     an earlier checkout's ms per level by kernel name, beside those).
+    ``size``: the frame whose levels to take, (HEIGHT, WIDTH) by default;
+    with ``phase_no`` the bfloat16 edge shapes are left to phase 21.
     Returns per-kernel sums over the levels (one train step's launches) and
     each level's ms."""
     import torch
@@ -1164,6 +1265,7 @@ def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
 
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
+    height, width = size or (HEIGHT, WIDTH)
     K2, K3, K4 = kernels_for(dtype)
     keys = ("err", "ulps", "ms", "plain_ms", "bound_ms", "bytes", "flops")
     stats = {name: dict.fromkeys(keys, 0.0) | {"levels": {}} for name in ("K2", "K3", "K4")}
@@ -1172,7 +1274,7 @@ def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
     pairs = BATCH * NUM_SRC
     for level in (6, 5, 4, 3, 2):
         md, stride = level_displacement(level)
-        chans, h, w = ENCODER_CHANNELS[level - 1], HEIGHT >> level, WIDTH >> level
+        chans, h, w = ENCODER_CHANNELS[level - 1], height >> level, width >> level
         n2 = correlation_channels(md, stride)
         cl, cr = ((torch.rand((pairs, chans, h, w), generator=generator) * 2 - 1).to(
             device, dtype) for _ in range(2))
@@ -1243,6 +1345,12 @@ def _corr_phase(device, tag, dtype=None, f32=None, earlier=None):
                         f"bound {bound_ms:.4f} by {bound_by})")
         print(f"timing L{level} [{pairs},{chans},{h},{w}] {dtype} md {md} stride {stride} n^2 "
               f"{n2}: device (graph replay) {'; '.join(line)} {tag}", flush=True)
+    if phase_no is not None:
+        print(f"phase {phase_no} {dtype} correlation kernels vs plain at the levels of "
+              f"{height}x{width}: max abs err K2 {stats['K2']['err']:.3g}, K3 "
+              f"{stats['K3']['err']:.3g}, K4 {stats['K4']['err']:.3g} (K3, K4 also vs the "
+              f"plain cost volume's autograd; {'; '.join(notes)})", flush=True)
+        return stats
     if bf16:
         edge = _bf16_edge_checks(device, kernels_for(dtype))
         print(f"phase 21 bfloat16 correlation kernels vs plain: max abs err K2 "
@@ -1488,6 +1596,7 @@ def main(argv=()) -> int:
     parser.add_argument("--earlier", metavar="DIR",
                         help="a checkout of an earlier commit whose kernels to time first")
     args = parser.parse_args(list(argv))
+    t_script = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -1982,7 +2091,7 @@ def main(argv=()) -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
-            # 20. the stereo plan: this slice's main path, its counts read from zero
+            # 20. the stereo plan, its counts read from zero
             phase = "stereo plan"
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 stereo_plan_counts, stereo_note = _stereo_plan_phase(
@@ -2036,8 +2145,8 @@ def main(argv=()) -> int:
                   f"vs card float32 held to CPU bf16 vs CPU float32, ratios "
                   f"{BF16_MEDIAN_RATIO}/{BF16_MAX_RATIO}): {' | '.join(notes)}", flush=True)
 
-            # 24. the stereo plan at the default Config(), bfloat16: this
-            # slice's main path, its counts read from zero
+            # 24. the stereo plan at the default Config(), bfloat16, its
+            # counts read from zero
             phase = "bf16 stereo plan"
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 bf16_plan_counts, bf16_note = _stereo_plan_phase(
@@ -2052,9 +2161,32 @@ def main(argv=()) -> int:
                           for label, launches in bf16_per_step.items()}
             bf16_paths["bf16 stereo plan"] = bf16_plan_counts
 
+            # 25. the kernels at the miniature plan's shapes
+            phase = "kernels at the mini plan's shapes"
+            mini_errs = _mini_plan_kernels(device, tag)
+
+            # 26, 27. the miniature plan learns: this slice's main path,
+            # each dtype's counts read from zero
+            phase = "mini plan"
+            t0 = time.perf_counter()
+            learning = _learning_phase(device, counts, zero_counts, tag)
+            mini_counts, bf16_mini_counts = learning["float32"][0], learning["bfloat16"][0]
+            missing = [k for k in f32_kernels if mini_counts[k] == 0]
+            if missing or any(mini_counts[k] for k in bf16_kernels):
+                raise AssertionError(f"the float32 mini plan launched {mini_counts}")
+            missing = [k for k in ("K1", "K1-bwd", *bf16_kernels) if bf16_mini_counts[k] == 0]
+            if missing or any(bf16_mini_counts[k] for k in ("K2", "K3", "K4")):
+                raise AssertionError(f"the bfloat16 mini plan launched {bf16_mini_counts}")
+            print(f"phase 26-27 mini plan: launches float32 {json.dumps(mini_counts)}, "
+                  f"bfloat16 {json.dumps(bf16_mini_counts)}; {time.perf_counter() - t0:.1f} s "
+                  f"for both; the script so far {time.perf_counter() - t_script:.1f} s {tag}",
+                  flush=True)
+            paths_f32 = {"mini plan": mini_counts, "bf16 mini plan": bf16_mini_counts}
+
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
-            # summed over the scales or levels; launches: the stereo plan
-            # run's (this slice's main path)
+            # summed over the scales or levels; launches: the mini plan run's
+            # of the kernel's dtype (this slice's main path); max_abs_err:
+            # over the headline shapes and the mini plan's
             report = []
             for kname, full_name, replaces in (
                     ("K1", "K1 warp_const_src_fwd", kernels.REPLACES),
@@ -2062,15 +2194,17 @@ def main(argv=()) -> int:
                 s = kstats[kname]
                 report.append({
                     "name": full_name, "route": "cuda", "source": kernels.SOURCE,
-                    "replaces": replaces, "launches": stereo_plan_counts[kname],
+                    "replaces": replaces, "launches": mini_counts[kname],
                     "launches_by_path": {"predict+eval": eval_counts[kname],
                                          "train": train_counts[kname],
                                          "flow train": flow_train_counts[kname],
                                          "joint train": joint_counts[kname],
                                          "plan": plan_counts[kname]}
                     | {path: c[kname] for path, c in stereo_paths.items()}
-                    | {path: c.get(kname, 0) for path, c in bf16_paths.items()},
-                    "max_abs_err": max(s["err"], n1_errs[kname]), "ms": s["ms"],
+                    | {path: c.get(kname, 0) for path, c in bf16_paths.items()}
+                    | {path: c[kname] for path, c in paths_f32.items()},
+                    "max_abs_err": max(s["err"], n1_errs[kname], mini_errs[kname]),
+                    "ms": s["ms"],
                     "plain_ms": s["plain_ms"],
                     "n1_ms": n1_times[kname], "n1_plain_ms": n1_times[f"{kname} plain"],
                     "n1_bound_ms": n1_times[f"{kname} bound"],
@@ -2084,13 +2218,15 @@ def main(argv=()) -> int:
                 report.append({
                     "name": full_name, "route": "cuda", "source": corr_kernels.SOURCE,
                     "replaces": corr_kernels.REPLACES[kname],
-                    "launches": stereo_plan_counts[kname],
+                    "launches": mini_counts[kname],
                     "launches_by_path": {"flow predict": flow_predict_counts[kname],
                                          "flow train": flow_train_counts[kname],
                                          "joint train": joint_counts[kname],
                                          "plan": plan_counts[kname]}
-                    | {path: c[kname] for path, c in stereo_paths.items()},
-                    "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                    | {path: c[kname] for path, c in stereo_paths.items()}
+                    | {path: c[kname] for path, c in paths_f32.items()},
+                    "max_abs_err": max(s["err"], mini_errs[kname]), "ms": s["ms"],
+                    "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"])[1],
                     "library_ms": None,
@@ -2106,16 +2242,20 @@ def main(argv=()) -> int:
                 report.append({
                     "name": full_name, "route": "cuda", "source": bf16_kernels[bname].source,
                     "replaces": corr_kernels.REPLACES[kname],
-                    "launches": bf16_plan_counts[bname],
+                    "launches": bf16_mini_counts[bname],
                     "launches_by_path": {path: c.get(bname, 0)
-                                         for path, c in bf16_paths.items()},
-                    "max_abs_err": s["err"], "max_err_of_bound": s["ulps"], "ms": s["ms"],
+                                         for path, c in bf16_paths.items()}
+                    | {path: c[bname] for path, c in paths_f32.items()},
+                    "max_abs_err": max(s["err"], mini_errs[bname]),
+                    "max_err_of_bound": s["ulps"], "ms": s["ms"],
                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                     "bound_by": _bound(s["bytes"], s["flops"], bf16=True)[1],
                     "library_ms": None,
                     "library": "none: no single PyTorch call computes the cost volume",
                     "float32_ms": cstats[kname]["ms"], "earlier_ms": earlier.get(bname)}
                     | ({"design": TENSOR_CORE_DESIGN} if bname in TENSOR_CORE_KERNELS else {}))
+            print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s {tag}",
+                  flush=True)
             print(json.dumps({"kernels": report}), flush=True)
             print(smi, flush=True)
     except Exception:  # the boundary: report the failed phase, print no result

@@ -210,8 +210,8 @@ def test_factory_seeds_device_and_unported():
 
     with pytest.raises(ValueError, match="compute_dtype"):  # bfloat16 and float32 only
         ModelFactory(KEYS, RIGID_B0, compute_dtype="float16")
-    for nets in ({"depth": "DepthNetBasic"}, {"camera": "PoseNetBasic"},
-                 {"depth": "ResNet50V2"}):
+    for nets in ({"depth": "ResNet50V2"}, {"camera": "PoseNetDeep"},
+                 {"camera": "PoseNetPreTrained"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model()
     # stereo keys build the stereo model (test_torch_stereo.py checks it)

@@ -142,7 +142,7 @@ def test_config_drift_and_unported_modes_raise(tmp_path):
         snapshot_config(tmp_path, _cfg(tmp_path, PLAN, depth_activation="Exponential")
                         .to_json_dict())
     for kw in (dict(train_mode="distributed"), dict(mesh_shape={"data": 2})):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             train_by_plan(_cfg(tmp_path, PLAN, **kw), device="cpu")
 
 

@@ -135,11 +135,12 @@ def test_metrics_match_jax():
 
 def test_port_runs_with_jax_blocked():
     """The port must not need JAX: import every module of the port (the
-    entry scripts too) and chip_smoke, then run the rigid slice (predict,
-    eval and an augmented train step), the flow slice (predict and a
-    regularized train step) and the entry point (a one-row plan on
-    shards, predict and evaluate) at a tiny size, with jax/flax/optax and
-    the JAX package itself made unimportable."""
+    entry scripts and tools too) and chip_smoke, then run the rigid slice
+    (predict, eval and an augmented train step), the flow slice (predict
+    and a regularized train step), the entry point (a one-row plan on
+    shards, predict and evaluate) and the learning chain's mini_plan and
+    check_learns at a tiny size, with jax/flax/optax and the JAX package
+    itself made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
@@ -212,6 +213,22 @@ def test_port_runs_with_jax_blocked():
             evaluate_by_plan(cfg)
             summary = Path(root, "evaluation", "mde01", "summary_synthetic_latest.csv")
             assert "abs_rel" in summary.read_text()
+            # the learning chain: the mini plan's nets and evaluation on both
+            # worlds, the results ledger, and the check's command line, which
+            # refuses to run without a card
+            import math
+            from xpt_mde_tpu_torch.tools import check_learns
+            from xpt_mde_tpu_torch.training import mini_plan as mp
+            from xpt_mde_tpu_torch.utils import results
+            cfg = mp.make_config(root, mp.miniature_plan(1, 1, 1), batch=1)
+            for factory in (mp.synthetic_factory(1, 1), mp.planar_factory(1, 1)):
+                init = mp.evaluate_checkpoint(cfg, mp.RIGID_NETS,
+                                              factory("synthetic_small", "val", 1),
+                                              restore=False, device="cpu")
+                assert all(math.isfinite(v) for v in init.values()), init
+            results.record("plan_learns", {"init_abs_rel": init["abs_rel"]}, "float32",
+                           Path(root, "results.jsonl"))
+            assert check_learns.main(["--check", "plan"]) == 1
         assert all(sys.modules.get(m) is None
                    for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
         print("JAX-FREE OK")

@@ -1,4 +1,4 @@
-from xpt_mde_tpu_torch.data.synthetic import SyntheticDataset
+from xpt_mde_tpu_torch.data.synthetic import PlanarSceneDataset, SyntheticDataset
 
 
 def example_batch(loader) -> dict:

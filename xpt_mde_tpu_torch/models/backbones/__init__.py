@@ -13,4 +13,5 @@ def backbone_factory(net_name: str, dtype: torch.dtype = torch.float32):
     if net_name in BACKBONE_NAMES:
         return EfficientNet(variant=net_name[-2:], dtype=dtype)
     raise NotImplementedError(
-        f"backbone {net_name!r} is not ported yet (ROADMAP: 'Breadth')")
+        f"depth net or backbone {net_name!r} is not ported yet (ROADMAP queue 1 item 5, "
+        "'Breadth': ResNet50V2, MobileNetV2, DenseNet121, VGG16, Xception, NASNet)")

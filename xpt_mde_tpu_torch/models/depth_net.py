@@ -1,5 +1,5 @@
-"""DepthNet over a multi-scale backbone (port of the pretrained-backbone
-part of ``xpt_mde_tpu.models.depth_net``).
+"""Depth nets (port of ``xpt_mde_tpu.models.depth_net``): U-Nets with
+4-scale heads and depth chaining.
 
 - input is the snippet [B, S, H, W, 3]; only the target (last) frame is
   used;
@@ -8,10 +8,17 @@ part of ``xpt_mde_tpu.models.depth_net``).
 - each scale's pre-activation conv is bilinearly upsampled into the next
   finer decoder level (depth chaining).
 
+``DepthNetPretrained`` decodes a backbone's 5 feature maps (strides
+2..32). ``DepthNetBasic`` is the SfMLearner-style net: a 7-level conv
+encoder (strides 2..128), two 512-wide up-blocks, then the same decoder;
+its up-blocks resize each upsampled map to its skip's size
+(``resize_to_skip``), so any input size works. ``DepthNetNoResize`` is
+the same without that resize (input divisible by 128).
+
 Only the plain decoder is ported; the JAX package's space-to-depth tail
 is a TPU lane-padding fix and computes the same function.
 
-With a bfloat16 compute ``dtype`` the backbone and the decoder convs run
+With a bfloat16 compute ``dtype`` the encoder and the decoder convs run
 in bfloat16, each head's conv goes to float32 before its activation (so
 depth is float32), and the chained heads re-enter the decoder cast back
 to bfloat16, where the JAX package casts them.
@@ -35,17 +42,22 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class UpconvBlock(nn.Module):
-    """2x upsample -> conv -> concat(skip[, chained depth]) -> conv."""
+    """2x upsample -> conv [-> bilinear resize to the skip's size] ->
+    concat(skip[, chained depth]) -> conv."""
 
     def __init__(self, in_ch: int, skip_ch: int, out_ch: int,
-                 upsample_interp: str = "nearest", dtype: torch.dtype = torch.float32):
+                 upsample_interp: str = "nearest", resize_to_skip: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.upsample_interp = upsample_interp
+        self.resize_to_skip = resize_to_skip
         self.Conv_0 = Conv(in_ch, out_ch, 3, dtype=dtype)
         self.Conv_1 = Conv(out_ch + skip_ch, out_ch, 3, dtype=dtype)
 
     def forward(self, x, skip, bef_pred=None):
         x = self.Conv_0(upsample_2x_nchw(x, self.upsample_interp))
+        if self.resize_to_skip:
+            x = resize_nchw(x, skip.shape[-2], skip.shape[-1], "bilinear")
         parts = [x, skip] if bef_pred is None else [x, skip, bef_pred.to(x.dtype)]
         return self.Conv_1(torch.cat(parts, dim=1))
 
@@ -71,19 +83,24 @@ class DepthDecoder(nn.Module):
     with 4 chained depth heads. Module names follow flax's numbering."""
 
     def __init__(self, enc_channels, pred_activation: Callable,
-                 upsample_interp: str = "nearest", dtype: torch.dtype = torch.float32):
+                 upsample_interp: str = "nearest", resize_to_skip: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c1, c2, c3, c4, c5 = enc_channels
-        interp, act = upsample_interp, pred_activation
+        act = pred_activation
         self.compute_dtype = dtype
-        self.UpconvBlock_0 = UpconvBlock(c5, c4, 256, interp, dtype)      # 1/16
-        self.UpconvBlock_1 = UpconvBlock(256, c3, 128, interp, dtype)     # 1/8
+
+        def up(in_ch, skip_ch, out_ch):
+            return UpconvBlock(in_ch, skip_ch, out_ch, upsample_interp, resize_to_skip, dtype)
+
+        self.UpconvBlock_0 = up(c5, c4, 256)      # 1/16
+        self.UpconvBlock_1 = up(256, c3, 128)     # 1/8
         self.ScaledDepthHead_0 = ScaledDepthHead(128, act, dtype)
-        self.UpconvBlock_2 = UpconvBlock(128, c2 + 1, 64, interp, dtype)  # 1/4
+        self.UpconvBlock_2 = up(128, c2 + 1, 64)  # 1/4
         self.ScaledDepthHead_1 = ScaledDepthHead(64, act, dtype)
-        self.UpconvBlock_3 = UpconvBlock(64, c1 + 1, 32, interp, dtype)   # 1/2
+        self.UpconvBlock_3 = up(64, c1 + 1, 32)   # 1/2
         self.ScaledDepthHead_2 = ScaledDepthHead(32, act, dtype)
-        self.UpconvBlock_4 = UpconvBlock(32, 1, 16, interp, dtype)        # 1/1
+        self.UpconvBlock_4 = up(32, 1, 16)        # 1/1
         self.ScaledDepthHead_3 = ScaledDepthHead(16, act, dtype)
 
     def forward(self, features_ms, height: int, width: int):
@@ -111,8 +128,8 @@ class DepthNetPretrained(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.compute_dtype = dtype
-        self.DepthDecoder_0 = DepthDecoder(backbone.out_channels,
-                                           pred_activation, upsample_interp, dtype)
+        self.DepthDecoder_0 = DepthDecoder(backbone.out_channels, pred_activation,
+                                           upsample_interp, dtype=dtype)
 
     def forward(self, image5d: torch.Tensor):
         target = to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2))
@@ -120,3 +137,67 @@ class DepthNetPretrained(nn.Module):
         with cast_parameters(self):
             features_ms = self.backbone(target)
             return self.DepthDecoder_0(features_ms, height, width)
+
+
+# (features, kernel, stride) of BasicEncoder's convs in flax's Conv_i order,
+# and the indices of the ones whose outputs are the 7 feature maps
+_BASIC_ENCODER = [(32, 7, 1), (32, 7, 2), (64, 5, 1), (64, 5, 2), (128, 3, 1), (128, 3, 2),
+                  (256, 3, 1), (256, 3, 2), (512, 3, 1), (512, 3, 2), (512, 3, 1), (512, 3, 2),
+                  (512, 3, 1), (512, 3, 2)]
+_BASIC_FEATURES = (2, 4, 6, 8, 10, 12, 13)
+
+
+class BasicEncoder(nn.Module):
+    """SfMLearner-style 7-level conv encoder: features at strides (2, 4,
+    8, 16, 32, 64, 128), NCHW."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        in_ch = 3
+        for i, (features, kernel, stride) in enumerate(_BASIC_ENCODER):
+            self.add_module(f"Conv_{i}", Conv(in_ch, features, kernel, stride, dtype=dtype))
+            in_ch = features
+        self.out_channels = [_BASIC_ENCODER[i][0] for i in _BASIC_FEATURES]
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        feats = []
+        for i, conv in enumerate(self.children()):
+            x = conv(x)
+            if i in _BASIC_FEATURES:
+                feats.append(x)
+        return feats
+
+
+class DepthNetBasic(nn.Module):
+    """BasicEncoder, two 512-wide up-blocks (1/64, 1/32), then the shared
+    decoder over [conv1, conv2, conv3, conv4, upconv5]."""
+
+    resize_to_skip = True
+
+    def __init__(self, pred_activation: Callable, upsample_interp: str = "nearest",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.BasicEncoder_0 = BasicEncoder(dtype)
+        c1, c2, c3, c4, c5, c6, c7 = self.BasicEncoder_0.out_channels
+        up = dict(upsample_interp=upsample_interp, resize_to_skip=self.resize_to_skip,
+                  dtype=dtype)
+        self.UpconvBlock_0 = UpconvBlock(c7, c6, 512, **up)   # 1/64
+        self.UpconvBlock_1 = UpconvBlock(512, c5, 512, **up)  # 1/32
+        self.DepthDecoder_0 = DepthDecoder([c1, c2, c3, c4, 512], pred_activation, **up)
+
+    def forward(self, image5d: torch.Tensor):
+        target = to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2))
+        height, width = target.shape[-2:]
+        with cast_parameters(self):
+            conv1, conv2, conv3, conv4, conv5, conv6, conv7 = self.BasicEncoder_0(target)
+            upconv6 = self.UpconvBlock_0(conv7, conv6)
+            upconv5 = self.UpconvBlock_1(upconv6, conv5)
+            return self.DepthDecoder_0([conv1, conv2, conv3, conv4, upconv5], height, width)
+
+
+class DepthNetNoResize(DepthNetBasic):
+    """DepthNetBasic without the up-blocks' resize: the input must be
+    divisible by 128."""
+
+    resize_to_skip = False

@@ -5,8 +5,9 @@ prediction dicts, deriving ``disp_ms = 1 / depth_ms``; with stereo data it
 runs them again on the ``_R`` views, and with a stereo extrinsic and a
 posenet it predicts the left<->right pose by feeding
 ``[R_target] * numsrc + [L_target]`` snippets (and their mirror) to the
-posenet. Ported so far: an EfficientNet ``DepthNetPretrained``,
-``PoseNetImproved`` and ``PWCNet``, computing in float32 or bfloat16
+posenet. Ported so far: ``DepthNetBasic``, ``DepthNetNoResize`` and an
+EfficientNet ``DepthNetPretrained``, ``PoseNetBasic`` and
+``PoseNetImproved``, and ``PWCNet``, computing in float32 or bfloat16
 (``compute_dtype``; the parameters are float32 either way). Any other net
 raises, naming the ROADMAP item that adds it.
 
@@ -152,14 +153,21 @@ class ModelFactory:
 
     def depth_net_factory(self, net_name: str) -> nn.Module:
         activation = activation_factory(self.depth_activation)
+        if net_name == "DepthNetBasic":
+            return dn.DepthNetBasic(activation, self.upsample_interp, self.dtype)
+        if net_name == "DepthNetNoResize":
+            return dn.DepthNetNoResize(activation, self.upsample_interp, self.dtype)
         return dn.DepthNetPretrained(backbone_factory(net_name, self.dtype), activation,
                                      self.upsample_interp, self.dtype)
 
     def pose_net_factory(self, net_name: str) -> nn.Module:
+        if net_name == "PoseNetBasic":
+            return pn.PoseNetBasic(SNIPPET_LEN, self.high_res, self.dtype)
         if net_name == "PoseNetImproved":
             return pn.PoseNetImproved(SNIPPET_LEN, self.high_res, self.dtype)
         raise NotImplementedError(
-            f"pose net {net_name!r} is not ported yet (ROADMAP: 'Breadth')")
+            f"pose net {net_name!r} is not ported yet (ROADMAP queue 1 item 5, 'Breadth': "
+            "PoseNetDeep and PoseNetPreTrained)")
 
     def flow_net_factory(self, net_name: str) -> nn.Module:
         if net_name == "PWCNet":

@@ -231,7 +231,7 @@ def train_by_plan(cfg: Config, dataset_factory: Optional[Callable] = None,
     if cfg.train_mode == "distributed" or cfg.batch_size != cfg.per_replica_batch:
         raise NotImplementedError(
             "data-parallel training over several devices is not ported yet "
-            "(ROADMAP queue 1 item 10: 'Scale-out and serving')")
+            "(ROADMAP queue 1 item 7: 'Scale-out and serving')")
     device = torch.device(device)
     dataset_factory = dataset_factory or default_dataset_factory(cfg)
     ckpt_dir = Path(cfg.datapath_ckp) / cfg.ckpt_name
