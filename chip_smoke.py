@@ -8,7 +8,9 @@ stereo shards, all in float32 (the parity mode); then the bfloat16
 compute mode, the default of ``Config()``: the bfloat16 correlation
 kernels, the steps at full width, their cross-check against float32, and
 the stereo plan at the default ``Config()``; then the learning chain: the
-miniature plan in both dtypes, which must learn in float32.
+miniature plan in both dtypes, which must learn in float32; then the
+shard chain: the port's own synthetic shards, and a bfloat16 rigid row
+trained on them.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -87,8 +89,8 @@ per library started together, and prints one line per phase:
     float64 (the pose head at CHECK_TWIST, the flow heads at CHECK_FLOW),
     checked as in phase 7 (JOINT_LOSS_TOL);
 15. the plan: synthetic shards at 128x512 (PLAN_SNIPPETS per split,
-    written by the port's ``ShardWriter`` in the schema of the JAX
-    package's ``ShardMaker("synthetic")``) in a temporary directory under
+    written by the port's ``ShardWriter`` in the schema of the port's
+    ``ShardMaker("synthetic")``) in a temporary directory under
     ``build/``; ``train_by_plan`` through the native shard loader over a
     rigid, a flow and a joint row of one epoch of 4 steps at batch 8
     (first the two pretraining rows, then the whole plan): history.csv's
@@ -160,11 +162,22 @@ per library started together, and prints one line per phase:
 27. the same plan in bfloat16: the hand-off exact and the metrics finite;
     whether it meets the criteria is reported (``bf16_meets_criteria``)
     and fails nothing; K1, K1-bwd and the bfloat16 K2-K4 launch, the
-    float32 K2-K4 never. Both results go to ``RESULTS_torch.jsonl``.
+    float32 K2-K4 never. Both results go to ``RESULTS_torch.jsonl``;
+28. the shard chain (``data/shard_maker.py``): ``convert_to_shards`` at
+    ``Config()``'s defaults (synthetic at 128x384, SHARD_DRIVES drives) builds
+    ``synthetic_train``, ``synthetic_test`` and ``synthetic_val`` serially
+    and then with ``shard_build_workers=2`` through the spawn pool: the
+    trees byte-identical, the pool run (no serial fallback), neither
+    OpenCV nor PIL loaded; each build's host seconds and examples/s; then
+    ``train_by_plan`` over one rigid row (RIGID_NET, batch 8, bfloat16)
+    on those shards through the native loader, ``predict_by_plan`` and
+    ``evaluate_by_plan`` on ``synthetic_test``: finite metrics, K1 and
+    K1-bwd launched; the row's images/s.
 
 Then the script's seconds, a JSON line with each kernel's launches on its
 main path's run (the float32 kernels': the float32 mini plan; the
-bfloat16 ones': the bfloat16 mini plan) and on every path, error (over
+bfloat16 ones': the bfloat16 mini plan) and on every path (the shard
+chain's rigid row among them), error (over
 the headline shapes and the mini plan's), device time (K1 and
 K1-bwd also at N = 1), bound, the plain version's, the nearest library
 call's and the earlier checkout's times (``redesigned_in`` names the pull
@@ -312,6 +325,9 @@ CHECK_T_LR = [[1.0, 0.0, 0.0, 0.3], [0.0, 1.0, 0.0, 0.013], [0.0, 0.0, 1.0, 0.0]
               [0.0, 0.0, 0.0, 1.0]]
 # the stereo plan's shards, as PLAN_SNIPPETS
 STEREO_PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
+# phase 28: the synthetic reader's drives (8 snippets each) per split, so
+# that the pool's two workers build two drives each
+SHARD_DRIVES = 4
 # the bfloat16 K2, K3 and K4 and their plain versions each read the
 # operands as float32, sum in float32 and round once: within one bfloat16
 # ulp of the plain value, plus this share of the largest value for a sum
@@ -886,8 +902,9 @@ def _write_shards(shard_root, dataset, height, width, counts, keys, **options):
 
 
 def write_synthetic_shards(shard_root, height, width, counts):
-    """Shards of the port's synthetic snippets in the schema of the JAX
-    package's ``ShardMaker("synthetic")``: under ``shard_root``, one
+    """Shards of the port's synthetic snippets in the schema of the port's
+    ``ShardMaker("synthetic")`` (``data/shard_maker.py``), written from
+    ``SyntheticDataset`` batches at any size: under ``shard_root``, one
     ``synthetic_{split}`` directory of ``n`` examples per ``{split: n}`` of
     ``counts``, each example {depth_gt [H, W, 1] float32, image [5H, W, 3]
     uint8 (the frames stacked vertically, target last), intrinsic [3, 3]
@@ -900,8 +917,9 @@ def write_synthetic_shards(shard_root, height, width, counts):
 def write_stereo_shards(shard_root, height, width, counts):
     """Shards of the port's synthetic STEREO snippets (a textured plane seen
     by a stereo rig stepping in x; the data are synthetic, not KITTI) in
-    the schema of the JAX package's ``DEFAULT_DATA_KEYS["kitti_raw"]``,
-    under the dataset name ``kitti_raw``, so that the published plans'
+    the schema of the port's ``ShardMaker`` for ``kitti_raw``
+    (``data/shard_maker.py::DEFAULT_DATA_KEYS``), under the dataset name
+    ``kitti_raw``, so that the published plans'
     rows read them unchanged: one ``kitti_raw_{split}`` directory of ``n``
     examples per ``{split: n}`` of ``counts``, each example {image,
     image_R [5H, W, 3] uint8 (the frames stacked vertically, target
@@ -1202,6 +1220,99 @@ def _learning_phase(device, counts, zero_counts, tag):
                                     "seconds": {d: round(r[1]["seconds"], 1)
                                                 for d, r in runs.items()}}}), flush=True)
     return runs
+
+
+def _shard_phase(device, counts, zero_counts, tag):
+    """Phase 28, the shard chain, in a temporary directory under
+    ``build/``: the port's ``convert_to_shards`` builds ``synthetic_train``,
+    ``synthetic_test`` and ``synthetic_val`` (SHARD_DRIVES drives of the
+    synthetic reader) at ``Config()``'s defaults (synthetic at 128x384),
+    serially and then with
+    ``shard_build_workers=2`` through the spawn pool; the two trees must
+    be byte-identical, the pool must really have run (no serial
+    fallback), and neither OpenCV nor PIL may be loaded. Then one rigid
+    row (RIGID_NET, batch 8, bfloat16: ``Config()``'s dtype) trains on
+    those shards through ``train_by_plan`` and the native loader, and
+    ``predict_by_plan`` + ``evaluate_by_plan`` run on ``synthetic_test``:
+    finite metrics, K1 and K1-bwd launched. Returns (the row's launches,
+    a summary line)."""
+    import numpy as np
+
+    from xpt_mde_tpu_torch.config import (RIGID_NET, SCALE_WEIGHT_T1, Config, TestStage,
+                                          TrainStage)
+    from xpt_mde_tpu_torch.data.shard_io import ShardDataset
+    from xpt_mde_tpu_torch.data.shard_maker import convert_to_shards
+    from xpt_mde_tpu_torch.evaluate.evaluate_main import evaluate_by_plan, predict_by_plan
+    from xpt_mde_tpu_torch.training.trainer import default_dataset_factory, train_by_plan
+
+    splits = ("train", "test", "val")
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        builds = {}
+        for mode, workers in (("serial", 0), ("pool", 2)):
+            cfg = Config(datapath=str(Path(workdir) / mode), shard_build_workers=workers)
+            t0 = time.perf_counter()
+            modes = convert_to_shards(cfg, {"synthetic": {"drives": SHARD_DRIVES}},
+                                      {"synthetic": ["train", "test"]})
+            seconds = time.perf_counter() - t0
+            if modes != {"synthetic_train": mode, "synthetic_test": mode}:
+                raise AssertionError(f"the {mode} build ran as {modes}")
+            shards = Path(cfg.datapath_shd)
+            sizes = {s: len(ShardDataset(shards / f"synthetic_{s}")) for s in splits}
+            builds[mode] = (shards, seconds, sizes)
+        files = {mode: sorted(p.relative_to(b[0]) for p in b[0].rglob("*") if p.is_file())
+                 for mode, b in builds.items()}
+        if files["serial"] != files["pool"] or not files["serial"]:
+            raise AssertionError(f"the builds wrote other files: {files}")
+        differ = [str(f) for f in files["serial"]
+                  if (builds["serial"][0] / f).read_bytes() != (builds["pool"][0] / f).read_bytes()]
+        if differ:
+            raise AssertionError(f"the pool build differs from the serial one in {differ}")
+        loaded = [m for m in ("cv2", "PIL") if m in sys.modules]
+        if loaded:
+            raise AssertionError(f"building the shards loaded {loaded}")
+        example = ShardDataset(builds["serial"][0] / "synthetic_train").read_example(0)
+        height, width = Config().image_sizes["synthetic"]
+        if example["image"].shape != (5 * height, width, 3):
+            raise AssertionError(f"shard image {example['image'].shape}")
+        for mode, (_, seconds, sizes) in builds.items():
+            built = sizes["train"] + sizes["test"]
+            print(f"timing shard build {mode}: synthetic_train {sizes['train']}, synthetic_test "
+                  f"{sizes['test']} and synthetic_val {sizes['val']} examples at "
+                  f"{height}x{width} in {seconds:.2f} s of host time, {built / seconds:.1f} "
+                  f"examples/s (train and test) {tag}", flush=True)
+
+        cfg = Config(stereo=False, per_replica_batch=BATCH,
+                     datapath=str(builds["serial"][0].parent), ckpt_name="shards",
+                     pretrained_weight=False,
+                     training_plan=[TrainStage(RIGID_NET, "synthetic", 1, LR, RECIPE,
+                                               SCALE_WEIGHT_T1)],
+                     test_plan=[TestStage(RIGID_NET, "synthetic", ["depth", "pose"], "shards")])
+        loader_kind = default_dataset_factory(cfg)("synthetic", "train", BATCH).kind
+        if loader_kind != "native":
+            raise AssertionError(f"make_loader gave the {loader_kind} loader, not the native one")
+        zero_counts()
+        train_by_plan(cfg, device=device)
+        predict_by_plan(cfg, device=device)
+        launches = counts()
+        evaluate_by_plan(cfg)
+        if not (launches["K1"] and launches["K1-bwd"]):
+            raise AssertionError(f"the rigid row launched {launches}")
+        history = (Path(cfg.datapath_ckp) / "shards" / "history.csv").read_text().splitlines()
+        row = dict(zip(history[0].split(","), history[1].split(",")))
+        rate = builds["serial"][2]["train"] // BATCH * BATCH / float(row["train_sec_per_epoch"])
+        summary_file = Path(cfg.datapath_evl) / "shards" / "summary_synthetic_latest.csv"
+        summary = {k: float(v) for k, v in (line.split(",") for line in
+                                            summary_file.read_text().strip().splitlines()[1:])}
+        if not summary or not all(np.isfinite(v) for v in summary.values()):
+            raise AssertionError(f"evaluation summary {summary}")
+        print(f"timing shard chain rigid row (RIGID_NET, batch {BATCH}, bfloat16, "
+              f"{height}x{width}, the native loader): {rate:.2f} images/s over the train epoch "
+              f"{tag}", flush=True)
+    note = (f"serial and pool builds byte-identical ({len(files['serial'])} files), the pool "
+            f"ran, no cv2 or PIL loaded; rigid row train_loss {float(row['train_loss']):.6f}; "
+            f"evaluate_by_plan on {builds['serial'][2]['test']} test snippets: "
+            f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
+    return launches, note
 
 
 def _timed_rounds(step, step_batches, rounds, steps):
@@ -2182,6 +2293,16 @@ def main(argv=()) -> int:
                   f"for both; the script so far {time.perf_counter() - t_script:.1f} s {tag}",
                   flush=True)
             paths_f32 = {"mini plan": mini_counts, "bf16 mini plan": bf16_mini_counts}
+
+            # 28. the shard chain: the port's own shards, serially and over
+            # the spawn pool, then a bfloat16 rigid row, predict and evaluate
+            # on them, the counts read from zero
+            phase = "shard chain"
+            t0 = time.perf_counter()
+            shard_counts, shard_note = _shard_phase(device, counts, zero_counts, tag)
+            print(f"phase 28 shard chain: {shard_note}; launches {json.dumps(shard_counts)}; "
+                  f"{time.perf_counter() - t0:.1f} s for the phase {tag}", flush=True)
+            paths_f32["shard chain row"] = shard_counts
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
             # summed over the scales or levels; launches: the mini plan run's

@@ -25,6 +25,15 @@ BOXES = [(0.0, 0.0, 1.0, 1.0),          # no crop: the identity
          (0.1, 0.1, 0.9, 0.9)]          # the largest crop
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     # parity is checked in full float32: TF32 off for cuBLAS and cuDNN

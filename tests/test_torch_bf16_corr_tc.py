@@ -55,6 +55,15 @@ EDGE_SHAPES = [
 LEVELS = [6, 5, 4, 3, 2]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _level_shape(level, batch=32):
     md, stride = level_displacement(level)
     return (batch, ENCODER_CHANNELS[level - 1], 128 >> level, 512 >> level), md, stride

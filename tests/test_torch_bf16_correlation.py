@@ -30,6 +30,15 @@ LEVELS = [(2, 1), (4, 1), (8, 2), (16, 4), (32, 8)]
 SHAPE = (2, 8, 16, 12)  # B, H, W, C (channel-last, the JAX layout)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_within_one_ulp(got: np.ndarray, want: np.ndarray, what: str) -> None:
     """The rule of ``chip_smoke.bf16_ulp_excess``, which the card checks
     use too."""

@@ -54,6 +54,16 @@ BF16 = torch.bfloat16
 MEDIAN_RATIO, MAX_RATIO, ATOL = 2.0, 4.0, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # four intra-op threads: the workers beside this module share the
+    # cores, and the CPU's summation order stays the same on any host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     with full_f32():

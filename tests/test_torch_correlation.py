@@ -27,6 +27,15 @@ TOL = dict(atol=1e-6, rtol=1e-6)
 LEVELS = [(2, 1), (4, 2), (8, 2), (32, 8)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _features(seed, shape=(2, 12, 16, 8)):
     rng = np.random.RandomState(seed)
     cl = rng.uniform(-1, 1, shape).astype(np.float32)

@@ -43,6 +43,16 @@ KEYS = ["image", "intrinsic"]
 RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # four intra-op threads: the workers beside this module share the
+    # cores, and the CPU's summation order stays the same on any host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     # parity is checked in full float32: TF32 off for cuBLAS and cuDNN

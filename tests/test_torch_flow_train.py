@@ -34,6 +34,16 @@ RECIPE = {k: v for k, v in LOSS_FLOW.items() if k != "flowL2_R"}
 BATCH, SNIPPET, HEIGHT, WIDTH, LR = 2, 3, 64, 128, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # four intra-op threads: the workers beside this module share the
+    # cores, and the CPU's summation order stays the same on any host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fill(shapes, seed):
     """Kernels of unit gain and biases of 0.05 from numpy: the flows come
     out of order 1, so the warps' coordinates are generic (away from the

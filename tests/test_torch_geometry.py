@@ -23,6 +23,15 @@ from xpt_mde_tpu_torch.utils.precision import full_f32
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     # parity is checked in full float32: TF32 off for cuBLAS and cuDNN

@@ -44,6 +44,15 @@ from xpt_mde_tpu_torch.utils.precision import full_f32
 HEADLINE = [(128, 512), (64, 256), (32, 128), (16, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -24,6 +24,16 @@ RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
 KEYS = ["image", "intrinsic", "depth_gt", "pose_gt"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # four intra-op threads: the workers beside this module share the
+    # cores, and the CPU's summation order stays the same on any host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     # parity is checked in full float32: TF32 off for cuBLAS and cuDNN

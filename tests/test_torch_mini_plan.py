@@ -1,8 +1,9 @@
 """The learning chain against the JAX package: ``DepthNetBasic``,
 ``DepthNetNoResize`` and ``PoseNetBasic`` (float32 and bfloat16), one train
-step of the miniature plan's rigid row, the evaluation helpers of
-``training/mini_plan.py``, and a two-batch run of the miniature plan
-through ``train_by_plan`` (``tools/check_learns.py::check_plan``).
+step of the miniature plan's rigid row and the plan's constants (the
+evaluation helpers of ``training/mini_plan.py`` are held in
+test_torch_mini_plan_eval.py, a two-batch run of the plan in
+test_torch_mini_plan_run.py).
 
 Weights: flax variable trees filled from a seeded numpy RandomState
 (``test_torch_models.random_variables``), or the JAX helpers' own init,
@@ -13,8 +14,6 @@ distance rule); the train step as ``test_torch_train.py``.
 """
 
 import dataclasses
-import json
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +25,6 @@ from test_torch_bf16_models import _flax_pair, assert_bf16_distance
 from test_torch_models import random_variables
 from test_torch_train import _fill, _grad_close
 from xpt_mde_tpu.config import SCALE_WEIGHT_T1
-from xpt_mde_tpu.data import SyntheticDataset as JSyntheticDataset
 from xpt_mde_tpu.losses import loss_factory as j_loss_factory
 from xpt_mde_tpu.models import ModelFactory as JModelFactory
 from xpt_mde_tpu.models import depth_net as jdn
@@ -43,10 +41,8 @@ from xpt_mde_tpu_torch.models import ModelFactory
 from xpt_mde_tpu_torch.models import depth_net as dn
 from xpt_mde_tpu_torch.models.layers import activation_factory
 from xpt_mde_tpu_torch.models.pose_net import PoseNetBasic
-from xpt_mde_tpu_torch.tools import check_learns
 from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
 from xpt_mde_tpu_torch.training import mini_plan as mp
-from xpt_mde_tpu_torch.utils import results
 from xpt_mde_tpu_torch.utils.precision import full_f32
 
 BF16 = torch.bfloat16
@@ -244,99 +240,6 @@ def test_rigid_step_update_matches_jax(rigid_step):
         assert np.any(got != before[key].numpy()), f"{key} did not move"
 
 
-# --------------------------------------------------------------------------
-# the evaluation helpers, on the JAX helpers' own init weights
-
-
-@pytest.fixture
-def jax_init(monkeypatch):
-    """JAX's mini_plan helpers with restore=False start from seeded numpy
-    fills (``test_torch_train._fill``, shaped by ``jax.eval_shape``)
-    instead of flax's init, which runs op by op and takes ~30-50 s on the
-    CPU for these nets. Returns the variables of each train state they
-    create, in order."""
-    import xpt_mde_tpu.training.train_step as jts
-
-    created = []
-
-    def create(model, example_features, tx, rng=None):
-        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), example_features,
-                                                   train=False))
-        variables = _fill(shapes, seed=7 + len(created))
-        created.append(variables)
-        return TrainState.create(apply_fn=model.apply, params=variables["params"],
-                                 batch_stats=variables.get("batch_stats"), tx=tx)
-
-    monkeypatch.setattr(jts, "create_train_state", create)
-    return created
-
-
-def _save_port_checkpoint(cfg, nets, val_data, variables, stereo=False):
-    """The JAX init variables as the port's "latest" per-net files."""
-    model = ModelFactory(val_data.config_keys(), nets, "Exponential", stereo=stereo,
-                         device="cpu").get_model()
-    load_flax_variables(model, variables)
-    ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
-    ckpt.mkdir(parents=True, exist_ok=True)
-    for name, net in model.named_children():
-        torch.save(net.state_dict(), ckpt / f"{name}_latest.pt")
-
-
-def _assert_metrics_close(got, want):
-    assert set(got) == set(want), (sorted(got), sorted(want))
-    for key in want:
-        # the predictions agree to ~1e-6 relative (float32, another order);
-        # rot_err sits near 0 at init, hence the absolute bound
-        np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-6, err_msg=key)
-
-
-def test_evaluate_checkpoint_and_depth_metrics_match_jax(tmp_path, jax_init):
-    cfg = mp.make_config(tmp_path, mp.miniature_plan(1, 1, 1), batch=2)
-    jcfg = jmp.make_config(tmp_path / "jax", jmp.miniature_plan(1, 1, 1), batch=2)
-    val = dict(batch_size=2, height=mp.RIGID_SIZE[0], width=mp.RIGID_SIZE[1], num_batches=1,
-               varying_depth=True, vary_motion=True, seed=99)
-    want = jmp.evaluate_checkpoint(jcfg, jmp.RIGID_NETS, JSyntheticDataset(**val),
-                                   restore=False, return_results=True)
-    _save_port_checkpoint(cfg, mp.RIGID_NETS, SyntheticDataset(**val), jax_init[0])
-    got = mp.evaluate_checkpoint(cfg, mp.RIGID_NETS, SyntheticDataset(**val),
-                                 return_results=True, device="cpu")
-    results, jresults = got.pop("_results"), want.pop("_results")
-    _assert_metrics_close(got, want)
-    assert set(results) == set(jresults)
-    # the analyses of mini_plan on the same predictions (the port's)
-    r0, r1 = SyntheticDataset(**val, moving_object=True).object_rows()
-    _assert_metrics_close(mp.band_abs_rel(results, r0, r1), jmp.band_abs_rel(results, r0, r1))
-    assert mp.unscaled_abs_rel(results) == jmp.unscaled_abs_rel(results)
-    with pytest.raises(FileNotFoundError):
-        mp.evaluate_checkpoint(mp.make_config(tmp_path / "empty", []), mp.RIGID_NETS,
-                               SyntheticDataset(**val), device="cpu")
-
-
-def test_evaluate_flow_epe_matches_jax(tmp_path, jax_init):
-    cfg = mp.make_config(tmp_path, mp.miniature_plan(1, 1, 1), batch=1)
-    jcfg = jmp.make_config(tmp_path / "jax", jmp.miniature_plan(1, 1, 1), batch=1)
-    val = dict(batch_size=1, height=mp.FLOW_SIZE[0], width=mp.FLOW_SIZE[1], num_batches=1,
-               varying_depth=True, vary_motion=True, seed=99)
-    want = jmp.evaluate_flow_epe(jcfg, JSyntheticDataset(**val), restore=False)
-    _save_port_checkpoint(cfg, mp.FLOW_NETS, SyntheticDataset(**val), jax_init[0])
-    got = mp.evaluate_flow_epe(cfg, SyntheticDataset(**val), device="cpu")
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-
-
-def test_evaluate_stereo_extrinsic_matches_jax(tmp_path, jax_init):
-    cfg = mp.make_config(tmp_path, [], batch=1, stereo=True)
-    jcfg = jmp.make_config(tmp_path / "jax", [], batch=1, stereo=True)
-    val = dict(batch_size=1, height=mp.RIGID_SIZE[0], width=mp.RIGID_SIZE[1], num_batches=1,
-               varying_depth=True, stereo=True, seed=99)
-    want = jmp.evaluate_stereo_extrinsic(jcfg, jmp.RIGID_NETS, JSyntheticDataset(**val),
-                                         restore=False)
-    _save_port_checkpoint(cfg, mp.RIGID_NETS, SyntheticDataset(**val), jax_init[0],
-                          stereo=True)
-    got = mp.evaluate_stereo_extrinsic(cfg, mp.RIGID_NETS, SyntheticDataset(**val),
-                                       device="cpu")
-    _assert_metrics_close(got, want)
-
-
 def test_mini_plan_constants_match_jax():
     for name in ("RIGID_NETS", "FLOW_NETS", "JOINT_NETS", "RECIPE_RIGID", "RECIPE_FLOW",
                  "RECIPE_JOINT", "RECIPE_STEREO", "RIGID_SIZE", "FLOW_SIZE"):
@@ -355,36 +258,3 @@ def test_mini_plan_constants_match_jax():
             for got, want in zip(ours, ref, strict=True):
                 for key in want:
                     np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-
-
-# --------------------------------------------------------------------------
-# the plan itself, at two batches a row
-
-
-def test_two_batch_mini_plan_run_on_the_cpu(tmp_path, capsys, monkeypatch):
-    """``miniature_plan(1, 1, 1)`` through ``train_by_plan`` on the CPU,
-    two steps a row at batch 2: the flownet after the joint row equals the
-    flow row's tensor for tensor, the depth net changed, the metrics are
-    finite; the check's record carries the device and the dtype."""
-    result = check_learns.check_plan(tmp_path / "plan", "float32", device="cpu",
-                                     rigid_epochs=1, flow_epochs=1, joint_epochs=1, batch=2,
-                                     train_batches=2, val_batches=1)
-    assert result["handoff"] == {"depth_pose_untouched_by_flow_row": True,
-                                 "flownet_exact": True, "depth_changed_in_joint": True}
-    assert list(result["trajectory"]) == ["init", "after_rigid", "after_flow", "after_joint"]
-    assert all(np.isfinite(v) for m in result["trajectory"].values() for v in m.values())
-    assert [r["steps"] for r in result["rows"]] == [2, 2, 2]
-    assert all(r["launches"] == {} for r in result["rows"])  # the plain versions on the CPU
-    ledger = tmp_path / "results.jsonl"
-    results.record("plan_learns", check_learns.result_payload(result), "float32", ledger)
-    entry = json.loads(ledger.read_text())
-    assert entry["check"] == "plan_learns" and entry["card"] == "no CUDA device"
-    assert entry["compute_dtype"] == "float32" and entry["cuda"] == torch.version.cuda
-    assert entry["handoff"]["flownet_exact"] and "after_joint_abs_rel" in entry
-    with pytest.raises(TypeError, match="unknown protocol"):
-        check_learns.check_plan(tmp_path, steps=3)
-    # the command line refuses to run without a card, printing no result
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    capsys.readouterr()
-    assert check_learns.main(["--check", "plan"]) == 1
-    assert capsys.readouterr().out == ""

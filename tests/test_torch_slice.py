@@ -47,6 +47,16 @@ RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
 BATCH, HEIGHT, WIDTH = 2, 64, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # four intra-op threads: the workers beside this module share the
+    # cores, and the CPU's summation order stays the same on any host
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     # parity is checked in full float32: TF32 off for cuBLAS and cuDNN
@@ -149,6 +159,14 @@ def test_port_runs_with_jax_blocked():
         import xpt_mde_tpu_torch
         for info in pkgutil.walk_packages(xpt_mde_tpu_torch.__path__, "xpt_mde_tpu_torch."):
             importlib.import_module(info.name)
+        shard_chain = ["data.depth_map", "data.image_ops", "data.example_maker",
+                       "data.shard_maker", "data.list_static_frames", "data.readers",
+                       "data.readers.reader_base", "data.readers.kitti_reader",
+                       "data.readers.city_reader", "data.readers.driving_reader",
+                       "data.readers.a2d2_reader", "data.readers.waymo_native",
+                       "data.readers.waymo_reader", "data.readers.waymo_protos.dataset_pb2",
+                       "scripts.create_shards_main"]
+        assert all(f"xpt_mde_tpu_torch.{m}" in sys.modules for m in shard_chain)
         import torch
         torch.set_num_threads(2)  # the test workers beside it share the cores
         from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, SCALE_WEIGHT_T1
@@ -238,6 +256,56 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX-FREE OK" in proc.stdout
+
+
+def test_shards_made_and_trained_with_jax_and_opencv_blocked():
+    """The card machine's situation: with jax/flax/optax, the JAX package,
+    OpenCV and PIL all unimportable, the port's ``create_shards_main``
+    builds synthetic shards (its ``user_config`` given as a module), and a
+    rigid row trains one step on them through ``train_by_plan`` on the
+    CPU."""
+    code = textwrap.dedent("""
+        import sys, types
+        for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu", "cv2", "PIL"):
+            sys.modules[name] = None
+        import tempfile
+        from pathlib import Path
+        import torch
+        torch.set_num_threads(2)  # the test workers beside it share the cores
+        from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1, Config, TrainStage
+        from xpt_mde_tpu_torch.data.shard_io import ShardDataset
+        from xpt_mde_tpu_torch.scripts import create_shards_main
+        from xpt_mde_tpu_torch.training.trainer import train_by_plan
+        rigid = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+        with tempfile.TemporaryDirectory() as root:
+            user_config = types.ModuleType("xpt_mde_tpu_torch.scripts.user_config")
+            user_config.cfg = Config(
+                stereo=False, per_replica_batch=2, datapath=root, pretrained_weight=False,
+                compute_dtype="float32", image_size_overrides={"synthetic": (32, 64)},
+                training_plan=[TrainStage(rigid, "synthetic", 1, 1e-4,
+                                          {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0},
+                                          SCALE_WEIGHT_T1)])
+            user_config.RAW_DATA_PATHS = {"synthetic": {"drives": 1, "num_frames": 6,
+                                                        "height": 32, "width": 64}}
+            sys.modules["xpt_mde_tpu_torch.scripts.user_config"] = user_config
+            assert create_shards_main.main() == {"synthetic_train": "serial"}
+            shards = Path(root, "shards")
+            assert sorted(p.name for p in shards.iterdir()) == ["synthetic_train",
+                                                                 "synthetic_val"]
+            train = ShardDataset(shards / "synthetic_train")
+            assert len(train) == 2 and train.read_example(0)["image"].shape == (5 * 32, 64, 3)
+            train_by_plan(user_config.cfg, device="cpu")
+            history = Path(root, "checkpts", "mde01", "history.csv").read_text()
+            assert len(history.strip().splitlines()) == 2, history
+        assert all(sys.modules.get(m) is None
+                   for m in ("jax", "flax", "optax", "xpt_mde_tpu", "cv2", "PIL"))
+        print("SHARDS WITHOUT JAX OR OPENCV OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SHARDS WITHOUT JAX OR OPENCV OK" in proc.stdout
 
 
 def test_stereo_path_runs_with_jax_blocked():

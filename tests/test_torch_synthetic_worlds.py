@@ -27,6 +27,15 @@ from xpt_mde_tpu_torch.utils import se3
 from xpt_mde_tpu_torch.utils.precision import full_f32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     with full_f32():

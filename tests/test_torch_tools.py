@@ -8,6 +8,15 @@ from xpt_mde_tpu_torch.ops.kernels import correlation as kcorr
 from xpt_mde_tpu_torch.tools import corr_sweep, corr_variants, profile_steps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # two intra-op threads: the workers beside this module share the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_busy_time_is_the_union_of_intervals():
     intervals = [(5.0, 7.0), (0.0, 2.0), (1.0, 3.0), (6.0, 6.5), (10.0, 10.0)]
     assert profile_steps._busy_us(intervals) == 5.0

@@ -13,7 +13,11 @@ like): snippets ``[B, S, H, W, C]``, pixel coordinates ``[B, N, 2, H*W]``,
 NHWC tensors in the prediction dict. NCHW exists only inside the conv
 modules.
 
-Ported so far: the entry point (``training.trainer.train_by_plan``,
+Ported so far: the shard chain (``data/``: depth maps, the dataset
+readers, ``ExampleMaker``, ``ShardMaker`` and the synthetic reader, run by
+``python -m xpt_mde_tpu_torch.scripts.create_shards_main``), host numpy
+that writes the JAX package's shards byte for byte; the entry point
+(``training.trainer.train_by_plan``,
 ``evaluate.evaluate_main.predict_by_plan`` / ``evaluate_by_plan``, run by
 ``python -m xpt_mde_tpu_torch.scripts.train_main`` / ``evaluate_main``)
 over the rigid stage's predict, eval and train steps (EfficientNet depth

@@ -1,9 +1,10 @@
 """Synthetic snippet batches (port of ``xpt_mde_tpu.data.synthetic``).
 
-Two GT-bearing worlds, pure numpy, copied rather than imported so the port
-needs no JAX; for a given seed and size each yields the reference's
-batches bit for bit (``tests/test_torch_data.py``,
-``tests/test_torch_synthetic_worlds.py``):
+Two GT-bearing worlds and the shard-making reader, pure numpy, copied
+rather than imported so the port needs no JAX; for a given seed and size
+each yields the reference's batches or frames bit for bit
+(``tests/test_torch_data.py``, ``tests/test_torch_synthetic_worlds.py``,
+``tests/test_torch_shard_chain.py``):
 
 - :class:`SyntheticDataset`: 5-frame snippets of a textured surface seen
   by a camera stepping in x, with exact GT depth and target->source
@@ -13,10 +14,9 @@ batches bit for bit (``tests/test_torch_data.py``,
   adds a band moving on its own (optionally accelerating), and
   ``stereo=True`` adds a right camera ``baseline_m`` to the right;
 - :class:`PlanarSceneDataset`: a tilted textured plane rendered exactly
-  under full SE(3) camera motion (x translation and yaw).
-
-The reference's ``SyntheticReader`` (the shard-making twin) belongs to
-the data chain and is not carried yet.
+  under full SE(3) camera motion (x translation and yaw);
+- :class:`SyntheticReader`: the shard-making twin, a reader of
+  procedurally rendered "drives" for ``ShardMaker("synthetic")``.
 
 Feature dict layout (numpy arrays, as the reference's loaders give):
     image5d      [B, S, H, W, 3] float32 in [-1, 1], target LAST
@@ -339,3 +339,71 @@ class PlanarSceneDataset:
                 "depth_gt": np.stack(depths),
                 "pose_gt": np.stack(poses),
             }
+
+
+class SyntheticReader:
+    """Reader (``DataReaderBase``'s interface) of procedurally rendered
+    drives for the shard-making path: each drive is a textured plane
+    ``depth_m`` away seen by a camera stepping ``step_m`` in x a frame,
+    with exact GT depth, poses and intrinsics, so
+    ``ShardMaker(cfg, "synthetic", split, None)`` builds real shards with
+    no raw data. ``base_path`` may be a dict overriding height, width,
+    num_frames, drives, step_m and depth_m. Drive i's texture comes from
+    seed i, as in the JAX package's reader, bit for bit."""
+
+    def __init__(self, split: str = "train", base_path=None):
+        self.split = split
+        self.base_path = base_path
+        opts = dict(base_path) if isinstance(base_path, dict) else {}
+        self.height = int(opts.get("height", 64))
+        self.width = int(opts.get("width", 128))
+        self.num_frames = int(opts.get("num_frames", 12))
+        self.n_drives = int(opts.get("drives", 2))
+        self.step_m = float(opts.get("step_m", 0.5))
+        self.depth_m = float(opts.get("depth_m", 10.0))
+        fx = self.width * 0.6
+        self.intrinsic = np.array(
+            [[fx, 0, self.width / 2], [0, fx, self.height / 2], [0, 0, 1]],
+            np.float32)
+        self.texture = None
+        self.frame_names: list = []
+
+    def list_drive_paths(self):
+        return [f"synthetic_{i:02d}" for i in range(self.n_drives)]
+
+    def init_drive(self, drive_path):
+        seed = int(str(drive_path).rsplit("_", 1)[-1])
+        self.texture = _texture(self.height, self.width, np.random.RandomState(seed))
+        self.frame_names = [f"{drive_path}/{i:04d}" for i in range(self.num_frames)]
+
+    def num_frames_(self):
+        return self.num_frames
+
+    def get_range_(self):
+        return range(2, self.num_frames - 2)
+
+    def get_image(self, index, right=False):
+        if right:
+            return None
+        img = _render_plane(self.texture, self.intrinsic[0, 0], index * self.step_m,
+                            self.depth_m)
+        return ((np.clip(img, -1, 1) + 1) / 2 * 255).astype(np.uint8)
+
+    def get_pose(self, index, right=False):
+        pose = np.eye(4, dtype=np.float32)  # camera-to-world
+        pose[0, 3] = index * self.step_m
+        return pose
+
+    def get_point_cloud(self, index, right=False):
+        from xpt_mde_tpu_torch.data.depth_map import depth_map_to_point_cloud
+        depth = np.full((self.height, self.width), self.depth_m, np.float32)
+        return depth_map_to_point_cloud(depth, self.intrinsic)
+
+    def get_intrinsic(self, index=0, right=False):
+        return self.intrinsic.copy()
+
+    def get_stereo_extrinsic(self, index=0):
+        return None
+
+    def index_to_id(self, index):
+        return index
