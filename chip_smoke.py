@@ -10,7 +10,9 @@ kernels, the steps at full width, their cross-check against float32, and
 the stereo plan at the default ``Config()``; then the learning chain: the
 miniature plan in both dtypes, which must learn in float32; then the
 shard chain: the port's own synthetic shards, and a bfloat16 rigid row
-trained on them.
+trained on them; then the model zoo: the other backbones, pose nets, loss
+recipes, gradient accumulation and backbone remat, each in a bfloat16
+train step at full width.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -172,12 +174,30 @@ per library started together, and prints one line per phase:
     ``train_by_plan`` over one rigid row (RIGID_NET, batch 8, bfloat16)
     on those shards through the native loader, ``predict_by_plan`` and
     ``evaluate_by_plan`` on ``synthetic_test``: finite metrics, K1 and
-    K1-bwd launched; the row's images/s.
+    K1-bwd launched; the row's images/s;
+29. the model zoo (``_zoo_phase``): each backbone of ZOO_BACKBONES
+    (ResNet50V2, MobileNetV2, VGG16, DenseNet121, Xception, NASNetMobile,
+    NASNetLarge) as the depth net with PoseNetImproved in the bfloat16
+    rigid train step (batch 8, 128x512, default augmentation, RECIPE):
+    build and warm-up seconds, the ms a step between CUDA events around
+    it, images/s, peak memory, 4 K1 and 4 K1-bwd launches a step, K1's ms
+    over the step's, a finite loss; at ZOO_CHECK_SIZE on images scaled to
+    [0, 255], the backbone alone in float64 and float32 on the card
+    against the CPU (BACKBONE_F64_RTOL; TAP_RTOL, GRAD_MAX_RTOL for every
+    gradient, BN_TOL), a float32 step's losses, loss gradient and BN
+    statistics by phase 7's rules and the bfloat16 step by phase 23's;
+    before them NASNet's count-excluding pool on a channels-last tensor
+    against the CPU (POOL_RTOL); then one bfloat16 step each
+    of PoseNetDeep, PoseNetPreTrained(MobileNetV2), the stereo step under
+    LOSS_RIGID_MD2 and LOSS_RIGID_MOA_WST (16 K1, 16 K1-bwd), the joint
+    step under MD2CMB_RECIPE (5 K2-bf16), ``grad_accum_steps=2`` (8 K1, 8
+    K1-bwd) and NASNetLarge without and with ``remat_backbone``, whose
+    peak memory must be lower with it.
 
 Then the script's seconds, a JSON line with each kernel's launches on its
 main path's run (the float32 kernels': the float32 mini plan; the
 bfloat16 ones': the bfloat16 mini plan) and on every path (the shard
-chain's rigid row among them), error (over
+chain's rigid row and the model zoo's steps among them), error (over
 the headline shapes and the mini plan's), device time (K1 and
 K1-bwd also at N = 1), bound, the plain version's, the nearest library
 call's and the earlier checkout's times (``redesigned_in`` names the pull
@@ -328,6 +348,43 @@ STEREO_PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
 # phase 28: the synthetic reader's drives (8 snippets each) per split, so
 # that the pool's two workers build two drives each
 SHARD_DRIVES = 4
+# phase 29, the model zoo: the seven backbones JAX has beside EfficientNet,
+# each as the depth net with PoseNetImproved in the bfloat16 rigid step
+ZOO_BACKBONES = ["ResNet50V2", "MobileNetV2", "VGG16", "DenseNet121", "Xception",
+                 "NASNetMobile", "NASNetLarge"]
+ZOO_TIMED_STEPS = 6
+# the zoo's cross-checks run at ZOO_CHECK_SIZE (a 64x256 synthetic batch
+# of CHECK_BATCH: a CPU float64 step of VGG16 or NASNetLarge at 128x512
+# takes tens of seconds), on images scaled to [0, 255]: the range the
+# zoo's preprocessing is made for. The pipeline's [-1, 1] images reach a
+# "tf"-mode stem as -1 +- 0.008, where a float32 step's backbone
+# gradients sit 5-40% from float64 on the CPU too (ROADMAP queue 3). The
+# zoo's float32 steps' gradients are not held to the CPU's distance from
+# float64, as phase 7 holds B5's: on the card cuDNN's float32 algorithms
+# set that distance (DenseNet121's, Xception's and VGG16's medians land at
+# ~3x the CPU's; tools/zoo_precision.py shows the backbones with cuDNN
+# off), and NASNetLarge's deepest cells sit near GRAD_MAX_RTOL on the CPU
+# too. So each backbone's
+# gradients are held alone (``_backbone_cross_check``, every tensor), and
+# the step by its losses, loss gradient and BN statistics
+ZOO_CHECK_SIZE = (64, 256)
+# the backbone alone in float64, card vs CPU: the same sums in other
+# orders, float64's rounding amplified by the train-mode BatchNorms'
+# cancellation as float32's is (float32's ~6e-8 becomes up to ~0.2 on
+# the CPU, an amplification below 1e7; float64's 1.1e-16 then stays
+# below ~1e-9), so every tensor within BACKBONE_F64_RTOL, still five
+# orders below what a wrong forward or backward op gives
+BACKBONE_F64_RTOL = 1e-7
+# the count-excluding pool on a channels-last tensor against the CPU's,
+# forward and backward: float32 sums of 4 to 9 values in another order
+POOL_RTOL = 1e-5
+# the backbone's float32 taps against float64, each within this share of
+# its largest value: the forward alone, up to ~100 layers of float32 sums
+# and train-mode BatchNorms (the CPU's own at ZOO_CHECK_SIZE: up to 6.5e-4,
+# NASNetLarge)
+TAP_RTOL = 1e-3
+# phase 29's joint step: the md2cmb terms at LOSS_RIGID_COMB's weights (as JOINT_RECIPE)
+MD2CMB_RECIPE = {"md2cmbL1": 5.0, "md2cmbSSIM": 0.5, "smoothe": 20.0}
 # the bfloat16 K2, K3 and K4 and their plain versions each read the
 # operands as float32, sum in float32 and round once: within one bfloat16
 # ulp of the plain value, plus this share of the largest value for a sum
@@ -803,12 +860,33 @@ def _set_pose_and_flow_heads(model, device):
 def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
                        pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
                        loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
-    """Phases 7, 11, 14 and 17: one train step from the same seeded weights
-    (``prepare`` sets the heads' biases), no augmentation, on the card, on
-    the CPU, and on the CPU in float64 as the reference. The gradients of
-    frozen nets' parameters (None) are not compared. ``loss_grad_rule``:
-    (relative error, share of elements off by more than 1e-3 of the
-    largest) allowed for the loss's gradient at the same predictions."""
+    """Phases 7, 11, 14 and 17: ``_step_cross_check``, and the parameter
+    gradients as close to float64 as the CPU's (median relative error at
+    most GRAD_MEDIAN_RATIO times the CPU's), none further than
+    GRAD_MAX_RTOL."""
+    median, worst = _step_cross_check(phase_no, label, nets, keys, feats, device, loss,
+                                      prepare, pred_keys, loss_tol, step_kwargs, fixed_keys,
+                                      loss_grad_rule)
+    if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
+        raise AssertionError(f"GPU gradients further from float64 than the CPU's: "
+                             f"{median['gpu']:.3g} vs {median['cpu']:.3g}")
+    if not worst[0][1] <= GRAD_MAX_RTOL:
+        raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g} "
+                             f"> {GRAD_MAX_RTOL}")
+
+
+def _step_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
+                      pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
+                      loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
+    """Phases 7, 11, 14, 17 and 29: one train step from the same seeded
+    weights (``prepare`` sets the heads' biases), no augmentation, on the
+    card, on the CPU, and on the CPU in float64 as the reference: the
+    losses within ``loss_tol``, the loss's gradient at the same
+    predictions within ``loss_grad_rule`` (relative error, share of
+    elements off by more than 1e-3 of the largest), the BatchNorm
+    statistics within BN_TOL. Prints the parameter gradients' distances
+    from float64 (frozen nets' None not compared) and returns ({device:
+    median relative error}, the card's three worst (tensor, error))."""
     import numpy as np
     import torch
 
@@ -847,9 +925,10 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
     worst = sorted(errors["gpu"].items(), key=lambda item: item[1], reverse=True)[:3]
     worst_stat = 0.0
     for key, value in results["cpu"][2].items():
-        # the batch statistic folded in: (new - 0.99 * initial) / 0.01
-        folded = [(results[dev_label][2][key] - 0.99 * initial[key].double()) / 0.01
-                  for dev_label in ("gpu", "cpu")]
+        # the batch statistic folded in: (new - (1 - m) * initial) / m
+        momentum = model.get_submodule(key.rsplit(".", 1)[0]).momentum
+        folded = [(results[dev_label][2][key] - (1.0 - momentum) * initial[key].double())
+                  / momentum for dev_label in ("gpu", "cpu")]
         excess = torch.abs(folded[0] - folded[1]) - BN_TOL[0] * torch.abs(folded[1])
         worst_stat = max(worst_stat, float(excess.max()))
     bn_note = (f"BN batch statistics GPU vs CPU: worst excess over rtol {BN_TOL[0]} "
@@ -861,17 +940,114 @@ def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare
           f"{n_elems} elements off by > 1e-3 of the largest); parameter gradients against "
           f"the CPU's float64 step ({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median "
           f"relative error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
-          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}; {bn_note}", flush=True)
+          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}, CPU worst "
+          f"{max(errors['cpu'].values()):.3g}; {bn_note}", flush=True)
     if not (loss_rel <= loss_grad_rule[0] and n_off <= loss_grad_rule[1] * n_elems):
         raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}, "
                              f"{n_off} of {n_elems} elements off")
-    if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
-        raise AssertionError(f"GPU gradients further from float64 than the CPU's: "
-                             f"{median['gpu']:.3g} vs {median['cpu']:.3g}")
-    if not worst[0][1] <= GRAD_MAX_RTOL:
-        raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g}")
     if not worst_stat <= BN_TOL[1]:
         raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
+    return median, worst
+
+
+def _backbone_cross_check(name, image, device):
+    """Phase 29 for one backbone: the depth net's backbone alone, seeded as
+    the step's (``tools/zoo_precision.py``), train mode, on ``image`` (the
+    target frames as the depth net hands them over, [B, 3, H, W] in
+    [0, 255]), the objective sum_i mean(tap_i * r_i) with seeded normal
+    r_i, forward and backward on the card and on the CPU in float64 and in
+    float32. Float64: every tap, parameter gradient and running statistic
+    on the card within BACKBONE_F64_RTOL (of its norm) of the CPU's: each
+    operation's semantics on the card (cuDNN keeps double convolutions
+    NCHW, so not the channels-last layouts of the other dtypes). Float32,
+    on the layouts the steps run: each tap within TAP_RTOL of its largest
+    value from the CPU's float64 tap, every parameter gradient within
+    GRAD_MAX_RTOL of float64 and every running statistic within BN_TOL of
+    the CPU's. The gradients' median is printed beside the CPU's but not
+    held to it: cuDNN's float32 algorithms set it (VGG16, which has no
+    BatchNorm to lose digits in, sits ~1000x the CPU's distance from
+    float64 on the card; phase 29's line). Returns a summary."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.tools.zoo_precision import backbone_run, seeded_backbone
+
+    backbone = seeded_backbone(name)
+    initial = {k: v.double() for k, v in backbone.state_dict().items()}
+    runs = {(where, dtype): backbone_run(backbone, image, dev, dtype)
+            for where, dev in (("card", device), ("cpu", torch.device("cpu")))
+            for dtype in (torch.float64, torch.float32)}
+
+    def rel(a, b):
+        # a norm below GRAD_FLOOR is 0 but for rounding (a bias whose shift
+        # the next train-mode BatchNorm removes, the batch mean of a 1x1
+        # conv of zero-mean channels): compare it at that scale
+        return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), GRAD_FLOOR))
+
+    card64, cpu64 = runs["card", torch.float64], runs["cpu", torch.float64]
+    f64 = {f"tap {i}": rel(a, b) for i, (a, b) in enumerate(zip(card64[0], cpu64[0]))}
+    f64.update({n: rel(g, cpu64[1][n]) for n, g in card64[1].items()})
+    f64.update({k: rel(v, cpu64[2][k]) for k, v in card64[2].items()})
+    worst64 = max(f64, key=f64.get)
+
+    card32, cpu32 = runs["card", torch.float32], runs["cpu", torch.float32]
+    taps32 = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(card32[0], cpu64[0]))
+    ref = {n: g for n, g in cpu64[1].items() if float(torch.linalg.norm(g)) > GRAD_FLOOR}
+    errors = {where: _rel_errors(run[1], ref) for where, run in (("card", card32),
+                                                                 ("cpu", cpu32))}
+    median = {where: float(np.median(list(e.values()))) for where, e in errors.items()}
+    worst_stat = 0.0
+    for key in cpu32[2]:
+        momentum = backbone.get_submodule(key.rsplit(".", 1)[0]).momentum
+        folded = [(run[2][key] - (1.0 - momentum) * initial[key]) / momentum
+                  for run in (card32, cpu32)]
+        excess = torch.abs(folded[0] - folded[1]) - BN_TOL[0] * torch.abs(folded[1])
+        worst_stat = max(worst_stat, float(excess.max()))
+    summary = (f"{name} backbone alone at {tuple(image.shape)}: float64 card vs CPU worst "
+               f"{worst64} {f64[worst64]:.3g} over {len(f64)} taps, gradients and statistics; "
+               f"float32 taps off float64 at most {taps32:.3g} of the largest, gradients' "
+               f"median relative error card {median['card']:.3g}, CPU {median['cpu']:.3g} "
+               f"({len(ref)} tensors), worst card {max(errors['card'].values()):.3g}, CPU "
+               f"{max(errors['cpu'].values()):.3g}; BN statistics worst excess over rtol "
+               f"{BN_TOL[0]} {worst_stat:.3g}")
+    if not (f64[worst64] <= BACKBONE_F64_RTOL and taps32 <= TAP_RTOL
+            and max(errors["card"].values()) <= GRAD_MAX_RTOL and worst_stat <= BN_TOL[1]):
+        raise AssertionError(f"outside BACKBONE_F64_RTOL, TAP_RTOL, GRAD_MAX_RTOL or BN_TOL: "
+                             f"{summary}")
+    return summary
+
+
+def _pool_layout_check(device):
+    """NASNet's count-excluding SAME pool (``avg_pool_same_excluding_pad``)
+    on a channels-last card tensor, as cuDNN's convolutions hand it on,
+    against the CPU: torch's own avg_pool2d with that padding and
+    ``divisor_override`` (whose backward is wrong there) and the port's
+    pool (a contiguous copy), forward and backward; the port's within
+    POOL_RTOL of the largest value. Returns a summary."""
+    import torch
+    import torch.nn.functional as F
+
+    from xpt_mde_tpu_torch.models.layers import avg_pool_same_excluding_pad
+
+    generator = torch.Generator().manual_seed(29)
+    x = torch.randn((CHECK_BATCH, 44, 16, 64), generator=generator)
+    cot = torch.randn(x.shape, generator=generator)
+    pools = {"torch's avg_pool2d": lambda t: F.avg_pool2d(t, 3, 1, 1, divisor_override=1),
+             "the port's pool": lambda t: avg_pool_same_excluding_pad(t, 3)}
+    errors = {}
+    for label, pool in pools.items():
+        results = []
+        for dev in (device, torch.device("cpu")):
+            leaf = x.to(dev).to(memory_format=torch.channels_last).requires_grad_(True)
+            out = pool(leaf)
+            out.backward(cot.to(dev))
+            results.append((out.detach().cpu(), leaf.grad.cpu()))
+        errors[label] = [float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(*results)]
+    if not max(errors["the port's pool"]) <= POOL_RTOL:
+        raise AssertionError(f"the count-excluding pool on a channels-last tensor: {errors}")
+    return "; ".join(f"{label} forward {e[0]:.3g}, backward {e[1]:.3g}"
+                     for label, e in errors.items())
 
 
 def _write_shards(shard_root, dataset, height, width, counts, keys, **options):
@@ -1313,6 +1489,186 @@ def _shard_phase(device, counts, zero_counts, tag):
             f"evaluate_by_plan on {builds['serial'][2]['test']} test snippets: "
             f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
     return launches, note
+
+
+def _zoo_step(nets, keys, recipe, stereo, batches, counts, zero_counts, device, steps,
+              **kwargs):
+    """One bfloat16 train step's build and measure (phase 29): the model
+    (``ModelFactory`` on the card, ``remat_backbone`` among ``kwargs``), 2
+    warm-up steps, then ``steps`` steps each timed by CUDA events, with
+    the launches counted from zero over all of them. Returns
+    {seconds to build and warm up, ms per step between the events (median),
+    images/s,
+    peak bytes, the launches, the launches per step, the last loss}."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import AUGMENT_PROBS, SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.losses import loss_factory
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.training import (augmentation_factory, make_train_step,
+                                            optimizer_factory)
+
+    remat = kwargs.pop("remat_backbone", False)
+    frozen = kwargs.get("frozen_nets", [])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ModelFactory(keys, nets, stereo=stereo, compute_dtype="bfloat16", device=device,
+                         seed=0, remat_backbone=remat).get_model()
+    loss = loss_factory(keys, recipe, SCALE_WEIGHT_T1, stereo=stereo, batch_size=BATCH)
+    train = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model,
+                                                           frozen_nets=frozen),
+                            augmenter=augmentation_factory(AUGMENT_PROBS), **kwargs)
+    generator = torch.Generator().manual_seed(0)
+    zero_counts()
+    for i in range(2):
+        train(batches[i % len(batches)], generator)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    t0 = time.perf_counter()
+    for i, (start, end) in enumerate(events):
+        start.record()
+        metrics = train(batches[i % len(batches)], generator)
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    loss_value = float(metrics["loss"])
+    if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+        raise AssertionError(f"{nets} {recipe}: non-finite metrics")
+    elapsed_ms = sorted(start.elapsed_time(end) for start, end in events)[steps // 2]
+    out = {"build_s": build_s, "elapsed_ms": elapsed_ms, "images_s": steps * BATCH / wall,
+           "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+           "per_step": {k: v / (steps + 2) for k, v in launches.items() if v},
+           "loss": loss_value}
+    del model, train, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_phase(device, counts, zero_counts, kstats, tag):
+    """Phase 29, the model zoo at full width (batch 8, 128x512, bfloat16,
+    default augmentation, SCALE_WEIGHT_T1, Adam 1e-4): each backbone of
+    ZOO_BACKBONES as the depth net with PoseNetImproved in the rigid step
+    (RECIPE): build and warm-up seconds, the ms a step between CUDA events
+    around it, images/s, peak memory, K1 and K1-bwd launches a step (4
+    and 4), phase 2's K1 and K1-bwd ms a step over the step's elapsed ms
+    (at most their share of the device's busy time), a finite loss; then,
+    at ZOO_CHECK_SIZE on images in [0, 255], the backbone alone on the
+    card against the CPU and float64 (``_backbone_cross_check``), one
+    float32 step's losses, loss gradient and BN statistics against the
+    CPU's (``_step_cross_check``) and the bfloat16 step against float32 on
+    both (``_bf16_cross_check``); before them, NASNet's pool on a
+    channels-last tensor (``_pool_layout_check``). Then
+    one bfloat16 step each: PoseNetDeep, PoseNetPreTrained (MobileNetV2),
+    the stereo step under LOSS_RIGID_MD2 and under
+    LOSS_RIGID_MOA_WST, the joint step under MD2CMB_RECIPE (K2-bf16 5 a
+    step), ``grad_accum_steps=2`` (twice the K1 launches of one batch),
+    and NASNetLarge with and without ``remat_backbone`` (the peak memory
+    with remat lower). Returns (every launch of the phase, a summary)."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import (JOINT_NET, LOSS_RIGID_MD2, LOSS_RIGID_MOA_WST,
+                                          RIGID_NET, SCALE_WEIGHT_T1)
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.losses import loss_factory
+    from xpt_mde_tpu_torch.tools.profile_steps import STEREO_KEYS, uint8_coded
+
+    keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+    dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
+                               num_batches=2, stereo=True, seed=29)
+    stereo_batches = [uint8_coded({k: torch.from_numpy(v).to(device) for k, v in b.items()})
+                      for b in dataset]
+    mono_batches = [{k: v for k, v in b.items() if not k.endswith("_R") and k != "stereo_T_LR"}
+                    for b in stereo_batches]
+    check = SyntheticDataset(batch_size=CHECK_BATCH, height=ZOO_CHECK_SIZE[0],
+                             width=ZOO_CHECK_SIZE[1], num_batches=1, seed=30)
+    check_feats = {k: torch.from_numpy(v) for k, v in next(iter(check)).items()}
+    check_feats["image5d"] = (check_feats["image5d"] + 1.0) * 127.5
+    check_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False, batch_size=CHECK_BATCH)
+    k1_ms = kstats["K1"]["ms"] + kstats["K1-bwd"]["ms"]
+    total = dict.fromkeys(counts(), 0)
+
+    def add(result):
+        for k, v in result["launches"].items():
+            total[k] += v
+
+    print(f"phase 29 zoo: NASNet's count-excluding pool on a channels-last tensor, card vs "
+          f"CPU, relative to the largest value: {_pool_layout_check(device)}", flush=True)
+    rows = []
+    for name in ZOO_BACKBONES:
+        nets = {"depth": name, "camera": "PoseNetImproved"}
+        r = _zoo_step(nets, keys, RECIPE, False, mono_batches, counts, zero_counts, device,
+                      ZOO_TIMED_STEPS)
+        add(r)
+        if r["per_step"] != {"K1": 4, "K1-bwd": 4}:
+            raise AssertionError(f"{name}: launches per step {r['per_step']}")
+        print(f"timing zoo bf16 rigid train {name}+PoseNetImproved batch {BATCH} "
+              f"{HEIGHT}x{WIDTH}: build and 2 warm-up steps {r['build_s']:.1f} s, elapsed "
+              f"{r['elapsed_ms']:.2f} ms/step (CUDA events around each step, median of "
+              f"{ZOO_TIMED_STEPS}), {r['images_s']:.2f} images/s, max_memory_allocated "
+              f"{r['peak'] / 2**30:.3f} GiB, launches per step {json.dumps(r['per_step'])}, "
+              f"K1+K1-bwd {100 * k1_ms / r['elapsed_ms']:.2f}% of the elapsed time (at most "
+              f"their share of the device's busy time), loss {r['loss']:.6f} {tag}", flush=True)
+        rows.append((name, r))
+        t0 = time.perf_counter()
+        image = check_feats["image5d"][:, -1].permute(0, 3, 1, 2)
+        print(f"phase 29 zoo {_backbone_cross_check(name, image, device)}", flush=True)
+        _step_cross_check(29, f"zoo {name}", nets, keys, check_feats, device, check_loss,
+                          _set_pose_twist, ("depth_ms", "pose"), LOSS_TOL)
+        bf16 = _bf16_cross_check(name, nets, keys, check_feats, device, check_loss,
+                                 _set_pose_twist)
+        print(f"phase 29 zoo bf16 cross-check (card bf16 vs card float32 held to CPU bf16 vs "
+              f"CPU float32, ratios {BF16_MEDIAN_RATIO}/{BF16_MAX_RATIO}): {bf16}", flush=True)
+        print(f"phase 29 zoo {name} cross-checks took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    stereo_keys = STEREO_KEYS
+    cases = [  # (label, nets, keys, stereo, recipe, batches, step kwargs, launches per step)
+        ("PoseNetDeep", dict(RIGID_NET, camera="PoseNetDeep"), keys, False, RECIPE,
+         mono_batches, {}, {"K1": 4, "K1-bwd": 4}),
+        ("PoseNetPreTrained(MobileNetV2)", dict(RIGID_NET, camera="MobileNetV2"), keys, False,
+         RECIPE, mono_batches, {}, {"K1": 4, "K1-bwd": 4}),
+        ("stereo LOSS_RIGID_MD2", RIGID_NET, stereo_keys, True, LOSS_RIGID_MD2,
+         stereo_batches, {}, {"K1": 16, "K1-bwd": 16}),
+        ("stereo LOSS_RIGID_MOA_WST", RIGID_NET, stereo_keys, True, LOSS_RIGID_MOA_WST,
+         stereo_batches, {}, {"K1": 16, "K1-bwd": 16}),
+        ("joint md2cmb", JOINT_NET, keys, False, MD2CMB_RECIPE, mono_batches,
+         {"frozen_nets": ["flownet"]}, {"K1": 8, "K1-bwd": 4, "K2-bf16": 5}),
+        ("grad_accum_steps=2", RIGID_NET, keys, False, RECIPE, mono_batches,
+         {"grad_accum_steps": 2}, {"K1": 8, "K1-bwd": 8}),
+        ("NASNetLarge", {"depth": "NASNetLarge", "camera": "PoseNetImproved"}, keys, False,
+         RECIPE, mono_batches, {}, {"K1": 4, "K1-bwd": 4}),
+        ("NASNetLarge remat_backbone", {"depth": "NASNetLarge", "camera": "PoseNetImproved"},
+         keys, False, RECIPE, mono_batches, {"remat_backbone": True}, {"K1": 4, "K1-bwd": 4})]
+    extra = {}
+    for label, nets, net_keys, stereo, recipe, batches, kwargs, launches in cases:
+        r = _zoo_step(nets, net_keys, recipe, stereo, batches, counts, zero_counts, device, 2,
+                      **kwargs)
+        add(r)
+        per_step = {k: round(v) for k, v in r["per_step"].items()}
+        if per_step != launches:
+            raise AssertionError(f"zoo {label}: launches per step {r['per_step']}, "
+                                 f"want {launches}")
+        extra[label] = r
+        print(f"timing zoo bf16 {label} ({'+'.join(nets.values())}, batch {BATCH} "
+              f"{HEIGHT}x{WIDTH}): elapsed {r['elapsed_ms']:.2f} ms/step, {r['images_s']:.2f} "
+              f"images/s, max_memory_allocated {r['peak'] / 2**30:.3f} GiB, launches per step "
+              f"{json.dumps(per_step)}, loss {r['loss']:.6f} {tag}", flush=True)
+    plain, remat = extra["NASNetLarge"]["peak"], extra["NASNetLarge remat_backbone"]["peak"]
+    if not remat < plain:
+        raise AssertionError(f"NASNetLarge peak with remat {remat} not below {plain}")
+    summary = (f"{len(rows)} backbones at batch {BATCH} {HEIGHT}x{WIDTH} bf16, elapsed ms/step "
+               + ", ".join(f"{n} {r['elapsed_ms']:.2f}" for n, r in rows)
+               + f"; NASNetLarge peak {plain / 2**30:.3f} GiB, with remat_backbone "
+               f"{remat / 2**30:.3f} GiB ({remat / plain:.3f}x); grad_accum_steps=2 K1 "
+               f"{extra['grad_accum_steps=2']['per_step']['K1']:g} a step; md2cmb joint K2-bf16 "
+               f"{extra['joint md2cmb']['per_step']['K2-bf16']:g} a step")
+    return total, summary
 
 
 def _timed_rounds(step, step_batches, rounds, steps):
@@ -2303,6 +2659,16 @@ def main(argv=()) -> int:
             print(f"phase 28 shard chain: {shard_note}; launches {json.dumps(shard_counts)}; "
                   f"{time.perf_counter() - t0:.1f} s for the phase {tag}", flush=True)
             paths_f32["shard chain row"] = shard_counts
+
+            # 29. the model zoo at full width: each other backbone's bf16
+            # rigid step and its float32 cross-check, the other pose nets,
+            # the md2/moa/md2cmb recipes, grad accumulation and remat
+            phase = "model zoo"
+            t0 = time.perf_counter()
+            zoo_counts, zoo_note = _zoo_phase(device, counts, zero_counts, kstats, tag)
+            print(f"phase 29 model zoo: {zoo_note}; launches {json.dumps(zoo_counts)}; "
+                  f"{time.perf_counter() - t0:.1f} s for the phase {tag}", flush=True)
+            paths_f32["model zoo"] = zoo_counts
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
             # summed over the scales or levels; launches: the mini plan run's

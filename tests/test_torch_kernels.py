@@ -31,6 +31,7 @@ from xpt_mde_tpu_torch.losses import loss_factory
 from xpt_mde_tpu_torch.losses.photometric import photometric_loss_ssim
 from xpt_mde_tpu_torch.models import ModelFactory
 from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+from xpt_mde_tpu_torch.models.layers import avg_pool_same_excluding_pad
 from xpt_mde_tpu_torch.ops import correlation as corr
 from xpt_mde_tpu_torch.ops.kernels import build
 from xpt_mde_tpu_torch.ops.kernels import correlation as kcorr
@@ -575,6 +576,30 @@ def test_ssim_gradient_on_the_card_matches_the_cpu(cuda):
     # float32 sums in another order
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-4)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_count_excluding_pool_gradient_on_the_card(cuda, channels_last):
+    """NASNet's count-excluding SAME pool (``avg_pool_same_excluding_pad``)
+    on the card against the CPU, forward and backward, on either layout:
+    given the channels-last tensors that cuDNN's convolutions hand on,
+    CUDA's avg_pool2d backward with that padding was wrong while its
+    forward agreed; the pool now takes a contiguous copy."""
+    rng = np.random.RandomState(7)
+    x = rng.uniform(-1, 1, (2, 44, 16, 64)).astype(np.float32)
+    cot = rng.uniform(-1, 1, x.shape).astype(np.float32)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        leaf = torch.from_numpy(x).to(device)
+        if channels_last:
+            leaf = leaf.to(memory_format=torch.channels_last)
+        leaf.requires_grad_(True)
+        out = avg_pool_same_excluding_pad(leaf, 3)
+        out.backward(torch.from_numpy(cot).to(device))
+        results.append((out.detach().cpu(), leaf.grad.cpu()))
+    # float32 sums of 4 to 9 values in another order
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
 
 def _corr_counts():
     return (kcorr.K2.launches, kcorr.K3.launches, kcorr.K4.launches)

@@ -137,20 +137,22 @@ def test_factory_drops_like_jax_and_raises_on_unported():
     got = ttotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     ref = jtotal.loss_factory(mono, recipe, SCALE_WEIGHT_T1, stereo=False)
     assert list(got.loss_weights.items()) == list(ref.loss_weights.items())
-    for name in ("md2SSIM", "md2cmbL1"):
-        with pytest.raises(NotImplementedError, match=name):
-            ttotal.loss_factory(mono, {name: 1.0}, SCALE_WEIGHT_T1)
-    with pytest.raises(NotImplementedError, match="moaL1"):
-        ttotal.loss_factory(mono + ["image_R", "intrinsic_R", "stereo_T_LR"], {"moaL1": 1.0},
-                            SCALE_WEIGHT_T1)
+    # every loss of the pool builds, as in JAX (the md2, md2cmb and moa
+    # terms, once refused, are held to JAX in test_torch_zoo_losses.py)
     stereo_keys = mono + ["image_R", "intrinsic_R"]
-    for name in ("L1_R", "smoothe_R"):  # ported with the stereo slice
-        assert ttotal.check_loss_dependency(name, stereo_keys)
-        assert list(ttotal.loss_factory(stereo_keys, {name: 1.0},
-                                        SCALE_WEIGHT_T1).loss_weights) == [name]
-    for name in ("md2L1_R", "moaSSIM_R"):
-        with pytest.raises(NotImplementedError, match=name):
-            ttotal.loss_factory(stereo_keys + ["stereo_T_LR"], {name: 1.0}, SCALE_WEIGHT_T1)
+    for keys, names in ((mono, ("md2SSIM", "md2cmbL1")),
+                        (mono + ["image_R", "intrinsic_R", "stereo_T_LR"], ("moaL1",)),
+                        (stereo_keys, ("L1_R", "smoothe_R")),
+                        (stereo_keys + ["stereo_T_LR"], ("md2L1_R", "moaSSIM_R"))):
+        for name in names:
+            assert ttotal.check_loss_dependency(name, keys)
+            got = ttotal.loss_factory(keys, {name: 1.0}, SCALE_WEIGHT_T1)
+            ref = jtotal.loss_factory(keys, {name: 1.0}, SCALE_WEIGHT_T1)
+            assert list(got.loss_weights) == list(ref.loss_weights) == [name]
+            assert type(got.loss_objects[name]).__name__ \
+                == type(ref.loss_objects[name]).__name__
+    with pytest.raises(KeyError):  # a name outside the pool, as in JAX
+        ttotal.loss_factory(mono, {"L3": 1.0}, SCALE_WEIGHT_T1)
     for name in ("L1", "L1_R", "stereoL1", "moaL1", "flow_reg"):
         for keys in (mono, stereo_keys, stereo_keys + ["stereo_T_LR"]):
             assert (ttotal.check_loss_dependency(name, keys)
@@ -160,8 +162,8 @@ def test_factory_drops_like_jax_and_raises_on_unported():
 def test_stereo_features_raise():
     """Stereo features no longer raise (the stereo slice is ported; its
     terms are checked in test_torch_stereo.py): a mono recipe on stereo
-    features gives the JAX package's losses, and the stereo recipes that
-    are not ported yet raise, naming the ROADMAP item."""
+    features gives the JAX package's losses, and so does a recipe of the
+    terms once refused (moaL1 and md2cmbSSIM_R)."""
     features, preds = _rigid_inputs(5, height=16, width=32)
     features["image5d_R"] = features["image5d"][:, ::-1].copy()
     features["intrinsic_R"] = features["intrinsic"]
@@ -170,7 +172,8 @@ def test_stereo_features_raise():
     ref = jtotal.loss_factory(KEYS, RECIPE, SCALE_WEIGHT_T1, stereo=True)(
         _tree(preds, jnp.asarray), _tree(features, jnp.asarray))
     np.testing.assert_allclose(float(got[0]), float(ref[0]), **TOL)
-    for name in ("moaL1", "md2cmbSSIM_R"):
-        with pytest.raises(NotImplementedError, match="Breadth"):
-            ttotal.loss_factory(KEYS + ["image_R", "intrinsic_R", "stereo_T_LR"], {name: 1.0},
-                                SCALE_WEIGHT_T1)
+    stereo_keys = KEYS + ["image_R", "intrinsic_R", "stereo_T_LR"]
+    recipe = {"moaL1": 1.0, "md2cmbSSIM_R": 0.5}
+    assert list(ttotal.loss_factory(stereo_keys, recipe, SCALE_WEIGHT_T1).loss_weights) \
+        == list(jtotal.loss_factory(stereo_keys, recipe, SCALE_WEIGHT_T1).loss_weights) \
+        == list(recipe)

@@ -220,10 +220,23 @@ def test_factory_seeds_device_and_unported():
 
     with pytest.raises(ValueError, match="compute_dtype"):  # bfloat16 and float32 only
         ModelFactory(KEYS, RIGID_B0, compute_dtype="float16")
-    for nets in ({"depth": "ResNet50V2"}, {"camera": "PoseNetDeep"},
-                 {"camera": "PoseNetPreTrained"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the zoo builds as in JAX (test_torch_backbones.py and
+    # test_torch_zoo.py hold it to flax); a name JAX does not know raises
+    # ValueError in both, and so does a backbone that cannot take the
+    # snippet's 15 channels as a pose net
+    built = ModelFactory(KEYS, {"depth": "ResNet50V2", "camera": "PoseNetDeep"},
+                         stereo=False, device="cpu").get_model()
+    assert type(built.depthnet.backbone).__name__ == "ResNet50V2"
+    assert type(built.posenet).__name__ == "PoseNetDeep"
+    for nets, match in (({"camera": "PoseNetPreTrained"}, "wrong pose net name"),
+                        ({"depth": "ResNet18"}, "wrong depth net name"),
+                        ({"camera": "VGG16"}, "3 channels")):
+        with pytest.raises(ValueError, match=match):
             ModelFactory(KEYS, nets, stereo=False, device="cpu").get_model()
+        if "3 channels" not in match:
+            jfactory = JModelFactory(KEYS, nets, stereo=False)
+            with pytest.raises(ValueError, match=match):
+                jfactory.get_model()
     # stereo keys build the stereo model (test_torch_stereo.py checks it)
     stereo = ModelFactory(KEYS + ["image_R", "intrinsic_R"], RIGID_B0, device="cpu").get_model()
     assert stereo.stereo and not stereo.stereo_pose

@@ -447,6 +447,50 @@ def test_bf16_path_runs_with_jax_blocked():
     assert "BF16 JAX-FREE OK" in proc.stdout
 
 
+def test_zoo_runs_with_jax_blocked():
+    """The model zoo without JAX: a bfloat16 stereo train step of an
+    Xception depth net (its backbone checkpointed) and a MobileNetV2
+    PoseNetPreTrained under LOSS_RIGID_MOA_WST, in two accumulated
+    microbatches, at a tiny size, with jax/flax/optax and the JAX package
+    made unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(2)  # the test workers beside it share the cores
+        from xpt_mde_tpu_torch.config import LOSS_RIGID_MOA_WST, SCALE_WEIGHT_T1
+        from xpt_mde_tpu_torch.data import SyntheticDataset
+        from xpt_mde_tpu_torch.losses import loss_factory
+        from xpt_mde_tpu_torch.models import ModelFactory
+        from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
+        # 64x128: PoseNetPreTrained max-pools the stride-32 map 2x2
+        ds = SyntheticDataset(batch_size=2, height=64, width=128, num_batches=1, stereo=True)
+        keys = ds.config_keys()
+        model = ModelFactory(keys, {"depth": "Xception", "camera": "MobileNetV2"},
+                             compute_dtype="bfloat16", device="cpu",
+                             remat_backbone=True).get_model()
+        assert type(model.posenet).__name__ == "PoseNetPreTrained"
+        loss = loss_factory(keys, LOSS_RIGID_MOA_WST, SCALE_WEIGHT_T1, batch_size=2)
+        step = make_train_step(model, loss, optimizer_factory("adam_constant", 1e-4, model),
+                               grad_accum_steps=2)
+        before = [p.detach().clone() for p in model.parameters()]
+        metrics = step({k: torch.from_numpy(v) for k, v in next(iter(ds)).items()})
+        assert {"loss/moaL1", "loss/moaSSIM_R", "loss/stereoL1"} <= set(metrics)
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        assert all(not torch.equal(a, p) for a, p in zip(before, model.parameters())
+                   if p.grad is not None)
+        assert all(sys.modules.get(m) is None
+                   for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
+        print("ZOO JAX-FREE OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ZOO JAX-FREE OK" in proc.stdout
+
+
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = chip_smoke.main()

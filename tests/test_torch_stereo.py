@@ -312,5 +312,11 @@ def test_factory_keeps_every_term_of_the_stereo_recipes(recipe_name):
 
 @pytest.mark.parametrize("recipe", [LOSS_RIGID_MOA, LOSS_RIGID_MD2])
 def test_unported_stereo_recipes_raise_naming_the_roadmap(recipe):
-    with pytest.raises(NotImplementedError, match="Breadth"):
-        loss_factory(KITTI_KEYS, recipe, SCALE_WEIGHT_T1)
+    """The MD2 and MOA recipes, once refused, build the JAX loss objects
+    (their terms and gradients: test_torch_zoo_losses.py)."""
+    got = loss_factory(KITTI_KEYS, recipe, SCALE_WEIGHT_T1)
+    ref = j_loss_factory(KITTI_KEYS, recipe, SCALE_WEIGHT_T1)
+    assert list(got.loss_weights.items()) == list(ref.loss_weights.items()) \
+        == list(recipe.items())
+    assert [type(v).__name__ for v in got.loss_objects.values()] \
+        == [type(v).__name__ for v in ref.loss_objects.values()]

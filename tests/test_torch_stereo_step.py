@@ -35,8 +35,8 @@ import pytest
 import torch
 
 import chip_smoke
-from xpt_mde_tpu.config import (FLOW_NET, LOSS_FLOW, LOSS_RIGID_COMB, LOSS_RIGID_T1,
-                                LOSS_RIGID_T2, SCALE_WEIGHT_T1)
+from xpt_mde_tpu.config import (FLOW_NET, LOSS_FLOW, LOSS_RIGID_COMB, LOSS_RIGID_MD2,
+                                LOSS_RIGID_T1, LOSS_RIGID_T2, SCALE_WEIGHT_T1)
 from xpt_mde_tpu.losses import loss_factory as j_loss_factory
 from xpt_mde_tpu.models import ModelFactory as JModelFactory
 from xpt_mde_tpu.training import optimizer_factory as j_optimizer_factory
@@ -58,7 +58,10 @@ JOINT = dict(RIGID, **FLOW_NET)
 CASES = {"LOSS_RIGID_T1": (RIGID, LOSS_RIGID_T1, (), None),
          "LOSS_RIGID_T2": (RIGID, LOSS_RIGID_T2, (), None),
          "LOSS_RIGID_COMB": (JOINT, LOSS_RIGID_COMB, ("flownet",), None),
-         "LOSS_FLOW": (FLOW_NET, LOSS_FLOW, (), "flownet")}
+         "LOSS_FLOW": (FLOW_NET, LOSS_FLOW, (), "flownet"),
+         # the model zoo's case (test_torch_zoo_step.py)
+         "LOSS_RIGID_MD2": ({"depth": "MobileNetV2", "camera": "PoseNetDeep"}, LOSS_RIGID_MD2,
+                            (), None)}
 BATCH, HEIGHT, WIDTH, LR = 2, 64, 128, 1e-4
 # right -> left: the synthetic baseline (0.3 m) and a 13 mm vertical offset
 CHECK_T_LR = np.array(chip_smoke.CHECK_T_LR, np.float32)
@@ -118,17 +121,24 @@ def _tie_allowance(method, augm, augm64, sfx):
     return allowance, ties / total
 
 
-def _one_step(case):
-    """The JAX step and the port's on one stereo batch from the same
-    weights."""
-    nets, recipe, frozen, reg_net = CASES[case]
+def stereo_batch():
+    """The steps' batch: 2 uint8-coded stereo snippets at 64x128, at
+    CHECK_T_LR."""
     dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH, num_batches=1,
                                stereo=True, seed=3)
-    keys = dataset.config_keys()
     batch = next(iter(dataset))
     for key in ("image5d", "image5d_R"):
         batch[key] = np.round((batch[key] + 1.0) * 127.5).astype(np.uint8)
     batch["stereo_T_LR"] = np.tile(CHECK_T_LR, (BATCH, 1, 1))
+    return batch
+
+
+def _one_step(case):
+    """The JAX step and the port's on one stereo batch from the same
+    weights."""
+    nets, recipe, frozen, reg_net = CASES[case]
+    batch = stereo_batch()
+    keys = list(batch)
 
     jmodel = JModelFactory(keys, nets).get_model()
     jfeats = {k: jnp.asarray(v) for k, v in batch.items()}

@@ -168,8 +168,17 @@ def test_train_step_frozen_net_and_guards():
 
     # a regularized net the model lacks adds nothing, as in JAX
     make_train_step(model, loss, optimizer, regularize_net="flownet")
-    with pytest.raises(NotImplementedError, match="Breadth"):
-        make_train_step(model, loss, optimizer, grad_accum_steps=2)
+    # gradient accumulation trains (test_torch_zoo_step.py holds it to
+    # JAX) and raises as the JAX step does: k < 1, a loss without the
+    # global batch, a batch that k does not divide
+    with pytest.raises(ValueError, match=">= 1"):
+        make_train_step(model, loss, optimizer, grad_accum_steps=0)
+    unpinned = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False)
+    with pytest.raises(ValueError, match="GLOBAL batch"):
+        make_train_step(model, unpinned, optimizer, grad_accum_steps=2)
+    accumulating = make_train_step(model, loss, optimizer, grad_accum_steps=2)
+    with pytest.raises(ValueError, match="must divide"):
+        accumulating({k: torch.from_numpy(v) for k, v in next(iter(dataset)).items()})
 
 
 def test_train_step_keeps_float64():

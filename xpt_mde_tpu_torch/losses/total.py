@@ -12,10 +12,10 @@ Contracts kept:
   by the recipe;
 - the factory drops losses whose required features the dataset lacks.
 
-Ported: ``L1``, ``SSIM``, ``smoothe``, ``flowL2``, ``cmbL1``, ``cmbSSIM``
-and their ``_R`` twins, ``flow_reg``, ``stereoL1``, ``stereoSSIM`` and
-``stereoPose``. A recipe that keeps ``md2*``, ``md2cmb*`` or ``moa*``
-raises, naming it; nothing is dropped silently.
+The pool is the JAX package's: ``L1``, ``SSIM``, ``md2L1``, ``md2SSIM``,
+``cmbL1``, ``cmbSSIM``, ``md2cmbL1``, ``md2cmbSSIM``, ``moaL1``,
+``moaSSIM``, ``smoothe``, ``flowL2`` and their ``_R`` twins, ``flow_reg``,
+``stereoL1``, ``stereoSSIM`` and ``stereoPose``.
 """
 
 from __future__ import annotations
@@ -58,6 +58,28 @@ class PhotometricLossMultiScale:
         return _merge_multi_scale(losses, self.scale_weights)
 
 
+class MonoDepth2LossMultiScale:
+    """Monodepth2's per-pixel minimum over the sources: each scale's
+    synthesized views resized bilinearly to the target's size, the
+    photometric error's minimum over the sources, averaged."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        synth_ms = augm_data["synth_target_ms" + self.sfx]
+        target = augm_data["target" + self.sfx]
+        ho, wo = target.shape[1:3]
+        losses = []
+        for synth in synth_ms:
+            err = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            # amin splits the gradient among ties, as jnp.min's does
+            losses.append(torch.mean(torch.amin(err, dim=1), dim=(1, 2, 3)))
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
 class CombinedLossMultiScale:
     """The static (view-synthesis) loss at full resolution, masked where
     it is not below the optical-flow loss: each scale's synthesized views
@@ -81,6 +103,59 @@ class CombinedLossMultiScale:
             static = self.photo(resize_image(synth, ho, wo), target, reduce=False)
             static = static * (static < flow_loss).to(static.dtype)
             losses.append(torch.mean(static, dim=(1, 2, 3, 4)))
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
+class MoALossMultiScale:
+    """Per pixel, the minimum of the errors of the temporal synthesized
+    views and the stereo cross-synthesized view, all resized to the
+    target's size."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        temp_ms = augm_data["synth_target_ms" + self.sfx]
+        stro_ms = augm_data["stereo_synth_ms" + self.sfx]
+        target = augm_data["target" + self.sfx]
+        ho, wo = target.shape[1:3]
+        losses = []
+        for temp, stro in zip(temp_ms, stro_ms):
+            temp_loss = self.photo(resize_image(temp, ho, wo), target, reduce=False)
+            stro_loss = self.photo(resize_image(stro, ho, wo), target, reduce=False)
+            moa = torch.amin(torch.cat([temp_loss, stro_loss], dim=1), dim=1)
+            losses.append(torch.mean(moa, dim=(1, 2, 3)))
+        return _merge_multi_scale(losses, self.scale_weights)
+
+
+class MD2CombLossMultiScale:
+    """The minimum over the sources with the flow's outliers excluded: a
+    source's pixel whose static error exceeds twice the flow-warped
+    view's error gets 1000 added; pixels whose minimum stays at or above
+    1000 are dropped. Each sample's sum is divided by the valid pixels of
+    the WHOLE batch (the reference's ``count_nonzero``, kept as is)."""
+
+    def __init__(self, method: str, scale_weights, key_suffix: str = ""):
+        self.photo = PHOTOMETRIC_FNS[method]
+        self.scale_weights = tuple(float(w) for w in scale_weights)
+        self.sfx = key_suffix
+
+    def __call__(self, features, predictions, augm_data):
+        synth_ms = augm_data["synth_target_ms" + self.sfx]
+        warped_ms = augm_data["warped_target_ms" + self.sfx]
+        target = augm_data["target" + self.sfx]
+        ho, wo = target.shape[1:3]
+        flow_loss = self.photo(resize_image(warped_ms[0], ho, wo), target, reduce=False)
+        losses = []
+        for synth in synth_ms:
+            static = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            outlier = (static > flow_loss * 2.0).to(static.dtype)
+            static = torch.amin(static + outlier * 1000.0, dim=1)  # [B, H, W, C]
+            keep = (static < 1000.0).to(static.dtype)
+            count = torch.clamp(torch.sum(keep), min=1.0)
+            losses.append(torch.sum(static * keep, dim=(1, 2, 3)) / count)
         return _merge_multi_scale(losses, self.scale_weights)
 
 
@@ -280,14 +355,22 @@ def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
     """Build a TotalLoss from a recipe dict.
 
     Losses with weight 0 or missing features are dropped, as in the JAX
-    factory. A kept loss that is not ported raises NotImplementedError.
+    factory.
     """
     pool: dict[str, LossFn] = {}
     for sfx in ("", "_R"):
         pool["L1" + sfx] = PhotometricLossMultiScale("L1", scale_weights, sfx)
         pool["SSIM" + sfx] = PhotometricLossMultiScale("SSIM", scale_weights, sfx)
+        pool["md2L1" + sfx] = MonoDepth2LossMultiScale("L1", scale_weights, sfx)
+        pool["md2SSIM" + sfx] = MonoDepth2LossMultiScale("SSIM", scale_weights, sfx)
         pool["cmbL1" + sfx] = CombinedLossMultiScale("L1", scale_weights, sfx)
         pool["cmbSSIM" + sfx] = CombinedLossMultiScale("SSIM", scale_weights, sfx)
+        # the reference defines this one but never registers it; the JAX
+        # package does, and so does the port
+        pool["md2cmbL1" + sfx] = MD2CombLossMultiScale("L1", scale_weights, sfx)
+        pool["md2cmbSSIM" + sfx] = MD2CombLossMultiScale("SSIM", scale_weights, sfx)
+        pool["moaL1" + sfx] = MoALossMultiScale("L1", scale_weights, sfx)
+        pool["moaSSIM" + sfx] = MoALossMultiScale("SSIM", scale_weights, sfx)
         pool["smoothe" + sfx] = SmoothenessLossMultiScale(scale_weights, sfx,
                                                           image_gradient_factor)
         pool["flowL2" + sfx] = FlowWarpLossMultiScale("L2", scale_weights, sfx)
@@ -299,10 +382,6 @@ def loss_factory(dataset_keys, loss_weights: Mapping[str, float],
     for name, weight in loss_weights.items():
         if weight == 0.0 or not check_loss_dependency(name, dataset_keys):
             continue
-        if name not in pool:
-            raise NotImplementedError(
-                f"loss {name!r} is not ported yet (ROADMAP: 'Breadth'); "
-                f"ported: {sorted(pool)}")
         losses[name] = pool[name]
         weights[name] = weight
     return TotalLoss(losses, weights, stereo, batch_size)

@@ -10,20 +10,23 @@ Kept from the reference: the input is the [-1, 1] image divided by 255
 and normalized by the ``input_mean`` / ``input_var`` buffers (identity at
 init; not updated in training, as in flax); BatchNorm eps 1e-3 and flax
 momentum 0.99, which is torch momentum 0.01, with flax's running-variance
-update (:class:`BatchNorm2d`). Depthwise convs are plain ``groups=C``
+update (``layers.BatchNorm2d``). Depthwise convs are plain ``groups=C``
 convs.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xpt_mde_tpu_torch.models.layers import Conv2dSame, to_compute
+from xpt_mde_tpu_torch.models.layers import (BatchNorm2d, Conv2dSame, batch_norm,
+                                             fold_statistics_at_end, to_compute)
+
+__all__ = ["BatchNorm2d", "EfficientNet", "MBConv", "SqueezeExcite", "round_filters",
+           "round_repeats"]
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0
 _B0_STAGES = [
@@ -55,99 +58,6 @@ def round_filters(filters: float, width_mult: float, divisor: int = 8) -> int:
 
 def round_repeats(repeats: int, depth_mult: float) -> int:
     return int(math.ceil(depth_mult * repeats))
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's train-mode running statistics.
-
-    Train mode normalizes with the biased batch statistics, as both
-    frameworks do, and then updates the running statistics as flax does:
-    ``ra = 0.99 * ra + 0.01 * stat`` with the BIASED batch variance. (Torch
-    would put the unbiased one into ``running_var``: n/(n-1) times larger,
-    ~7% at the 16 values per channel of B0's stride-32 map at batch 2.)
-    Eval mode is torch's, on the running statistics. Momentum 0.01 is
-    flax's 0.99; eps 1e-3.
-
-    With a bfloat16 compute ``dtype`` it is flax's BatchNorm with
-    ``dtype=bfloat16`` and ``force_float32_reductions``: torch's batch
-    norm on the bfloat16 input with the float32 parameters (its mixed-type
-    form) takes the statistics once, in float32, normalizes in float32 and
-    returns bfloat16, in one kernel; the running statistics stay float32,
-    updated from the batch mean and the biased variance that the same call
-    returns (as 1 / invstd^2 - eps). Inside :func:`fold_statistics_at_end`
-    (EfficientNet's forward) that update waits for the block's end, where
-    all its BatchNorms fold theirs in together."""
-
-    # the batch statistics of the enclosing fold_statistics_at_end block
-    _pending: list | None = None
-
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
-        super().__init__(channels, eps=1e-3, momentum=0.01)
-        self.compute_dtype = dtype
-
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype != torch.float32:
-            return self._forward_f32_stats(x)
-        if not self.training:
-            return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-        self._update_running(mean, var)
-        return out
-
-    def _forward_f32_stats(self, x: torch.Tensor) -> torch.Tensor:
-        x = to_compute(self.compute_dtype, x)
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, False, 0.0, self.eps)
-        out, mean, invstd = torch.ops.aten.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        if self._pending is not None:
-            self._pending.append((self, mean.detach(), invstd.detach()))
-        else:
-            with torch.no_grad():
-                var = invstd.detach().pow(-2).sub_(self.eps)
-            self._update_running(mean.detach(), var)
-        return out
-
-
-@contextlib.contextmanager
-def fold_statistics_at_end(net: nn.Module):
-    """Train-mode bfloat16 BatchNorms of ``net`` fold their batch
-    statistics into the running ones at the block's end, all together in
-    a few foreach operations (the same arithmetic as each one's
-    ``_update_running``, ~6 kernels a norm otherwise). Each norm runs once
-    in the block (EfficientNet's forward)."""
-    norms = [m for m in net.modules()
-             if isinstance(m, BatchNorm2d) and m.compute_dtype != torch.float32]
-    pending = []
-    for norm in norms:
-        norm._pending = pending
-    try:
-        yield
-    finally:
-        for norm in norms:
-            norm._pending = None
-    if pending:
-        with torch.no_grad():
-            norms, means, invstds = zip(*pending)
-            variances = torch._foreach_pow(list(invstds), -2.0)
-            torch._foreach_sub_(variances, [norm.eps for norm in norms])
-            for stat, values in (("running_mean", means), ("running_var", variances)):
-                running = [getattr(norm, stat) for norm in norms]
-                torch._foreach_mul_(running, [1.0 - norm.momentum for norm in norms])
-                torch._foreach_add_(running, list(values), alpha=norms[0].momentum)
-
-
-def batch_norm(channels: int, dtype: torch.dtype = torch.float32) -> BatchNorm2d:
-    return BatchNorm2d(channels, dtype)
 
 
 class SqueezeExcite(nn.Module):
@@ -209,7 +119,11 @@ class EfficientNet(nn.Module):
     [-1, 1] and returns [f2, f4, f8, f16, f32], NCHW, computed in
     ``dtype``."""
 
-    def __init__(self, variant: str = "B5", dtype: torch.dtype = torch.float32):
+    def __init__(self, variant: str = "B5", dtype: torch.dtype = torch.float32,
+                 in_channels: int = 3):
+        if in_channels != 3:
+            raise ValueError(f"EfficientNet takes 3 channels, not {in_channels}: its input "
+                             "normalization has a 3-entry mean and variance")
         super().__init__()
         self.compute_dtype = dtype
         width_mult, depth_mult = _SCALING[variant]

@@ -9,7 +9,7 @@
   finer decoder level (depth chaining).
 
 ``DepthNetPretrained`` decodes a backbone's 5 feature maps (strides
-2..32). ``DepthNetBasic`` is the SfMLearner-style net: a 7-level conv
+2..32), and may recompute the backbone in the backward (``remat_backbone``). ``DepthNetBasic`` is the SfMLearner-style net: a 7-level conv
 encoder (strides 2..128), two 512-wide up-blocks, then the same decoder;
 its up-blocks resize each upsampled map to its skip's size
 (``resize_to_skip``), so any input size works. ``DepthNetNoResize`` is
@@ -30,9 +30,10 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from xpt_mde_tpu_torch.models.layers import (Conv, cast_parameters, to_compute,
-                                             upsample_2x_nchw)
+from xpt_mde_tpu_torch.models.layers import (Conv, cast_parameters, frozen_statistics,
+                                             to_compute, upsample_2x_nchw)
 from xpt_mde_tpu_torch.utils.image import resize_nchw
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
@@ -121,21 +122,45 @@ class DepthDecoder(nn.Module):
 
 
 class DepthNetPretrained(nn.Module):
-    """U-Net over a multi-scale backbone encoder."""
+    """U-Net over a multi-scale backbone encoder.
+
+    With ``remat_backbone`` the backbone runs under ``torch.utils.checkpoint``
+    (non-reentrant) whenever autograd records: its activations are freed
+    after the forward and recomputed in the backward. The recompute runs
+    inside ``frozen_statistics``, so the BatchNorm running statistics take
+    the forward's batch statistics once, as flax's functional ``nn.remat``
+    does. The backbone draws no random numbers, so the recompute is the
+    forward's computation."""
 
     def __init__(self, backbone: nn.Module, pred_activation: Callable,
-                 upsample_interp: str = "nearest", dtype: torch.dtype = torch.float32):
+                 upsample_interp: str = "nearest", dtype: torch.dtype = torch.float32,
+                 remat_backbone: bool = False):
         super().__init__()
         self.backbone = backbone
         self.compute_dtype = dtype
+        self.remat_backbone = remat_backbone
         self.DepthDecoder_0 = DepthDecoder(backbone.out_channels, pred_activation,
                                            upsample_interp, dtype=dtype)
+
+    def _encode(self, target: torch.Tensor) -> list[torch.Tensor]:
+        if not (self.remat_backbone and torch.is_grad_enabled()):
+            return self.backbone(target)
+        calls = []
+
+        def run(x):
+            calls.append(None)
+            if len(calls) == 1:
+                return self.backbone(x)
+            with frozen_statistics(self.backbone):  # the backward's recompute
+                return self.backbone(x)
+
+        return checkpoint(run, target, use_reentrant=False)
 
     def forward(self, image5d: torch.Tensor):
         target = to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2))
         height, width = target.shape[-2:]
         with cast_parameters(self):
-            features_ms = self.backbone(target)
+            features_ms = self._encode(target)
             return self.DepthDecoder_0(features_ms, height, width)
 
 

@@ -5,11 +5,20 @@ prediction dicts, deriving ``disp_ms = 1 / depth_ms``; with stereo data it
 runs them again on the ``_R`` views, and with a stereo extrinsic and a
 posenet it predicts the left<->right pose by feeding
 ``[R_target] * numsrc + [L_target]`` snippets (and their mirror) to the
-posenet. Ported so far: ``DepthNetBasic``, ``DepthNetNoResize`` and an
-EfficientNet ``DepthNetPretrained``, ``PoseNetBasic`` and
-``PoseNetImproved``, and ``PWCNet``, computing in float32 or bfloat16
-(``compute_dtype``; the parameters are float32 either way). Any other net
-raises, naming the ROADMAP item that adds it.
+posenet. The nets are the JAX factory's: ``DepthNetBasic``,
+``DepthNetNoResize`` and ``DepthNetPretrained`` over any backbone of
+``backbones.BACKBONE_NAMES``; ``PoseNetBasic``, ``PoseNetImproved``,
+``PoseNetDeep`` and ``PoseNetPreTrained`` over any backbone that takes the
+snippet's 15 channels (ResNet50V2, MobileNetV2, Xception, NASNet: the
+others raise ValueError, as their JAX twins cannot run); ``PWCNet``. They
+compute in float32 or bfloat16 (``compute_dtype``; the parameters are
+float32 either way); an unknown name raises ValueError.
+
+``remat_backbone`` checkpoints the depth net's backbone
+(``torch.utils.checkpoint``, non-reentrant), as the JAX factory's
+``nn.remat``: its activations are recomputed in the backward instead of
+kept, and the recompute folds nothing into the BatchNorm running
+statistics (``DepthNetPretrained``).
 
 Weights are drawn from an explicit ``torch.Generator`` on the CPU (the
 modules are built on the ``meta`` device first, so nothing is drawn
@@ -28,7 +37,7 @@ import torch.nn as nn
 from xpt_mde_tpu_torch.config import SNIPPET_LEN
 from xpt_mde_tpu_torch.models import depth_net as dn
 from xpt_mde_tpu_torch.models import pose_net as pn
-from xpt_mde_tpu_torch.models.backbones import backbone_factory
+from xpt_mde_tpu_torch.models.backbones import BACKBONE_NAMES, backbone_factory
 from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
 from xpt_mde_tpu_torch.models.flow_net import PWCNet
 from xpt_mde_tpu_torch.models.layers import Conv2dSame, ConvTranspose, activation_factory
@@ -116,7 +125,8 @@ class ModelFactory:
                  stereo: bool = True, high_res: bool = False,
                  upsample_interp: str = "nearest",
                  compute_dtype: str = "float32",
-                 device: torch.device | str = "cuda", seed: int = 0):
+                 device: torch.device | str = "cuda", seed: int = 0,
+                 remat_backbone: bool = False):
         self.dtype = precision.compute_dtype(compute_dtype)
         self.dataset_keys = {k.replace("image5d", "image") for k in dataset_keys}
         self.net_names = dict(net_names)
@@ -126,11 +136,9 @@ class ModelFactory:
         self.upsample_interp = upsample_interp
         self.device = torch.device(device)
         self.seed = seed
+        self.remat_backbone = remat_backbone
 
     def get_model(self) -> VodeModel:
-        unported = set(self.net_names) - {"depth", "camera", "flow"}
-        if unported:
-            raise NotImplementedError(f"nets {sorted(unported)} are not ported yet")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the model is built on the card "
                                "unless the caller passes device='cpu'")
@@ -157,17 +165,23 @@ class ModelFactory:
             return dn.DepthNetBasic(activation, self.upsample_interp, self.dtype)
         if net_name == "DepthNetNoResize":
             return dn.DepthNetNoResize(activation, self.upsample_interp, self.dtype)
-        return dn.DepthNetPretrained(backbone_factory(net_name, self.dtype), activation,
-                                     self.upsample_interp, self.dtype)
+        if net_name in BACKBONE_NAMES:
+            return dn.DepthNetPretrained(backbone_factory(net_name, self.dtype), activation,
+                                         self.upsample_interp, self.dtype,
+                                         remat_backbone=self.remat_backbone)
+        raise ValueError(f"wrong depth net name: {net_name}")
 
     def pose_net_factory(self, net_name: str) -> nn.Module:
         if net_name == "PoseNetBasic":
             return pn.PoseNetBasic(SNIPPET_LEN, self.high_res, self.dtype)
         if net_name == "PoseNetImproved":
             return pn.PoseNetImproved(SNIPPET_LEN, self.high_res, self.dtype)
-        raise NotImplementedError(
-            f"pose net {net_name!r} is not ported yet (ROADMAP queue 1 item 5, 'Breadth': "
-            "PoseNetDeep and PoseNetPreTrained)")
+        if net_name == "PoseNetDeep":
+            return pn.PoseNetDeep(SNIPPET_LEN, self.high_res, self.dtype)
+        if net_name in BACKBONE_NAMES:
+            backbone = backbone_factory(net_name, self.dtype, in_channels=SNIPPET_LEN * 3)
+            return pn.PoseNetPreTrained(backbone, SNIPPET_LEN, self.high_res, self.dtype)
+        raise ValueError(f"wrong pose net name: {net_name}")
 
     def flow_net_factory(self, net_name: str) -> nn.Module:
         if net_name == "PWCNet":

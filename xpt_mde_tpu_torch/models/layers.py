@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xpt_mde_tpu_torch.utils.image import resize_image, resize_nchw
+from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 # the truncated standard normal on [-2, 2] has this std; flax's
 # variance-scaling init divides by it
@@ -147,25 +148,31 @@ def same_padding(size: int, kernel: int, stride: int,
 
 
 class Conv2dSame(ComputeCast, nn.Conv2d):
-    """``nn.Conv2d`` with flax/TF SAME padding, computed per input size.
+    """``nn.Conv2d`` with flax/TF SAME padding, computed per input size
+    (``padding="VALID"``: none, as flax's VALID).
 
     ``init_std`` selects the init :meth:`init_weights` draws: a truncated
     normal of that stddev (the framework's default conv), or, when None,
-    flax's ``lecun_normal`` (the EfficientNet convs). ``dtype`` is the
+    flax's ``lecun_normal`` (the backbones' convs). ``dtype`` is the
     compute dtype (:func:`to_compute`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  bias: bool = True, init_std: float | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=0, dilation=dilation, groups=groups, bias=bias)
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.init_std = init_std
         self.compute_dtype = dtype
+        self.same = padding == "SAME"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = to_compute(self.compute_dtype, x)
         weight, bias = self.cast_params()
+        if not self.same:
+            return F.conv2d(x, weight, bias, self.stride, 0, self.dilation, self.groups)
         ph = same_padding(x.shape[-2], self.kernel_size[0], self.stride[0],
                           self.dilation[0])
         pw = same_padding(x.shape[-1], self.kernel_size[1], self.stride[1],
@@ -188,6 +195,169 @@ class Conv2dSame(ComputeCast, nn.Conv2d):
                               generator=generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode running statistics.
+
+    Train mode normalizes with the biased batch statistics, as both
+    frameworks do, and then updates the running statistics as flax does:
+    ``ra = (1 - momentum) * ra + momentum * stat`` with the BIASED batch
+    variance. (Torch would put the unbiased one into ``running_var``:
+    n/(n-1) times larger, ~7% at the 16 values per channel of B0's
+    stride-32 map at batch 2.) Eval mode is torch's, on the running
+    statistics. ``momentum`` is torch's: flax's 0.99 (its default, and
+    EfficientNet's) is 0.01, MobileNetV2's 0.999 is 0.001; ``eps`` is
+    flax's ``epsilon`` (1e-3 in EfficientNet, MobileNetV2, Xception and
+    NASNet, 1.001e-5 in ResNet50V2 and DenseNet121).
+
+    With a bfloat16 compute ``dtype`` it is flax's BatchNorm with
+    ``dtype=bfloat16`` and ``force_float32_reductions``: torch's batch
+    norm on the bfloat16 input with the float32 parameters (its mixed-type
+    form) takes the statistics once, in float32, normalizes in float32 and
+    returns bfloat16, in one kernel; the running statistics stay float32,
+    updated from the batch mean and the biased variance that the same call
+    returns (as 1 / invstd^2 - eps). Inside :func:`fold_statistics_at_end`
+    (the backbones' forwards) that update waits for the block's end, where
+    all its BatchNorms fold theirs in together. Inside
+    :func:`frozen_statistics` nothing is folded in."""
+
+    # the batch statistics of the enclosing fold_statistics_at_end block
+    _pending: list | None = None
+    # set by frozen_statistics: normalize, but leave the running statistics
+    _frozen = False
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-3, momentum: float = 0.01):
+        super().__init__(channels, eps=eps, momentum=momentum)
+        self.compute_dtype = dtype
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self._frozen:
+            return
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype != torch.float32:
+            return self._forward_f32_stats(x)
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if not self._frozen:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self._update_running(mean, var)
+        return out
+
+    def _forward_f32_stats(self, x: torch.Tensor) -> torch.Tensor:
+        x = to_compute(self.compute_dtype, x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        out, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self._frozen:
+            return out
+        if self._pending is not None:
+            self._pending.append((self, mean.detach(), invstd.detach()))
+        else:
+            with torch.no_grad():
+                var = invstd.detach().pow(-2).sub_(self.eps)
+            self._update_running(mean.detach(), var)
+        return out
+
+
+def batch_norm(channels: int, dtype: torch.dtype = torch.float32, eps: float = 1e-3,
+               momentum: float = 0.01) -> BatchNorm2d:
+    return BatchNorm2d(channels, dtype, eps, momentum)
+
+
+@contextlib.contextmanager
+def fold_statistics_at_end(net: nn.Module):
+    """Train-mode bfloat16 BatchNorms of ``net`` fold their batch
+    statistics into the running ones at the block's end, all together in
+    a few foreach operations (the same arithmetic as each one's
+    ``_update_running``, ~6 kernels a norm otherwise), each with its own
+    eps and momentum. Each norm runs once in the block (a backbone's
+    forward)."""
+    norms = [m for m in net.modules()
+             if isinstance(m, BatchNorm2d) and m.compute_dtype != torch.float32]
+    pending = []
+    for norm in norms:
+        norm._pending = pending
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm._pending = None
+    if pending:
+        with torch.no_grad():
+            norms, means, invstds = zip(*pending)
+            variances = torch._foreach_pow(list(invstds), -2.0)
+            torch._foreach_sub_(variances, [norm.eps for norm in norms])
+            # one foreach add per momentum: alpha is a scalar of the call
+            by_momentum: dict[float, list[int]] = {}
+            for i, norm in enumerate(norms):
+                by_momentum.setdefault(norm.momentum, []).append(i)
+            for stat, values in (("running_mean", means), ("running_var", variances)):
+                running = [getattr(norm, stat) for norm in norms]
+                torch._foreach_mul_(running, [1.0 - norm.momentum for norm in norms])
+                for momentum, index in by_momentum.items():
+                    torch._foreach_add_([running[i] for i in index],
+                                        [values[i] for i in index], alpha=momentum)
+
+
+@contextlib.contextmanager
+def frozen_statistics(net: nn.Module):
+    """The BatchNorms of ``net`` normalize as they would but fold nothing
+    into their running statistics: the recompute of a checkpointed
+    backbone, whose forward already folded its batch statistics in."""
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    for norm in norms:
+        norm._frozen = True
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm._frozen = False
+
+
+def zero_pad(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
+    """Explicit zero padding of [N, C, H, W] (``jnp.pad`` with zeros)."""
+    return F.pad(x, (left, right, top, bottom))
+
+
+def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``max_pool(padding="SAME")``: the SAME pads of each axis
+    (low = total // 2, the rest high; (0, 1) for k3 s2 at even sizes)
+    filled with -inf, then a VALID max pool."""
+    ph = same_padding(x.shape[-2], kernel, stride)
+    pw = same_padding(x.shape[-1], kernel, stride)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+def avg_pool_same_excluding_pad(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """flax ``avg_pool(padding="SAME", count_include_pad=False)`` at stride
+    1 and an odd ``kernel``: each output averages the in-frame values of
+    its window only. As flax computes it: the window sums in ``x``'s dtype
+    (summed in float32 and rounded once), divided by the float32 counts,
+    so a bfloat16 input gives a float32 output (flax's counts are float32
+    arrays, and the division promotes).
+
+    The pool takes a contiguous NCHW copy: on a CUDA tensor in the
+    channels-last layout that cuDNN's convolutions hand on, avg_pool2d's
+    backward with this padding is wrong (torch 2.11 with CUDA 12.8: half
+    the gradient's norm off while the forward agrees), as SSIM's was."""
+    pad = kernel // 2
+    sums = F.avg_pool2d(at_least_f32(x).contiguous(), kernel, 1, pad, divisor_override=1)
+    ones = torch.ones((1, 1) + x.shape[-2:], dtype=sums.dtype, device=x.device)
+    counts = F.avg_pool2d(ones, kernel, 1, pad, divisor_override=1)
+    return sums.to(x.dtype).to(sums.dtype) / counts
 
 
 class ConvTranspose(ComputeCast, nn.ConvTranspose2d):

@@ -87,16 +87,43 @@ def make_train_step(model: torch.nn.Module, total_loss,
     :param regularize_net: the top-level net whose parameters the
         ``flow_reg`` loss reads, as ``preds["regularize_weights"]``; it is
         never frozen. A name the model lacks adds nothing, as in JAX
+    :param grad_accum_steps: k > 1 augments the batch once, then runs it
+        as k sequential microbatches of batch/k (forward, loss, backward
+        each, the gradients summed in the parameters' ``.grad``) before
+        ONE optimizer step, as the JAX step's ``lax.scan`` does. Every
+        loss term is a sum over samples divided by the GLOBAL batch, so
+        ``total_loss`` must carry ``batch_size`` (the whole batch), and
+        the summed gradients are the whole batch's up to float summation
+        order. The JAX step's two deviations hold here too: BatchNorm
+        normalizes each microbatch by its own statistics (and folds k
+        batches of batch/k into its running ones), and the md2cmb terms
+        count valid pixels per microbatch. The metrics: the loss terms
+        summed over the microbatches, the others averaged
     :return: ``step(features, generator=None) -> metrics``, the metrics of
         the train-mode forward (detached), as the JAX step reports them
     """
-    if grad_accum_steps != 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 is not ported yet (ROADMAP: 'Breadth')")
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    if grad_accum_steps > 1 and getattr(total_loss, "batch_size", None) is None:
+        # each microbatch's loss would be its sum / (batch/k): k x too large
+        raise ValueError("grad_accum_steps > 1 requires total_loss built "
+                         "with batch_size = the GLOBAL batch size")
     frozen = set(frozen_nets) - {regularize_net}
     frozen_params = [p for name, net in model.named_children() if name in frozen
                      for p in net.parameters()]
     regularized = getattr(model, regularize_net, None) if regularize_net else None
+
+    def forward_backward(features) -> dict:
+        """Loss and metrics of one (micro)batch; its gradients are added
+        into ``.grad``."""
+        preds = model(features)
+        if regularized is not None:
+            preds["regularize_weights"] = list(regularized.parameters())
+        loss, loss_by_type = total_loss(preds, features)
+        loss.backward()
+        with torch.no_grad():
+            return _compute_metrics(preds, features, loss.detach(),
+                                    {k: v.detach() for k, v in loss_by_type.items()})
 
     def train_step(features: Mapping[str, torch.Tensor],
                    generator: torch.Generator | None = None) -> dict:
@@ -110,23 +137,37 @@ def make_train_step(model: torch.nn.Module, total_loss,
                 features = decode_image_features(features)
                 if augmenter is not None:
                     features = augmenter(features, generator)
-                preds = model(features)
-                if regularized is not None:
-                    preds["regularize_weights"] = list(regularized.parameters())
-                loss, loss_by_type = total_loss(preds, features)
                 optimizer.zero_grad(set_to_none=True)
-                loss.backward()
+                if grad_accum_steps == 1:
+                    metrics = forward_backward(features)
+                else:
+                    metrics = _accumulate(forward_backward, features, grad_accum_steps)
                 optimizer.step()
-                with torch.no_grad():
-                    return _compute_metrics(
-                        preds, features, loss.detach(),
-                        {k: v.detach() for k, v in loss_by_type.items()})
+                return metrics
         finally:
             for p, flag in zip(frozen_params, grad_flags):
                 p.requires_grad_(flag)
             model.train(was_training)
 
     return train_step
+
+
+def _accumulate(forward_backward: Callable, features: Mapping[str, torch.Tensor],
+                k: int) -> dict:
+    """``forward_backward`` over the k microbatches of ``features`` (every
+    entry split along its batch axis, in order); the loss terms' metrics
+    summed (each is already a sum / the global batch), the others
+    averaged over the microbatches of equal size."""
+    batch = next(iter(features.values())).shape[0]
+    if batch % k:
+        raise ValueError(f"batch {batch} must divide by grad_accum_steps {k}")
+    size = batch // k
+    runs = [forward_backward({key: value[i * size: (i + 1) * size]
+                              for key, value in features.items()})
+            for i in range(k)]
+    return {key: (torch.sum if key == "loss" or key.startswith("loss/") else torch.mean)(
+                torch.stack([run[key] for run in runs]))
+            for key in runs[0]}
 
 
 def make_eval_step(model: torch.nn.Module, total_loss) -> Callable:

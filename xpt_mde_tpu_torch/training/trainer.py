@@ -16,8 +16,9 @@ Per epoch: train, validate, then the "latest" checkpoint, then the
 order: history.csv drives resume, so an epoch's weights are on disk
 before the log claims it); "ep{NN}" at a row's end.
 
-One process, one card: ``train_mode="distributed"``, a mesh of more than
-one device and ``grad_accum_steps > 1`` raise. The step's random stream
+One process, one card: ``train_mode="distributed"`` and a mesh of more
+than one device raise; ``grad_accum_steps > 1`` splits each batch into
+that many microbatches before one optimizer step. The step's random stream
 is a CPU ``torch.Generator`` seeded from (epoch, step), so a run resumed
 mid-epoch draws what the uninterrupted run drew. Metrics add up on the
 device and are read once per log interval.
