@@ -55,7 +55,9 @@ per library started together, and prints one line per phase:
    uint8-coded batches: finite losses, weights and BN statistics moved,
    4 K1 and 4 K1-bwd launches per step;
 7. one train step on the card, one on the CPU and one on the CPU in
-   float64, from the same weights (the pose head's bias set to
+   float64 (the float64 runs of phases 7, 11, 14, 17 and 29 in spawned
+   workers, queued before the build and drained before phase 12: see
+   CPU_WORKERS), from the same weights (the pose head's bias set to
    CHECK_TWIST) on the first 2 samples of batch 0, without augmentation:
    losses within LOSS_TOL, the loss's gradient at the same predictions
    within LOSS_GRAD_RTOL, the parameter gradients as close to float64 as
@@ -140,7 +142,7 @@ per library started together, and prints one line per phase:
     float32 steps' of phases 12, 13 and 16;
 23. one bfloat16 step of the rigid, flow, joint and stereo stages on the
     card against the float32 step of this call from the same weights and
-    batch, held to the CPU's bfloat16-vs-float32 distance at the same size
+    batch (phases 7, 11, 14 and 17's, card and CPU), held to the CPU's bfloat16-vs-float32 distance at the same size
     (BF16_MEDIAN_RATIO, BF16_MAX_RATIO): loss terms, parameter gradients,
     BN statistics;
 24. the stereo plan of phase 20 at the default ``Config()``, bfloat16: K1,
@@ -161,7 +163,8 @@ per library started together, and prints one line per phase:
     after the joint rows equal to the flow row's tensor for tensor, the
     depth net changed; every float32 kernel launches, no bfloat16 one;
     each row's seconds, images/s and launches per step;
-27. the same plan in bfloat16: the hand-off exact and the metrics finite;
+27. the same plan in bfloat16 at MINI_PLAN_DEPTH's epochs (2 rigid, 1
+    flow, 1 joint): the hand-off exact and the metrics finite;
     whether it meets the criteria is reported (``bf16_meets_criteria``)
     and fails nothing; K1, K1-bwd and the bfloat16 K2-K4 launch, the
     float32 K2-K4 never. Both results go to ``RESULTS_torch.jsonl``;
@@ -185,14 +188,36 @@ per library started together, and prints one line per phase:
     [0, 255], the backbone alone in float64 and float32 on the card
     against the CPU (BACKBONE_F64_RTOL; TAP_RTOL, GRAD_MAX_RTOL for every
     gradient, BN_TOL), a float32 step's losses, loss gradient and BN
-    statistics by phase 7's rules and the bfloat16 step by phase 23's;
-    before them NASNet's count-excluding pool on a channels-last tensor
-    against the CPU (POOL_RTOL); then one bfloat16 step each
-    of PoseNetDeep, PoseNetPreTrained(MobileNetV2), the stereo step under
-    LOSS_RIGID_MD2 and LOSS_RIGID_MOA_WST (16 K1, 16 K1-bwd), the joint
-    step under MD2CMB_RECIPE (5 K2-bf16), ``grad_accum_steps=2`` (8 K1, 8
-    K1-bwd) and NASNetLarge without and with ``remat_backbone``, whose
-    peak memory must be lower with it.
+    statistics by phase 7's rules (without its float64 step) and the
+    bfloat16 step by phase 23's; before them NASNet's count-excluding pool
+    on a channels-last tensor against the CPU (POOL_RTOL); then one
+    bfloat16 step each of PoseNetDeep, PoseNetPreTrained(MobileNetV2), the
+    stereo step under LOSS_RIGID_MD2 and LOSS_RIGID_MOA_WST (16 K1, 16
+    K1-bwd), the joint step under MD2CMB_RECIPE (5 K2-bf16),
+    ``grad_accum_steps=2`` (8 K1, 8 K1-bwd) and NASNetLarge with
+    ``remat_backbone``, whose peak memory must be below the backbone
+    loop's NASNetLarge step's;
+30. data parallel (``_ddp_phase``): ``tools/ddp_check.py``'s step of
+    RIGID_NET (RECIPE) and of PWC-Net (FLOW_RECIPE, the flownet
+    regularized) at batch 8 global, 128x512, in float32 against the
+    one-process step on the card from the same weights (CHECK_TWIST,
+    CHECK_FLOW), by ddp_check's tolerances, and DDP_TIMED_STEPS bfloat16
+    steps of each: the ms a step beside the one-process step's and the
+    gradient all-reduce's share of it, each rank's launches a step. (a)
+    Under ``torchrun --standalone --nproc_per_node=<cards>`` over NCCL, one
+    rank a card, those steps and then ``scripts/train_main.py`` on one
+    rigid row (RIGID_NET, ``Config()``'s bfloat16) of synthetic shards and
+    its predictions on rank 0: history.csv and the checkpoints written
+    once, K1 and K1-bwd launched; (b) the steps over gloo with two ranks
+    on card 0 (NCCL refuses two ranks on one device);
+31. serving (``_serving_phase``): ``serving.export_predictor`` of
+    RIGID_NET in bfloat16 on a uint8 batch of 8 at 128x512 and of PWC-Net
+    in bfloat16 and float32; each artifact loaded in a fresh interpreter
+    with JAX and the port's model and training code unimportable, held to
+    the live ``make_predict_step`` (SERVE_RTOL), the flow artifacts'
+    K2-bf16 / K2 launches counted there (5 a call), a wrong shape raising
+    ValueError; the export seconds, the artifact bytes, and the
+    artifact's images/s beside the live predict step's.
 
 Then the script's seconds, a JSON line with each kernel's launches on its
 main path's run (the float32 kernels': the float32 mini plan; the
@@ -213,9 +238,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
+import functools
 import gc
+import hashlib
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -229,6 +258,18 @@ BATCH, HEIGHT, WIDTH, NUM_BATCHES = 8, 128, 512, 3
 SCALES = (1, 2, 4, 8)
 RECIPE = {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0}
 TRAIN_STEPS, LR, CHECK_BATCH = 6, 1e-4, 2
+# the cross-checks' float64 references on the CPU (the float64 steps of
+# phases 7, 11, 14 and 17, the zoo's backbones alone in float64 in phase
+# 29) run in CPU_WORKERS spawned processes of CPU_WORKER_THREADS torch
+# threads each at the lowest priority (``_CpuRuns``), queued before the
+# build: they are done beside phases 1-11 and drained before phase 12's
+# timings. A float64 sum's grouping moves it by ~1e-16, far below what
+# the rules read from it. The float32 and bfloat16 CPU runs stay in this
+# process, on its threads: their grouping moves them as far as the rules
+# look (on the H100's host, with 2 threads instead of 8 the CPU's float32
+# steps sat up to 1.9x further from float64, and MobileNetV2's bfloat16
+# losses 0.32x as far from float32)
+CPU_WORKERS, CPU_WORKER_THREADS, CPU_WORKER_NICE = 3, 2, 19
 # the GPU/CPU train cross-check sets the pose head's bias to this twist
 # (per source: tx, ty, tz in m, rotation in rad). At the seeded init the
 # predicted pose is ~0, so the reprojected coordinates lie within float
@@ -383,6 +424,23 @@ POOL_RTOL = 1e-5
 # and train-mode BatchNorms (the CPU's own at ZOO_CHECK_SIZE: up to 6.5e-4,
 # NASNetLarge)
 TAP_RTOL = 1e-3
+# phases 26-27: the mini plan's epochs (rigid, flow, joint) per dtype. The
+# float32 run keeps the JAX check's 12, 3, 3 and gates its criteria (at 8,
+# 2, 2 it ends, on the CPU, at AbsRel 0.125 after the joint rows against a
+# limit of 0.2667: too little room to cut). The bfloat16 run is cut so
+# that the script fits phases 30-31 in its time: it gates only the
+# hand-off and finite metrics, and reports the criteria;
+# `tools/check_learns.py --check plan --dtype bfloat16` runs the protocol
+MINI_PLAN_DEPTH = {"float32": {},
+                   "bfloat16": {"rigid_epochs": 2, "flow_epochs": 1, "joint_epochs": 1}}
+# phase 30: timed bfloat16 data-parallel steps per world and backend
+DDP_TIMED_STEPS = 4
+# phase 31: an artifact against the live predict step, both on the card,
+# each output's largest difference over its largest value: the same
+# operations in float32 (1e-5); in bfloat16 a few ulps (2^-8 each) where
+# the exported graph's ops are fused or ordered otherwise
+SERVE_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SERVE_TIMED_CALLS = 10
 # phase 29's joint step: the md2cmb terms at LOSS_RIGID_COMB's weights (as JOINT_RECIPE)
 MD2CMB_RECIPE = {"md2cmbL1": 5.0, "md2cmbSSIM": 0.5, "smoothe": 20.0}
 # the bfloat16 K2, K3 and K4 and their plain versions each read the
@@ -857,72 +915,313 @@ def _set_pose_and_flow_heads(model, device):
     _set_flow_heads(model, device)
 
 
-def _train_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
-                       pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
+@dataclasses.dataclass
+class _Check:
+    """One cross-checked train step: its nets and keys, its batch (numpy,
+    so that it pickles by value into the CPU workers), its loss, the
+    function that sets the heads' biases (``_set_pose_twist``, ...) and
+    the step's options. ``label`` names its CPU runs in ``_CPU_RUNS``."""
+
+    label: str
+    nets: dict
+    keys: list
+    feats: dict
+    loss: object
+    prepare: object
+    step_kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def tensors(self) -> dict:
+        import torch
+        return {k: torch.from_numpy(v) for k, v in self.feats.items()}
+
+
+def _to_numpy(value):
+    """``value`` with every tensor a numpy array, so that it pickles by
+    value and not through shared memory."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {k: _to_numpy(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_numpy(v) for v in value)
+    return value
+
+
+def _to_torch(value):
+    """The inverse of ``_to_numpy``."""
+    import numpy as np
+    import torch
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(value)
+    if isinstance(value, dict):
+        return {k: _to_torch(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_torch(v) for v in value)
+    return value
+
+
+def _digest(state: dict) -> str:
+    """The digest of a state dict's keys and bits: two processes that
+    seeded the same weights give the same one."""
+    import torch
+    digest = hashlib.sha256()
+    for key, value in state.items():
+        digest.update(key.encode())
+        digest.update(value.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _cpu_worker_init(threads: int) -> None:
+    os.nice(CPU_WORKER_NICE)
+    import torch
+    torch.set_num_threads(threads)
+
+
+def _cpu_job(tasks: list) -> dict:
+    """Run in a CPU worker: {key: fn(*args)} over ``tasks`` [(key, fn,
+    args)], in order and in full float32, the tensors as numpy arrays."""
+    from xpt_mde_tpu_torch.utils.precision import full_f32
+
+    with full_f32():
+        return {key: _to_numpy(fn(*args)) for key, fn, args in tasks}
+
+
+class _CpuRuns:
+    """The cross-checks' float64 CPU runs (``_cpu_step``, ``_cpu_backbone``)
+    in spawned worker processes: ``submit`` queues a job of one or more
+    runs, each under its key; ``result`` returns a run's result, waiting
+    for it, or runs it here where it was not queued (the float32 and
+    bfloat16 runs, and a probe that calls one phase without the workers);
+    ``drain`` waits for every queued job, ``stop`` ends the workers."""
+
+    def __init__(self):
+        self.pool, self.pending, self.done = None, {}, {}
+
+    def start(self, workers: int = CPU_WORKERS, threads: int = CPU_WORKER_THREADS) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self.pool = ctx.Pool(workers, initializer=_cpu_worker_init, initargs=(threads,))
+
+    def submit(self, tasks: list) -> None:
+        """Queue ``tasks`` [(key, fn, args)] as one job (one worker, in
+        order: runs of one model share its seeded init there)."""
+        job = self.pool.apply_async(_cpu_job, (tasks,))
+        for key, _, _ in tasks:
+            self.pending[key] = job
+
+    def result(self, key, fn, *args):
+        if key not in self.pending:
+            return fn(*args)
+        job = self.pending.pop(key)
+        if job not in self.done:
+            self.done[job] = job.get()
+        results = self.done[job]
+        value = _to_torch(results.pop(key))
+        if not results:
+            del self.done[job]
+        return value
+
+    def drain(self) -> float:
+        """Wait for every queued job; returns the seconds waited."""
+        t0 = time.perf_counter()
+        for job in set(self.pending.values()):
+            job.wait()
+        return time.perf_counter() - t0
+
+    def stop(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+
+_CPU_RUNS = _CpuRuns()
+
+
+# a CPU step of a cross-check: (compute dtype, model and batch dtype,
+# with the initial weights' predictions)
+CPU_STEP_RUNS = {"float32": ("float32", "float32", True),
+                 "float64": ("float32", "float64", False),
+                 "bfloat16": ("bfloat16", "float32", False)}
+
+
+def _cpu_step(check: _Check, run: str) -> dict:
+    """One train step of ``check`` on the CPU from the seeded weights (the
+    heads set by ``check.prepare``), without augmentation, as
+    CPU_STEP_RUNS[run] says: {"metrics", "grads", "stats" (the running
+    statistics after it), "float32_params", "digest" (of the initial
+    weights), "preds" (the initial weights' train-mode predictions, for the
+    float32 run)}."""
+    import torch
+
+    from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
+
+    compute_dtype, dtype, with_preds = CPU_STEP_RUNS[run]
+    dtype = getattr(torch, dtype)
+    cpu = torch.device("cpu")
+    model = _seeded_model(check.keys, check.nets, cpu, compute_dtype)
+    check.prepare(model, cpu)
+    digest = _digest(model.state_dict())
+    model.to(dtype)
+    initial = copy.deepcopy(model.state_dict())
+    step = make_train_step(model, check.loss, optimizer_factory("adam_constant", LR, model),
+                           **check.step_kwargs)
+    metrics = step({k: v.to(dtype) for k, v in check.tensors().items()})
+    out = {"metrics": dict(metrics),
+           "grads": {n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+           "stats": {k: v for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))},
+           "float32_params": all(p.dtype == torch.float32 for p in model.parameters()),
+           "digest": digest}
+    if with_preds:
+        model.load_state_dict(initial)
+        with torch.no_grad():
+            out["preds"] = model.train()(check.tensors())
+    return out
+
+
+def _cpu_run(check: _Check, run: str) -> dict:
+    """``check``'s CPU step ``run`` (``_cpu_step``): a worker's where it
+    was queued (``_CPU_RUNS``), else run here."""
+    return _CPU_RUNS.result((check.label, run), _cpu_step, check, run)
+
+
+def _zoo_image(check: _Check):
+    """The target frames of ``check``'s batch as the depth net hands them
+    to its backbone: [B, 3, H, W], a permuted view of the NHWC frames."""
+    return check.tensors()["image5d"][:, -1].permute(0, 3, 1, 2)
+
+
+def _cpu_backbone(check: _Check, dtype: str) -> dict:
+    """``tools/zoo_precision.backbone_run`` of ``check``'s depth backbone
+    on the CPU in ``dtype`` (its tensors kept in that dtype, which holds
+    them exactly) and the digest of its weights."""
+    import torch
+
+    from xpt_mde_tpu_torch.tools.zoo_precision import backbone_run
+
+    dtype = getattr(torch, dtype)
+    backbone = _seeded_model(check.keys, check.nets, torch.device("cpu")).depthnet.backbone
+    return {"run": _cast(backbone_run(backbone, _zoo_image(check), torch.device("cpu"), dtype),
+                         dtype),
+            "digest": _digest(backbone.state_dict())}
+
+
+def _cast(run, dtype):
+    """``run``'s tensors (in dicts, lists and tuples) in ``dtype``."""
+    if isinstance(run, dict):
+        return {k: _cast(v, dtype) for k, v in run.items()}
+    if isinstance(run, (list, tuple)):
+        return type(run)(_cast(v, dtype) for v in run)
+    return run.to(dtype)
+
+
+def _check_digest(label, cpu_digest, state):
+    if cpu_digest != _digest(state):
+        raise AssertionError(f"{label}: the CPU worker seeded other weights than this process")
+
+
+def _prepared_state(check, compute_dtype: str) -> dict:
+    """The state dict of ``check``'s seeded model with its heads set."""
+    import torch
+    model = _seeded_model(check.keys, check.nets, torch.device("cpu"), compute_dtype)
+    check.prepare(model, torch.device("cpu"))
+    return model.state_dict()
+
+
+def _train_cross_check(phase_no, check, device, pred_keys, loss_tol, fixed_keys=(),
                        loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
     """Phases 7, 11, 14 and 17: ``_step_cross_check``, and the parameter
     gradients as close to float64 as the CPU's (median relative error at
     most GRAD_MEDIAN_RATIO times the CPU's), none further than
-    GRAD_MAX_RTOL."""
-    median, worst = _step_cross_check(phase_no, label, nets, keys, feats, device, loss,
-                                      prepare, pred_keys, loss_tol, step_kwargs, fixed_keys,
-                                      loss_grad_rule)
+    GRAD_MAX_RTOL. Returns the float32 runs (``_bf16_cross_check``'s
+    ``f32_runs``)."""
+    median, worst, f32_runs = _step_cross_check(phase_no, check, device, pred_keys, loss_tol,
+                                                fixed_keys, loss_grad_rule)
     if not median["gpu"] <= GRAD_MEDIAN_RATIO * median["cpu"]:
         raise AssertionError(f"GPU gradients further from float64 than the CPU's: "
                              f"{median['gpu']:.3g} vs {median['cpu']:.3g}")
     if not worst[0][1] <= GRAD_MAX_RTOL:
         raise AssertionError(f"gradient of {worst[0][0]}: relative error {worst[0][1]:.3g} "
                              f"> {GRAD_MAX_RTOL}")
+    return f32_runs
 
 
-def _step_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
-                      pred_keys, loss_tol, step_kwargs=None, fixed_keys=(),
-                      loss_grad_rule=(LOSS_GRAD_RTOL, 1.0)):
-    """Phases 7, 11, 14, 17 and 29: one train step from the same seeded
-    weights (``prepare`` sets the heads' biases), no augmentation, on the
-    card, on the CPU, and on the CPU in float64 as the reference: the
-    losses within ``loss_tol``, the loss's gradient at the same
-    predictions within ``loss_grad_rule`` (relative error, share of
-    elements off by more than 1e-3 of the largest), the BatchNorm
-    statistics within BN_TOL. Prints the parameter gradients' distances
-    from float64 (frozen nets' None not compared) and returns ({device:
-    median relative error}, the card's three worst (tensor, error))."""
+@functools.lru_cache(maxsize=2)
+def _seeded_cpu_model(keys: tuple, nets: tuple, compute_dtype: str):
+    from xpt_mde_tpu_torch.models import ModelFactory
+    return ModelFactory(list(keys), dict(nets), stereo=False, compute_dtype=compute_dtype,
+                        device="cpu", seed=0).get_model()
+
+
+def _seeded_model(keys, nets, device, compute_dtype: str = "float32"):
+    """``ModelFactory(keys, nets, stereo=False, compute_dtype=compute_dtype,
+    device=device, seed=0).get_model()``, the same weights: the seeded
+    init is made once on the CPU and copied, since the cross-checks build
+    each model several times and a zoo backbone's init takes seconds
+    (NASNetLarge's ~7 s)."""
+    return copy.deepcopy(_seeded_cpu_model(tuple(keys), tuple(sorted(nets.items())),
+                                           compute_dtype)).to(device)
+
+
+def _step_cross_check(phase_no, check, device, pred_keys, loss_tol, fixed_keys=(),
+                      loss_grad_rule=(LOSS_GRAD_RTOL, 1.0), float64=True):
+    """Phases 7, 11, 14, 17 and 29: one train step of ``check`` from the
+    same seeded weights (``check.prepare`` sets the heads' biases), no
+    augmentation, on the card, on the CPU, and (``float64``) on the CPU in
+    float64 as the reference, the CPU steps from ``_CPU_RUNS``: the losses
+    within ``loss_tol``, the loss's gradient at the same predictions within
+    ``loss_grad_rule`` (relative error, share of elements off by more than
+    1e-3 of the largest), the BatchNorm statistics within BN_TOL. Prints
+    the parameter gradients' distances from float64 (frozen nets' None not
+    compared) and returns ({device: median relative error}, the card's
+    three worst (tensor, error); both None without ``float64``; the
+    float32 runs as ``_bf16_cross_check`` takes them)."""
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
 
-    results = {}
-    for dev_label, dev, dtype in (("gpu", device, torch.float32),
-                                  ("cpu", torch.device("cpu"), torch.float32),
-                                  ("cpu f64", torch.device("cpu"), torch.float64)):
-        model = ModelFactory(keys, nets, stereo=False, device=dev, seed=0).get_model()
-        prepare(model, dev)
-        model.to(dtype)
-        initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-        step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model),
-                               **(step_kwargs or {}))
-        metrics = step({k: v.to(dev, dtype) for k, v in feats.items()})
-        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
-                 if p.grad is not None}
-        stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
-                 if k.endswith(("running_mean", "running_var"))}
-        results[dev_label] = (metrics, grads, stats, model, initial)
-    losses, rel = _check_losses(results["gpu"][0], results["cpu"][0], label, loss_tol)
+    model = _seeded_model(check.keys, check.nets, device)
+    check.prepare(model, device)
+    initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, check.loss, optimizer_factory("adam_constant", LR, model),
+                           **check.step_kwargs)
+    metrics = step({k: v.to(device) for k, v in check.tensors().items()})
+    results = {"gpu": (metrics,
+                       {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+                        if p.grad is not None},
+                       {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))})}
+    cpu_runs = {"cpu": _cpu_run(check, "float32")}
+    if float64:
+        cpu_runs["cpu f64"] = _cpu_run(check, "float64")
+    for dev_label, run in cpu_runs.items():
+        _check_digest(f"{check.label} {dev_label}", run["digest"], initial)
+        results[dev_label] = (run["metrics"], _cast(run["grads"], torch.float64),
+                               _cast(run["stats"], torch.float64))
+    losses, rel = _check_losses(results["gpu"][0], results["cpu"][0], check.label, loss_tol)
 
     # the gradient of the loss alone, at the CPU model's train-mode predictions
-    model, initial = results["cpu"][3], results["cpu"][4]
-    model.load_state_dict(initial)
-    with torch.no_grad():
-        preds = model.train()(feats)
-    loss_rel, n_elems, n_off = _loss_grad_diff(loss, preds, feats, device, pred_keys,
-                                               fixed_keys)
+    loss_rel, n_elems, n_off = _loss_grad_diff(check.loss, cpu_runs["cpu"]["preds"],
+                                               check.tensors(), device, pred_keys, fixed_keys)
 
-    ref = results["cpu f64"][1]
-    errors = {dev_label: _rel_errors(results[dev_label][1], ref) for dev_label in ("gpu", "cpu")}
-    median = {dev_label: float(np.median(list(e.values()))) for dev_label, e in errors.items()}
-    worst = sorted(errors["gpu"].items(), key=lambda item: item[1], reverse=True)[:3]
+    median = worst = None
+    if float64:
+        ref = results["cpu f64"][1]
+        errors = {dev_label: _rel_errors(results[dev_label][1], ref)
+                  for dev_label in ("gpu", "cpu")}
+        median = {dev_label: float(np.median(list(e.values())))
+                  for dev_label, e in errors.items()}
+        worst = sorted(errors["gpu"].items(), key=lambda item: item[1], reverse=True)[:3]
+        grad_note = (f"parameter gradients against the CPU's float64 step "
+                     f"({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median relative "
+                     f"error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
+                     f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}, CPU worst "
+                     f"{max(errors['cpu'].values()):.3g}")
+    else:
+        grad_note = "no float64 step (the backbone alone holds the gradients in float64)"
     worst_stat = 0.0
     for key, value in results["cpu"][2].items():
         # the batch statistic folded in: (new - (1 - m) * initial) / m
@@ -933,50 +1232,59 @@ def _step_cross_check(phase_no, label, nets, keys, feats, device, loss, prepare,
         worst_stat = max(worst_stat, float(excess.max()))
     bn_note = (f"BN batch statistics GPU vs CPU: worst excess over rtol {BN_TOL[0]} "
                f"{worst_stat:.3g}" if results["cpu"][2] else "no BatchNorm")
-    batch = feats["image5d"].shape[0]
-    print(f"phase {phase_no} {label} cross-check: one step at batch {batch}, GPU vs CPU "
+    batch = check.feats["image5d"].shape[0]
+    print(f"phase {phase_no} {check.label} cross-check: one step at batch {batch}, GPU vs CPU "
           f"losses rel diff {json.dumps(rel)} (GPU {json.dumps(losses)}); loss gradient at "
           f"the same predictions: rel error {loss_rel:.3g} <= {loss_grad_rule[0]} ({n_off} of "
-          f"{n_elems} elements off by > 1e-3 of the largest); parameter gradients against "
-          f"the CPU's float64 step ({len(errors['gpu'])} tensors above {GRAD_FLOOR}): median "
-          f"relative error GPU f32 {median['gpu']:.3g}, CPU f32 {median['cpu']:.3g}, GPU "
-          f"worst {', '.join(f'{n} {e:.3g}' for n, e in worst)}, CPU worst "
-          f"{max(errors['cpu'].values()):.3g}; {bn_note}", flush=True)
+          f"{n_elems} elements off by > 1e-3 of the largest); {grad_note}; {bn_note}",
+          flush=True)
     if not (loss_rel <= loss_grad_rule[0] and n_off <= loss_grad_rule[1] * n_elems):
         raise AssertionError(f"loss gradient GPU vs CPU: relative error {loss_rel:.3g}, "
                              f"{n_off} of {n_elems} elements off")
     if not worst_stat <= BN_TOL[1]:
         raise AssertionError(f"BN batch statistics differ by {worst_stat:.3g} beyond rtol")
-    return median, worst
+    f32_runs = {(where, "float32"): ({k: float(v) for k, v in results[dev_label][0].items()
+                                      if k.startswith("loss")}, results[dev_label][1],
+                                     results[dev_label][2])
+                for where, dev_label in (("card", "gpu"), ("cpu", "cpu"))}
+    return median, worst, f32_runs
 
 
-def _backbone_cross_check(name, image, device):
-    """Phase 29 for one backbone: the depth net's backbone alone, seeded as
-    the step's (``tools/zoo_precision.py``), train mode, on ``image`` (the
-    target frames as the depth net hands them over, [B, 3, H, W] in
-    [0, 255]), the objective sum_i mean(tap_i * r_i) with seeded normal
+def _backbone_cross_check(check, device):
+    """Phase 29 for one backbone: the depth net's backbone of ``check``
+    alone, seeded as the step's (``tools/zoo_precision.py``), train mode,
+    on its target frames as the depth net hands them over ([B, 3, H, W]
+    in [0, 255]), the objective sum_i mean(tap_i * r_i) with seeded normal
     r_i, forward and backward on the card and on the CPU in float64 and in
-    float32. Float64: every tap, parameter gradient and running statistic
-    on the card within BACKBONE_F64_RTOL (of its norm) of the CPU's: each
-    operation's semantics on the card (cuDNN keeps double convolutions
-    NCHW, so not the channels-last layouts of the other dtypes). Float32,
-    on the layouts the steps run: each tap within TAP_RTOL of its largest
-    value from the CPU's float64 tap, every parameter gradient within
-    GRAD_MAX_RTOL of float64 and every running statistic within BN_TOL of
-    the CPU's. The gradients' median is printed beside the CPU's but not
-    held to it: cuDNN's float32 algorithms set it (VGG16, which has no
-    BatchNorm to lose digits in, sits ~1000x the CPU's distance from
-    float64 on the card; phase 29's line). Returns a summary."""
+    float32 (the CPU's from ``_CPU_RUNS``). Float64: every tap, parameter
+    gradient and running statistic on the card within BACKBONE_F64_RTOL
+    (of its norm) of the CPU's: each operation's semantics on the card
+    (cuDNN keeps double convolutions NCHW, so not the channels-last
+    layouts of the other dtypes). Float32, on the layouts the steps run:
+    each tap within TAP_RTOL of its largest value from the CPU's float64
+    tap, every parameter gradient within GRAD_MAX_RTOL of float64 and
+    every running statistic within BN_TOL of the CPU's. The gradients'
+    median is printed beside the CPU's but not held to it: cuDNN's float32
+    algorithms set it (VGG16, which has no BatchNorm to lose digits in,
+    sits ~1000x the CPU's distance from float64 on the card; phase 29's
+    line). Returns a summary."""
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.tools.zoo_precision import backbone_run, seeded_backbone
+    from xpt_mde_tpu_torch.tools.zoo_precision import backbone_run
 
-    backbone = seeded_backbone(name)
+    name = check.nets["depth"]
+    # zoo_precision.seeded_backbone's, from the model the step checks build
+    backbone = _seeded_model(check.keys, check.nets, torch.device("cpu")).depthnet.backbone
     initial = {k: v.double() for k, v in backbone.state_dict().items()}
-    runs = {(where, dtype): backbone_run(backbone, image, dev, dtype)
-            for where, dev in (("card", device), ("cpu", torch.device("cpu")))
-            for dtype in (torch.float64, torch.float32)}
+    image = _zoo_image(check)
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        runs["card", dtype] = backbone_run(backbone, image, device, dtype)
+        cpu = _CPU_RUNS.result((check.label, f"backbone {dtype}"), _cpu_backbone, check,
+                               str(dtype).split(".")[1])
+        _check_digest(f"{name} backbone", cpu["digest"], backbone.state_dict())
+        runs["cpu", dtype] = _cast(cpu["run"], torch.float64)
 
     def rel(a, b):
         # a norm below GRAD_FLOOR is 0 but for rounding (a bias whose shift
@@ -1348,11 +1656,11 @@ def _mini_plan_kernels(device, tag):
 def _learning_phase(device, counts, zero_counts, tag):
     """Phases 26 and 27: the miniature plan's learning check
     (``tools/check_learns.py::check_plan``, the JAX check's protocol) in
-    float32, then in bfloat16, each in a temporary directory under
-    ``build/`` with its counts read from zero. float32 must meet the JAX
-    check's criteria; bfloat16 must keep the hand-off exact and its
-    metrics finite (``check_plan`` raises otherwise) and reports whether
-    it meets them. Each result goes to RESULTS_torch.jsonl. Returns
+    float32, then in bfloat16 at MINI_PLAN_DEPTH's epochs, each in a temporary
+    directory under ``build/`` with its counts read from zero. float32
+    must meet the JAX check's criteria; bfloat16 must keep the hand-off
+    exact and its metrics finite (``check_plan`` raises otherwise) and
+    reports whether it meets them. Each result goes to RESULTS_torch.jsonl. Returns
     {dtype: (launches of the run, result)}."""
     from xpt_mde_tpu_torch.tools.check_learns import check_plan, result_payload
     from xpt_mde_tpu_torch.utils.results import record
@@ -1363,7 +1671,8 @@ def _learning_phase(device, counts, zero_counts, tag):
         with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
             result = check_plan(workdir, dtype, device=device,
                                 log=lambda line, d=dtype: print(f"mini plan {d} {line}",
-                                                                flush=True))
+                                                                flush=True),
+                                **MINI_PLAN_DEPTH[dtype])
         runs[dtype] = (counts(), result)
         for row in result["rows"]:
             per_step = {k: round(v, 3) for k, v in row["launches_per_step"].items()}
@@ -1491,6 +1800,28 @@ def _shard_phase(device, counts, zero_counts, tag):
     return launches, note
 
 
+def _zoo_checks() -> dict:
+    """Phase 29's cross-checked steps, one a backbone of ZOO_BACKBONES as
+    the depth net with PoseNetImproved: a synthetic batch of CHECK_BATCH
+    at ZOO_CHECK_SIZE, its images scaled to [0, 255], RECIPE, the pose
+    head at CHECK_TWIST."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.losses import loss_factory
+
+    keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+    dataset = SyntheticDataset(batch_size=CHECK_BATCH, height=ZOO_CHECK_SIZE[0],
+                               width=ZOO_CHECK_SIZE[1], num_batches=1, seed=30)
+    feats = {k: torch.from_numpy(v) for k, v in next(iter(dataset)).items()}
+    feats["image5d"] = (feats["image5d"] + 1.0) * 127.5
+    loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False, batch_size=CHECK_BATCH)
+    return {name: _Check(f"zoo {name}", {"depth": name, "camera": "PoseNetImproved"}, keys,
+                         {k: v.numpy() for k, v in feats.items()}, loss, _set_pose_twist)
+            for name in ZOO_BACKBONES}
+
+
 def _zoo_step(nets, keys, recipe, stereo, batches, counts, zero_counts, device, steps,
               **kwargs):
     """One bfloat16 train step's build and measure (phase 29): the model
@@ -1568,14 +1899,16 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
     the stereo step under LOSS_RIGID_MD2 and under
     LOSS_RIGID_MOA_WST, the joint step under MD2CMB_RECIPE (K2-bf16 5 a
     step), ``grad_accum_steps=2`` (twice the K1 launches of one batch),
-    and NASNetLarge with and without ``remat_backbone`` (the peak memory
-    with remat lower). Returns (every launch of the phase, a summary)."""
+    and NASNetLarge with ``remat_backbone`` (the peak memory below the
+    backbone loop's NASNetLarge step's). The cross-checks' CPU runs come
+    from ``_CPU_RUNS``; the float32 step is held without a float64 one
+    (the backbone alone holds the gradients in float64). Returns (every
+    launch of the phase, a summary)."""
     import torch
 
     from xpt_mde_tpu_torch.config import (JOINT_NET, LOSS_RIGID_MD2, LOSS_RIGID_MOA_WST,
-                                          RIGID_NET, SCALE_WEIGHT_T1)
+                                          RIGID_NET)
     from xpt_mde_tpu_torch.data import SyntheticDataset
-    from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.tools.profile_steps import STEREO_KEYS, uint8_coded
 
     keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
@@ -1585,11 +1918,7 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
                       for b in dataset]
     mono_batches = [{k: v for k, v in b.items() if not k.endswith("_R") and k != "stereo_T_LR"}
                     for b in stereo_batches]
-    check = SyntheticDataset(batch_size=CHECK_BATCH, height=ZOO_CHECK_SIZE[0],
-                             width=ZOO_CHECK_SIZE[1], num_batches=1, seed=30)
-    check_feats = {k: torch.from_numpy(v) for k, v in next(iter(check)).items()}
-    check_feats["image5d"] = (check_feats["image5d"] + 1.0) * 127.5
-    check_loss = loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False, batch_size=CHECK_BATCH)
+    checks = _zoo_checks()
     k1_ms = kstats["K1"]["ms"] + kstats["K1-bwd"]["ms"]
     total = dict.fromkeys(counts(), 0)
 
@@ -1616,12 +1945,10 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
               f"their share of the device's busy time), loss {r['loss']:.6f} {tag}", flush=True)
         rows.append((name, r))
         t0 = time.perf_counter()
-        image = check_feats["image5d"][:, -1].permute(0, 3, 1, 2)
-        print(f"phase 29 zoo {_backbone_cross_check(name, image, device)}", flush=True)
-        _step_cross_check(29, f"zoo {name}", nets, keys, check_feats, device, check_loss,
-                          _set_pose_twist, ("depth_ms", "pose"), LOSS_TOL)
-        bf16 = _bf16_cross_check(name, nets, keys, check_feats, device, check_loss,
-                                 _set_pose_twist)
+        print(f"phase 29 zoo {_backbone_cross_check(checks[name], device)}", flush=True)
+        _, _, f32_runs = _step_cross_check(29, checks[name], device, ("depth_ms", "pose"),
+                                           LOSS_TOL, float64=False)
+        bf16 = _bf16_cross_check(checks[name], device, f32_runs=f32_runs)
         print(f"phase 29 zoo bf16 cross-check (card bf16 vs card float32 held to CPU bf16 vs "
               f"CPU float32, ratios {BF16_MEDIAN_RATIO}/{BF16_MAX_RATIO}): {bf16}", flush=True)
         print(f"phase 29 zoo {name} cross-checks took {time.perf_counter() - t0:.1f} s",
@@ -1641,8 +1968,6 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
          {"frozen_nets": ["flownet"]}, {"K1": 8, "K1-bwd": 4, "K2-bf16": 5}),
         ("grad_accum_steps=2", RIGID_NET, keys, False, RECIPE, mono_batches,
          {"grad_accum_steps": 2}, {"K1": 8, "K1-bwd": 8}),
-        ("NASNetLarge", {"depth": "NASNetLarge", "camera": "PoseNetImproved"}, keys, False,
-         RECIPE, mono_batches, {}, {"K1": 4, "K1-bwd": 4}),
         ("NASNetLarge remat_backbone", {"depth": "NASNetLarge", "camera": "PoseNetImproved"},
          keys, False, RECIPE, mono_batches, {"remat_backbone": True}, {"K1": 4, "K1-bwd": 4})]
     extra = {}
@@ -1659,7 +1984,8 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
               f"{HEIGHT}x{WIDTH}): elapsed {r['elapsed_ms']:.2f} ms/step, {r['images_s']:.2f} "
               f"images/s, max_memory_allocated {r['peak'] / 2**30:.3f} GiB, launches per step "
               f"{json.dumps(per_step)}, loss {r['loss']:.6f} {tag}", flush=True)
-    plain, remat = extra["NASNetLarge"]["peak"], extra["NASNetLarge remat_backbone"]["peak"]
+    # the plain NASNetLarge step is the backbone loop's, the same step
+    plain, remat = dict(rows)["NASNetLarge"]["peak"], extra["NASNetLarge remat_backbone"]["peak"]
     if not remat < plain:
         raise AssertionError(f"NASNetLarge peak with remat {remat} not below {plain}")
     summary = (f"{len(rows)} backbones at batch {BATCH} {HEIGHT}x{WIDTH} bf16, elapsed ms/step "
@@ -1669,6 +1995,290 @@ def _zoo_phase(device, counts, zero_counts, kstats, tag):
                f"{extra['grad_accum_steps=2']['per_step']['K1']:g} a step; md2cmb joint K2-bf16 "
                f"{extra['joint md2cmb']['per_step']['K2-bf16']:g} a step")
     return total, summary
+
+
+TRAIN_MAIN_DRIVER = """
+import json, os, sys
+import torch
+from xpt_mde_tpu_torch.config import (RIGID_NET, SCALE_WEIGHT_T1, Config, TestStage,
+                                      TrainStage)
+from xpt_mde_tpu_torch.parallel import initialize, make_mesh
+from xpt_mde_tpu_torch.parallel.multihost import local_device
+from xpt_mde_tpu_torch.scripts import train_main
+from xpt_mde_tpu_torch.tools.check_learns import kernel_launches
+from xpt_mde_tpu_torch.tools.ddp_check import rank_steps
+
+root, world, rank = sys.argv[1], int(sys.argv[2]), os.environ["RANK"]
+cfg = Config(stereo=False, per_replica_batch=8 // world, mesh_shape={"data": world},
+             datapath=root, ckpt_name="dp", pretrained_weight=False,
+             training_plan=[TrainStage(RIGID_NET, "synthetic", 1, 1e-4,
+                                       json.loads(sys.argv[3]), SCALE_WEIGHT_T1)],
+             test_plan=[TestStage(RIGID_NET, "synthetic", ["depth", "pose"], "dp")])
+# the step cases over this group first; train_main then joins it and ends it
+initialize(local_device())
+spec = torch.load(f"{root}/cases.pt", weights_only=False)
+torch.save(rank_steps(make_mesh(cfg.mesh_shape), spec["cases"], spec["steps"]),
+           f"{root}/steps_rank{rank}.pt")
+before = kernel_launches()
+train_main.main(cfg)
+after = kernel_launches()
+with open(f"{root}/launches_rank{rank}.json", "w") as f:
+    json.dump({k: after[k] - before[k] for k in after}, f)
+"""
+
+
+def _under_torchrun(cases: list, steps: list, tag) -> tuple[list, dict, str]:
+    """Phase 30 (a): one process a card under torchrun over NCCL: the step
+    cases (``ddp_check.rank_steps``), then ``train_main`` on a one-row
+    rigid plan and its predictions. Returns (each case's results in rank
+    order, rank 0's plan launches, a summary)."""
+    import torch
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as root:
+        write_synthetic_shards(Path(root) / "shards", HEIGHT, WIDTH,
+                               {"train": 16, "val": 8, "test": 8})
+        torch.save({"cases": cases, "steps": steps}, Path(root) / "cases.pt")
+        driver = Path(root) / "driver.py"
+        driver.write_text(TRAIN_MAIN_DRIVER)
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               f"--nproc_per_node={world}", str(driver), root, str(world),
+                               json.dumps(RECIPE)],
+                              env=env, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"torchrun failed:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        ckpt = Path(root) / "checkpts" / "dp"
+        history = (ckpt / "history.csv").read_text().strip().splitlines()
+        if len(history) != 2 or not (ckpt / "depthnet_ep01.pt").exists():
+            raise AssertionError(f"train_main wrote history {history}")
+        if not (Path(root) / "prediction" / "dp" / "synthetic_latest.npz").exists():
+            raise AssertionError("train_main's predict_by_plan wrote no predictions")
+        launches = [json.loads((Path(root) / f"launches_rank{r}.json").read_text())
+                    for r in range(world)]
+        ranks = [torch.load(Path(root) / f"steps_rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    if any(r["K1"] == 0 or r["K1-bwd"] == 0 for r in launches):
+        raise AssertionError(f"the ranks' plan never launched K1 and K1-bwd: {launches}")
+    return ([[results[i] for results in ranks] for i in range(len(cases))], launches[0],
+            f"torchrun --standalone --nproc_per_node={world} over NCCL: the step cases, then "
+            f"train_main on one rigid row of 2 steps at batch 8 {HEIGHT}x{WIDTH} bf16 "
+            f"(history.csv {history[1].split(',')[:2]}) and predict on rank 0; {seconds:.1f} s "
+            f"for the command; the plan's launches in rank 0 {json.dumps(launches[0])} {tag}")
+
+
+def _ddp_phase(device, tag) -> tuple[dict, str]:
+    """Phase 30: returns ({path: each kernel's launches in rank 0}, a
+    summary)."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.config import FLOW_NET, RIGID_NET
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.tools import ddp_check
+    from xpt_mde_tpu_torch.tools.profile_steps import uint8_coded
+
+    dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH, num_batches=1,
+                               seed=31)
+    keys = dataset.config_keys()
+    batch = {k: v.numpy() for k, v in uint8_coded(
+        {k: torch.from_numpy(v) for k, v in next(iter(dataset)).items()}).items()}
+
+    def case(nets, recipe, prepare, dtype, **options):
+        model = ModelFactory(keys, nets, stereo=False, device=device).get_model()
+        prepare(model, device)
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        return ddp_check.StepCase(nets, keys, recipe, batch, state=state, lr=LR,
+                                  compute_dtype=dtype, **options)
+
+    flow = {"regularize_net": "flownet"}
+    cases = {"rigid float32": case(RIGID_NET, RECIPE, _set_pose_twist, "float32"),
+             "flow float32": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "float32", **flow),
+             "rigid bf16": case(RIGID_NET, RECIPE, _set_pose_twist, "bfloat16"),
+             "flow bf16": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "bfloat16", **flow)}
+    # float32: one checked step; bfloat16: a warm-up step, then the timed ones
+    steps = [1 if "float32" in name else DDP_TIMED_STEPS + 1 for name in cases]
+    singles = {name: ddp_check.single_step(c, device) if "float32" in name
+               else {"ms": _single_step_ms(c, device)} for name, c in cases.items()}
+    torch.cuda.empty_cache()
+
+    launches_by_path, notes = {}, []
+    t0 = time.perf_counter()
+    nccl, plan_launches, note = _under_torchrun(list(cases.values()), steps, tag)
+    launches_by_path["data parallel train_main (rank 0, the plan)"] = plan_launches
+    notes.append(note)
+    runs = {"nccl": (torch.cuda.device_count(), nccl, time.perf_counter() - t0)}
+    t0 = time.perf_counter()
+    gloo = ddp_check.ddp_steps(list(cases.values()), 2, "cuda", "gloo", workdir=_build_dir(),
+                               steps=steps)
+    runs["gloo"] = (2, gloo, time.perf_counter() - t0)
+    for backend, (world, results, seconds) in runs.items():
+        for (name, c), ranks in zip(cases.items(), results):
+            launches_by_path[f"data parallel {name} {backend} x{world} (rank 0, a step)"] = \
+                ranks[0]["launches"]
+            if "float32" in name:
+                d = ddp_check.compare(singles[name], ranks)
+                notes.append(f"{name} step, {world} rank(s) over {backend} vs one process: "
+                             + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in d.items()))
+                if not ddp_check.within_tolerance(d):
+                    raise AssertionError(f"{name} over {backend}: {d}")
+            else:
+                ms = [1e3 * t for t, _ in ranks[0]["timed"]]
+                reduce = [r for _, r in ranks[0]["timed"]]
+                notes.append(
+                    f"timing {name} step batch {BATCH} global {HEIGHT}x{WIDTH}, {world} rank(s) "
+                    f"over {backend}: {np.median(ms):.2f} ms a step (median of "
+                    f"{len(ms)}, host clock around a synchronize, rank 0), gradient all-reduce "
+                    f"{np.median(reduce):.2f} ms ({100 * np.median(reduce) / np.median(ms):.1f}%"
+                    f" of the step); one process {singles[name]['ms']:.2f} ms; launches a step "
+                    f"{json.dumps({k: v for k, v in ranks[0]['launches'].items() if v})} {tag}")
+        notes.append(f"{backend} ranks' command took {seconds:.1f} s")
+    return launches_by_path, "\n".join(f"phase 30 {n}" for n in notes)
+
+
+def _single_step_ms(case, device) -> float:
+    """Median ms of DDP_TIMED_STEPS one-process steps of ``case`` after a
+    warm-up one (host clock around a synchronize, as the ranks time)."""
+    import numpy as np
+    import torch
+
+    from xpt_mde_tpu_torch.tools.ddp_check import _build, _generator
+    from xpt_mde_tpu_torch.training import make_train_step
+    from xpt_mde_tpu_torch.training.train_step import features_to_device
+
+    model, loss, optimizer, augmenter = _build(case, device)
+    step = make_train_step(model, loss, optimizer, augmenter=augmenter,
+                           regularize_net=case.regularize_net)
+    features = features_to_device(case.batch, device)
+    times = []
+    for _ in range(DDP_TIMED_STEPS + 1):
+        t0 = time.perf_counter()
+        step(features, _generator(case))
+        torch.cuda.synchronize(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[1:]))
+
+
+SERVING_CHECK = """
+import json, sys, time
+for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu", "xpt_mde_tpu_torch.models",
+             "xpt_mde_tpu_torch.training"):
+    sys.modules[name] = None
+import torch
+from xpt_mde_tpu_torch.ops.kernels.correlation import kernels_for
+from xpt_mde_tpu_torch.serving import load_predictor
+
+kernels = [*kernels_for(torch.float32), *kernels_for(torch.bfloat16)]
+cases = torch.load(sys.argv[1], weights_only=False)
+out = {}
+for name, case in cases.items():
+    t0 = time.perf_counter()
+    predictor = load_predictor(case["dir"])
+    load_s = time.perf_counter() - t0
+    inputs = {k: v.cuda() for k, v in case["inputs"].items()}
+    for k in kernels:
+        k.launches = 0
+    got = predictor(inputs)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    errs = {}
+    for key, want in case["want"].items():
+        pairs = zip(got[key], want) if isinstance(want, list) else [(got[key], want)]
+        errs[key] = max(float((g.float().cpu() - w.float()).abs().max()
+                              / w.float().abs().max().clamp_min(1e-12)) for g, w in pairs)
+    bad = {k: v[:, :, :-8] for k, v in inputs.items()}
+    try:
+        predictor(bad)
+        raised = False
+    except ValueError:
+        raised = True
+    for _ in range(3):
+        predictor(inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(case["calls"]):
+        predictor(inputs)
+    torch.cuda.synchronize()
+    rate = case["calls"] * case["batch"] / (time.perf_counter() - t0)
+    out[name] = {"load_s": load_s, "launches": launches, "rel_err": errs,
+                 "wrong_shape_raises": raised, "images_s": rate}
+assert all(sys.modules.get(m) is None for m in ("jax", "xpt_mde_tpu", "xpt_mde_tpu_torch.models"))
+print("SERVING " + json.dumps(out))
+"""
+
+
+def _serving_phase(device, tag) -> tuple[dict, str]:
+    """Phase 31: returns ({artifact: launches a call}, a summary)."""
+    import torch
+
+    from xpt_mde_tpu_torch.config import FLOW_NET, RIGID_NET
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.serving import export_predictor
+    from xpt_mde_tpu_torch.tools.profile_steps import uint8_coded
+    from xpt_mde_tpu_torch.training import make_predict_step
+
+    dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH, num_batches=1,
+                               seed=32)
+    keys = dataset.config_keys()
+    image = uint8_coded({"image5d": torch.from_numpy(next(iter(dataset))["image5d"])})
+    inputs = {"image5d": image["image5d"].to(device)}
+    cases, notes = {}, []
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as root:
+        for name, nets, dtype in (("rigid bf16", RIGID_NET, "bfloat16"),
+                                  ("flow bf16", FLOW_NET, "bfloat16"),
+                                  ("flow float32", FLOW_NET, "float32")):
+            model = ModelFactory(keys, nets, stereo=False, compute_dtype=dtype,
+                                 device=device).get_model()
+            predict = make_predict_step(model)
+            want = predict(inputs)
+            live_rate = BATCH * SERVE_TIMED_CALLS / (
+                _event_ms(lambda: predict(inputs), SERVE_TIMED_CALLS) * SERVE_TIMED_CALLS / 1e3)
+            t0 = time.perf_counter()
+            out = export_predictor(model, inputs, Path(root) / name.replace(" ", "_"))
+            export_s = time.perf_counter() - t0
+            size = sum(p.stat().st_size for p in out.iterdir())
+            cases[name] = {"dir": str(out), "inputs": {k: v.cpu() for k, v in inputs.items()},
+                           "want": {k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+                                    for k, v in want.items() if k != "debug_out"},
+                           "batch": BATCH, "calls": SERVE_TIMED_CALLS, "dtype": dtype,
+                           "export_s": export_s, "bytes": size, "live_images_s": live_rate}
+            del model, predict, want
+            torch.cuda.empty_cache()
+        spec = Path(root) / "cases.pt"
+        torch.save(cases, spec)
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        proc = subprocess.run([sys.executable, "-c", SERVING_CHECK, str(spec)], env=env,
+                              capture_output=True, text=True, timeout=600)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("SERVING ")]
+    if proc.returncode != 0 or not line:
+        raise RuntimeError(f"the artifacts' check failed:\n{proc.stderr[-3000:]}")
+    results = json.loads(line[0][len("SERVING "):])
+    per_call = {}
+    for name, r in results.items():
+        c = cases[name]
+        rtol = SERVE_RTOL[c["dtype"]]
+        notes.append(
+            f"{name} artifact (batch {BATCH} uint8 {HEIGHT}x{WIDTH}): exported in "
+            f"{c['export_s']:.1f} s, {c['bytes']} bytes, loaded in {r['load_s']:.1f} s in an "
+            f"interpreter without JAX or the model code; largest difference from the live "
+            f"predict step over the largest value {json.dumps(r['rel_err'])} <= {rtol}; "
+            f"launches a call {json.dumps(r['launches'])}; wrong shape raises ValueError "
+            f"{r['wrong_shape_raises']}; {r['images_s']:.1f} images/s (live predict step "
+            f"{c['live_images_s']:.1f}) {tag}")
+        if max(r["rel_err"].values()) > rtol or not r["wrong_shape_raises"]:
+            raise AssertionError(f"{name} artifact: {r}")
+        kernel = {"flow bf16": "K2-bf16", "flow float32": "K2"}.get(name)
+        if kernel is not None and r["launches"].get(kernel, 0) <= 0:
+            raise AssertionError(f"{name} artifact never launched {kernel}: {r['launches']}")
+        per_call[f"serving {name} artifact (a call)"] = r["launches"]
+    return per_call, "\n".join(f"phase 31 {n}" for n in notes)
 
 
 def _timed_rounds(step, step_batches, rounds, steps):
@@ -1906,37 +2516,49 @@ def _ratio_rule(card, cpu, label):
     return f"{label} median {med[0]:.3g} (CPU {med[1]:.3g}), max {top[0]:.3g} (CPU {top[1]:.3g})"
 
 
-def _bf16_cross_check(label, nets, keys, feats, device, loss, prepare, step_kwargs=None):
-    """Phase 23 for one stage: one train step in bfloat16 and one in
-    float32, on the card and on the CPU, from the same seeded weights
-    (``prepare`` sets the heads' biases) on ``feats``, no augmentation;
-    the card's bfloat16-vs-float32 distances held to the CPU's by
-    ``_ratio_rule``. Returns a summary."""
+def _bf16_cross_check(check, device, f32_runs=None):
+    """Phase 23 for one stage: one train step of ``check`` in bfloat16 and
+    one in float32, on the card and on the CPU (from ``_CPU_RUNS``), from
+    the same seeded weights (``check.prepare`` sets the heads' biases), no
+    augmentation; the card's bfloat16-vs-float32 distances held to the
+    CPU's by ``_ratio_rule``. ``f32_runs``: the float32 steps of
+    ``_step_cross_check`` on the same inputs, not run again. Returns a
+    summary."""
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import make_train_step, optimizer_factory
 
-    runs = {}
-    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        for dtype in ("bfloat16", "float32"):
-            model = ModelFactory(keys, nets, stereo=False, compute_dtype=dtype, device=dev,
-                                 seed=0).get_model()
-            prepare(model, dev)
-            step = make_train_step(model, loss, optimizer_factory("adam_constant", LR, model),
-                                   **(step_kwargs or {}))
-            metrics = step({k: v.to(dev) for k, v in feats.items()})
-            if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
-                raise AssertionError(f"{label} {dtype} on {dev}: non-finite metrics")
-            if any(p.dtype != torch.float32 for p in model.parameters()):
-                raise AssertionError(f"{label} {dtype}: a parameter is not float32")
-            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
-                     if p.grad is not None}
-            stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
-                     if k.endswith(("running_mean", "running_var"))}
-            runs[where, dtype] = ({k: float(v) for k, v in metrics.items()
-                                      if k.startswith("loss")}, grads, stats)
+    label = check.label
+    runs = dict(f32_runs or {})
+    for dtype in ("bfloat16", "float32"):
+        if ("card", dtype) not in runs:
+            model = _seeded_model(check.keys, check.nets, device, dtype)
+            check.prepare(model, device)
+            step = make_train_step(model, check.loss,
+                                   optimizer_factory("adam_constant", LR, model),
+                                   **check.step_kwargs)
+            metrics = step({k: v.to(device) for k, v in check.tensors().items()})
+            runs["card", dtype] = {
+                "metrics": metrics, "float32_params": all(p.dtype == torch.float32
+                                                          for p in model.parameters()),
+                "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                          if p.grad is not None},
+                "stats": {k: v.detach().cpu() for k, v in model.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}}
+        if ("cpu", dtype) not in runs:
+            runs["cpu", dtype] = _cpu_run(check, dtype)
+            _check_digest(f"{label} {dtype}", runs["cpu", dtype]["digest"],
+                          _prepared_state(check, dtype))
+    for key, run in runs.items():
+        if isinstance(run, tuple):  # from f32_runs
+            continue
+        if not all(bool(torch.isfinite(v).all()) for v in run["metrics"].values()):
+            raise AssertionError(f"{label} {key}: non-finite metrics")
+        if not run["float32_params"]:
+            raise AssertionError(f"{label} {key}: a parameter is not float32")
+        runs[key] = ({k: float(v) for k, v in run["metrics"].items() if k.startswith("loss")},
+                     _cast(run["grads"], torch.float64), _cast(run["stats"], torch.float64))
 
     def pair(where, part):
         return runs[where, "bfloat16"][part], runs[where, "float32"][part]
@@ -2107,7 +2729,18 @@ def main(argv=()) -> int:
         return {name: kernel.launches for name, kernel in all_kernels.items()}
 
     device = torch.device("cuda", 0)
-    phase = "device"
+    clock_state = {"name": None, "t": time.perf_counter()}
+
+    def clock(name):
+        """Print the seconds the phase before ``name`` took; return ``name``."""
+        now = time.perf_counter()
+        if clock_state["name"] is not None:
+            print(f"phase seconds: {clock_state['name']} {now - clock_state['t']:.1f} s",
+                  flush=True)
+        clock_state.update(name=name, t=now)
+        return name
+
+    phase = clock("device")
     # full float32 (TF32 off for cuBLAS and cuDNN) in every phase, so the
     # kernel checks and the GPU/CPU comparisons test float32 numerics
     try:
@@ -2119,7 +2752,49 @@ def main(argv=()) -> int:
             count = torch.cuda.device_count()
             print(f"phase 1 device: {name}, count {count}, nvidia-smi name/power.limit: {smi}",
                   flush=True)
-            phase = "build"
+            # the CPU workers of the cross-checks start first, beside the compilers
+            phase = clock("cross-checks' float64 runs queued")
+            _CPU_RUNS.start()
+            keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+            # stereo snippets in the kitti_raw schema; their left views are
+            # the mono snippets of the same seed
+            dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
+                                       num_batches=NUM_BATCHES, stereo=True, seed=0)
+            stereo_feature_keys = ["image5d", "intrinsic", "depth_gt", "pose_gt", "image5d_R",
+                                   "intrinsic_R", "stereo_T_LR"]
+            stereo_batches = [{k: b[k] for k in stereo_feature_keys} for b in dataset]
+            batches = [{k: b[k] for k in stereo_feature_keys[:4]} for b in stereo_batches]
+
+            # the cross-checked steps of phases 7, 11, 14 and 17 (and 23),
+            # on the first samples of batch 0, and phase 29's: their float64
+            # CPU runs queued now, in the order the checks take them
+            def first(source, n):
+                return {k: v[:n] for k, v in source[0].items()}
+
+            stereo_check = first(stereo_batches, CHECK_BATCH)
+            stereo_check["stereo_T_LR"] = np.array([CHECK_T_LR] * CHECK_BATCH, np.float32)
+            checks = {
+                "rigid": _Check("train", RIGID_NET, keys, first(batches, CHECK_BATCH),
+                                loss_factory(keys, RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                             batch_size=CHECK_BATCH), _set_pose_twist),
+                "flow": _Check("flow train", FLOW_NET, keys, first(batches, FLOW_CHECK_BATCH),
+                               loss_factory(keys, FLOW_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                            batch_size=FLOW_CHECK_BATCH), _set_flow_heads,
+                               {"regularize_net": "flownet"}),
+                "joint": _Check("joint train", JOINT_NET, keys, first(batches, CHECK_BATCH),
+                                loss_factory(keys, JOINT_RECIPE, SCALE_WEIGHT_T1, stereo=False,
+                                             batch_size=CHECK_BATCH), _set_pose_and_flow_heads,
+                                {"frozen_nets": ["flownet"]}),
+                "stereo": _Check("stereo train", RIGID_NET, STEREO_KEYS, stereo_check,
+                                 loss_factory(STEREO_KEYS, STEREO_RECIPE, SCALE_WEIGHT_T1,
+                                              batch_size=CHECK_BATCH), _set_pose_twist)}
+            for check in checks.values():
+                _CPU_RUNS.submit([((check.label, "float64"), _cpu_step, (check, "float64"))])
+            for check in _zoo_checks().values():
+                _CPU_RUNS.submit([((check.label, "backbone torch.float64"), _cpu_backbone,
+                                   (check, "float64"))])
+
+            phase = clock("build")
             t0 = time.perf_counter()
             # one nvcc per source, started together; the other entries of
             # each library then load the built file
@@ -2133,35 +2808,25 @@ def main(argv=()) -> int:
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             print(f"phase 1 build: K1, K1-bwd, K2, K3 and K4 (float32 and bfloat16) built in "
                   f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
-            phase = "SASS check"
+            phase = clock("SASS check")
             print(f"phase 1 SASS of the tensor-core kernels: "
                   f"{_sass_check(K2.library_path)}", flush=True)
 
             earlier, earlier_levels = {}, {}
             if args.earlier:
-                phase = "earlier kernels"
+                phase = clock("earlier kernels")
                 earlier, earlier_levels = _earlier_kernels(args.earlier, tag, device)
                 print(f"phase 1 earlier kernels ({args.earlier}), device ms per train step: "
                       f"{json.dumps(earlier)} {tag}", flush=True)
 
-            keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
-            # stereo snippets in the kitti_raw schema; their left views are
-            # the mono snippets of the same seed
-            dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH,
-                                       num_batches=NUM_BATCHES, stereo=True, seed=0)
-            stereo_feature_keys = ["image5d", "intrinsic", "depth_gt", "pose_gt", "image5d_R",
-                                   "intrinsic_R", "stereo_T_LR"]
-            stereo_batches = [{k: b[k] for k in stereo_feature_keys} for b in dataset]
-            batches = [{k: b[k] for k in stereo_feature_keys[:4]} for b in stereo_batches]
-
             # 2. the kernels against their plain versions, and their times
-            phase = "kernels vs plain"
+            phase = clock("kernels vs plain")
             kstats = _warp_phase(batches, device, np.random.RandomState(0), tag)
             n1_errs, n1_times = _cross_warp_check(stereo_batches[0], device,
                                                   np.random.RandomState(1), tag)
 
             # 3. predict, 4. eval: one path, its counts read from zero
-            phase = "predict"
+            phase = clock("predict")
             model = ModelFactory(keys, RIGID_NET, stereo=False, device=device, seed=0).get_model()
             init_state = copy.deepcopy(model.state_dict())
 
@@ -2193,7 +2858,7 @@ def main(argv=()) -> int:
                   f"{tuple(preds['depth_ms'][0].shape)}, pose {tuple(preds['pose'].shape)}, "
                   f"all finite", flush=True)
 
-            phase = "eval"
+            phase = clock("eval")
             gpu_metrics = []
             for features in gpu_batches:
                 before = K1.launches
@@ -2214,7 +2879,7 @@ def main(argv=()) -> int:
                   flush=True)
 
             # 5. the same eval step on the CPU: the plain warp and CPU convs
-            phase = "eval cross-check"
+            phase = clock("eval cross-check")
             cpu_model = copy.deepcopy(model).cpu()
             cpu_metrics = make_eval_step(cpu_model, total_loss)(
                 {k: torch.from_numpy(v) for k, v in batches[0].items()})
@@ -2224,7 +2889,7 @@ def main(argv=()) -> int:
                   f"{json.dumps({k: float(cpu_metrics[k]) for k in LOSS_TOL})}", flush=True)
 
             # 6. train: the rigid train path, its counts read from zero
-            phase = "train"
+            phase = clock("train")
             model.load_state_dict(init_state)
             optimizer = optimizer_factory("adam_constant", LR, model)
             train_step = make_train_step(model, total_loss, optimizer,
@@ -2257,19 +2922,16 @@ def main(argv=()) -> int:
                   f"statistic moved", flush=True)
 
             # 7. one train step on the card and on the CPU
-            phase = "train cross-check"
-            _train_cross_check(7, "train", RIGID_NET, keys,
-                               {k: torch.from_numpy(v[:CHECK_BATCH])
-                                for k, v in batches[0].items()},
-                               device, make_loss(CHECK_BATCH), _set_pose_twist,
-                               ("depth_ms", "pose"), LOSS_TOL)
+            phase = clock("train cross-check")
+            f32_runs = {"rigid": _train_cross_check(7, checks["rigid"], device,
+                                                    ("depth_ms", "pose"), LOSS_TOL)}
 
             # 8. the correlation kernels against their plain versions
-            phase = "correlation kernels vs plain"
+            phase = clock("correlation kernels vs plain")
             cstats = _corr_phase(device, tag)
 
             # 9. flow predict: its counts read from zero
-            phase = "flow predict"
+            phase = clock("flow predict")
             flow_model = ModelFactory(keys, FLOW_NET, stereo=False, device=device,
                                       seed=0).get_model()
             flow_init = copy.deepcopy(flow_model.state_dict())
@@ -2298,7 +2960,7 @@ def main(argv=()) -> int:
                   f"{json.dumps(flow_predict_counts)}", flush=True)
 
             # 10. flow train: the flow stage's train path, its counts read from zero
-            phase = "flow train"
+            phase = clock("flow train")
             flow_optimizer = optimizer_factory("adam_constant", LR, flow_model)
             flow_train = make_train_step(flow_model, make_flow_loss(BATCH), flow_optimizer,
                                          regularize_net="flownet")
@@ -2328,18 +2990,23 @@ def main(argv=()) -> int:
                   f"weight moved, metrics {json.dumps(flow_losses)}", flush=True)
 
             # 11. one flow train step on the card and on the CPU
-            phase = "flow train cross-check"
-            _train_cross_check(11, "flow train", FLOW_NET, keys,
-                               {k: torch.from_numpy(v[:FLOW_CHECK_BATCH])
-                                for k, v in batches[0].items()},
-                               device, make_flow_loss(FLOW_CHECK_BATCH), _set_flow_heads,
-                               ("flow_ms",), FLOW_LOSS_TOL, {"regularize_net": "flownet"})
+            phase = clock("flow train cross-check")
+            f32_runs["flow"] = _train_cross_check(11, checks["flow"], device, ("flow_ms",),
+                                                  FLOW_LOSS_TOL)
+
+            # the zoo's float64 runs in too: no timed phase shares the host
+            # with the workers
+            phase = clock("cross-checks' float64 runs")
+            print(f"phase 11 cross-checks' float64 runs: waited {_CPU_RUNS.drain():.1f} s for "
+                  f"the last of them", flush=True)
+            _CPU_RUNS.stop()
 
             # 12. step timings and peak memory
-            phase = "timings"
-            # the steps are host-bound: report the spread (5 rounds of 6
-            # steps, float32 and bfloat16 alike, keep the script near 400 s)
-            rounds, steps = 5, 6
+            phase = clock("timings")
+            # the steps are host-bound: report the spread (3 rounds of 2
+            # steps, float32 and bfloat16 alike: the script, phases 30-31
+            # with it, must stay well inside its 1200 s)
+            rounds, steps = 3, 2
             f32_rates = {}  # step: (median images/s, peak bytes), for the bf16 phase
             for label, step, step_batches, net, opt, opt_model in (
                     ("predict", predict_step, gpu_batches, "B5", None, None),
@@ -2385,7 +3052,7 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
 
             # 13. joint train: its counts read from zero
-            phase = "joint train"
+            phase = clock("joint train")
             joint_model = ModelFactory(keys, JOINT_NET, stereo=False, device=device,
                                        seed=0).get_model()
             flow_before = copy.deepcopy(joint_model.flownet.state_dict())
@@ -2433,17 +3100,14 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
 
             # 14. one joint train step on the card and on the CPU
-            phase = "joint train cross-check"
-            _train_cross_check(14, "joint train", JOINT_NET, keys,
-                               {k: torch.from_numpy(v[:CHECK_BATCH])
-                                for k, v in batches[0].items()},
-                               device, make_joint_loss(CHECK_BATCH), _set_pose_and_flow_heads,
-                               ("depth_ms", "pose"), JOINT_LOSS_TOL,
-                               {"frozen_nets": ["flownet"]}, fixed_keys=("flow_ms",),
-                               loss_grad_rule=JOINT_LOSS_GRAD_RULE)
+            phase = clock("joint train cross-check")
+            f32_runs["joint"] = _train_cross_check(14, checks["joint"], device,
+                                                   ("depth_ms", "pose"), JOINT_LOSS_TOL,
+                                                   fixed_keys=("flow_ms",),
+                                                   loss_grad_rule=JOINT_LOSS_GRAD_RULE)
 
             # 15. the plan: the slice's main path, its counts read from zero
-            phase = "plan"
+            phase = clock("plan")
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 plan_counts, plan_note = _plan_phase(workdir, device, counts, zero_counts,
                                                      tag)
@@ -2453,7 +3117,7 @@ def main(argv=()) -> int:
             print(f"phase 15 plan: {plan_note}; launches {json.dumps(plan_counts)}", flush=True)
 
             # 16. stereo train: the MS recipe, its counts read from zero
-            phase = "stereo train"
+            phase = clock("stereo train")
             stereo_gpu = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
                           for b in stereo_batches]
             stereo_train_batches = [uint8_coded(b) for b in stereo_gpu]
@@ -2510,17 +3174,13 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
 
             # 17. one stereo train step on the card and on the CPU
-            phase = "stereo train cross-check"
-            check_feats = {k: torch.from_numpy(v[:CHECK_BATCH])
-                           for k, v in stereo_batches[0].items()}
-            check_feats["stereo_T_LR"] = torch.tensor([CHECK_T_LR] * CHECK_BATCH)
-            _train_cross_check(17, "stereo train", RIGID_NET, STEREO_KEYS, check_feats, device,
-                               make_stereo_loss(STEREO_RECIPE, CHECK_BATCH), _set_pose_twist,
-                               ("depth_ms", "pose", "depth_ms_R", "pose_R", "pose_LR",
-                                "pose_RL"), STEREO_LOSS_TOL)
+            phase = clock("stereo train cross-check")
+            f32_runs["stereo"] = _train_cross_check(
+                17, checks["stereo"], device, ("depth_ms", "pose", "depth_ms_R", "pose_R",
+                                               "pose_LR", "pose_RL"), STEREO_LOSS_TOL)
 
             # 18. stereo joint train: LOSS_RIGID_COMB, the flownet frozen
-            phase = "stereo joint train"
+            phase = clock("stereo joint train")
             stereo_joint = ModelFactory(STEREO_KEYS, JOINT_NET, device=device, seed=0).get_model()
             flow_before = copy.deepcopy(stereo_joint.flownet.state_dict())
             stereo_joint_train = make_train_step(
@@ -2544,7 +3204,7 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
 
             # 19. the stereo flow row's step: LOSS_FLOW in full
-            phase = "stereo flow train"
+            phase = clock("stereo flow train")
             stereo_flow = ModelFactory(STEREO_KEYS, FLOW_NET, device=device, seed=0).get_model()
             stereo_flow_train = make_train_step(
                 stereo_flow, make_stereo_loss(LOSS_FLOW, BATCH),
@@ -2559,7 +3219,7 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
 
             # 20. the stereo plan, its counts read from zero
-            phase = "stereo plan"
+            phase = clock("stereo plan")
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 stereo_plan_counts, stereo_note = _stereo_plan_phase(
                     workdir, device, counts, zero_counts, tag)
@@ -2574,7 +3234,7 @@ def main(argv=()) -> int:
                             "stereo plan": stereo_plan_counts}
 
             # 21. the bfloat16 correlation kernels against their plain versions
-            phase = "bf16 correlation kernels vs plain"
+            phase = clock("bf16 correlation kernels vs plain")
             cstats16 = _corr_phase(device, tag, torch.bfloat16, cstats, earlier_levels)
             print("timing bf16 vs float32 correlation kernels, device ms per flow train step "
                   "(5 levels, graph replay, this call): " + "; ".join(
@@ -2586,35 +3246,24 @@ def main(argv=()) -> int:
                       for k in ("K2", "K3", "K4")) + f" {tag}", flush=True)
 
             # 22. the bfloat16 steps at full width, each path's counts read from zero
-            phase = "bf16 steps"
+            phase = clock("bf16 steps")
             bf16_per_step = _bf16_steps_phase(
                 device, {"mono": gpu_batches, "mono uint8": train_batches,
                          "stereo uint8": stereo_train_batches},
                 counts, zero_counts, all_kernels, f32_rates, rounds, steps, tag)
 
             # 23. one bfloat16 step of each stage against the float32 step, card and CPU
-            phase = "bf16 cross-check"
-            mono_check = {k: torch.from_numpy(v[:CHECK_BATCH]) for k, v in batches[0].items()}
-            notes = [
-                _bf16_cross_check("rigid", RIGID_NET, keys, mono_check, device,
-                                  make_loss(CHECK_BATCH), _set_pose_twist),
-                _bf16_cross_check("flow", FLOW_NET, keys,
-                                  {k: torch.from_numpy(v[:FLOW_CHECK_BATCH])
-                                   for k, v in batches[0].items()},
-                                  device, make_flow_loss(FLOW_CHECK_BATCH), _set_flow_heads,
-                                  {"regularize_net": "flownet"}),
-                _bf16_cross_check("joint", JOINT_NET, keys, mono_check, device,
-                                  make_joint_loss(CHECK_BATCH), _set_pose_and_flow_heads,
-                                  {"frozen_nets": ["flownet"]}),
-                _bf16_cross_check("stereo", RIGID_NET, STEREO_KEYS, check_feats, device,
-                                  make_stereo_loss(STEREO_RECIPE, CHECK_BATCH), _set_pose_twist)]
+            phase = clock("bf16 cross-check")
+            # the float32 steps of phases 7, 11, 14 and 17, on the same inputs
+            notes = [_bf16_cross_check(check, device, f32_runs.pop(stage))
+                     for stage, check in checks.items()]
             print(f"phase 23 bf16 cross-check (one step each at batch {CHECK_BATCH}, card bf16 "
                   f"vs card float32 held to CPU bf16 vs CPU float32, ratios "
                   f"{BF16_MEDIAN_RATIO}/{BF16_MAX_RATIO}): {' | '.join(notes)}", flush=True)
 
             # 24. the stereo plan at the default Config(), bfloat16, its
             # counts read from zero
-            phase = "bf16 stereo plan"
+            phase = clock("bf16 stereo plan")
             with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
                 bf16_plan_counts, bf16_note = _stereo_plan_phase(
                     workdir, device, counts, zero_counts, tag, compute_dtype=None)
@@ -2629,12 +3278,12 @@ def main(argv=()) -> int:
             bf16_paths["bf16 stereo plan"] = bf16_plan_counts
 
             # 25. the kernels at the miniature plan's shapes
-            phase = "kernels at the mini plan's shapes"
+            phase = clock("kernels at the mini plan's shapes")
             mini_errs = _mini_plan_kernels(device, tag)
 
             # 26, 27. the miniature plan learns: this slice's main path,
             # each dtype's counts read from zero
-            phase = "mini plan"
+            phase = clock("mini plan")
             t0 = time.perf_counter()
             learning = _learning_phase(device, counts, zero_counts, tag)
             mini_counts, bf16_mini_counts = learning["float32"][0], learning["bfloat16"][0]
@@ -2653,7 +3302,7 @@ def main(argv=()) -> int:
             # 28. the shard chain: the port's own shards, serially and over
             # the spawn pool, then a bfloat16 rigid row, predict and evaluate
             # on them, the counts read from zero
-            phase = "shard chain"
+            phase = clock("shard chain")
             t0 = time.perf_counter()
             shard_counts, shard_note = _shard_phase(device, counts, zero_counts, tag)
             print(f"phase 28 shard chain: {shard_note}; launches {json.dumps(shard_counts)}; "
@@ -2663,12 +3312,28 @@ def main(argv=()) -> int:
             # 29. the model zoo at full width: each other backbone's bf16
             # rigid step and its float32 cross-check, the other pose nets,
             # the md2/moa/md2cmb recipes, grad accumulation and remat
-            phase = "model zoo"
+            phase = clock("model zoo")
             t0 = time.perf_counter()
             zoo_counts, zoo_note = _zoo_phase(device, counts, zero_counts, kstats, tag)
             print(f"phase 29 model zoo: {zoo_note}; launches {json.dumps(zoo_counts)}; "
                   f"{time.perf_counter() - t0:.1f} s for the phase {tag}", flush=True)
             paths_f32["model zoo"] = zoo_counts
+
+            # 30. data parallel: train_main under torchrun, the two-rank and
+            # one-rank-a-card steps against the one-process step, timings
+            phase = clock("data parallel")
+            t0 = time.perf_counter()
+            ddp_paths, ddp_note = _ddp_phase(device, tag)
+            print(f"{ddp_note}\nphase 30 data parallel: {time.perf_counter() - t0:.1f} s for "
+                  f"the phase {tag}", flush=True)
+
+            # 31. serving: exported artifacts loaded without the model code
+            phase = clock("serving")
+            t0 = time.perf_counter()
+            serving_paths, serving_note = _serving_phase(device, tag)
+            print(f"{serving_note}\nphase 31 serving: {time.perf_counter() - t0:.1f} s for "
+                  f"the phase {tag}", flush=True)
+            extra_paths = ddp_paths | serving_paths
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
             # summed over the scales or levels; launches: the mini plan run's
@@ -2689,7 +3354,8 @@ def main(argv=()) -> int:
                                          "plan": plan_counts[kname]}
                     | {path: c[kname] for path, c in stereo_paths.items()}
                     | {path: c.get(kname, 0) for path, c in bf16_paths.items()}
-                    | {path: c[kname] for path, c in paths_f32.items()},
+                    | {path: c[kname] for path, c in paths_f32.items()}
+                    | {path: c.get(kname, 0) for path, c in extra_paths.items()},
                     "max_abs_err": max(s["err"], n1_errs[kname], mini_errs[kname]),
                     "ms": s["ms"],
                     "plain_ms": s["plain_ms"],
@@ -2711,7 +3377,8 @@ def main(argv=()) -> int:
                                          "joint train": joint_counts[kname],
                                          "plan": plan_counts[kname]}
                     | {path: c[kname] for path, c in stereo_paths.items()}
-                    | {path: c[kname] for path, c in paths_f32.items()},
+                    | {path: c[kname] for path, c in paths_f32.items()}
+                    | {path: c.get(kname, 0) for path, c in extra_paths.items()},
                     "max_abs_err": max(s["err"], mini_errs[kname]), "ms": s["ms"],
                     "plain_ms": s["plain_ms"],
                     "bound_ms": s["bound_ms"],
@@ -2732,7 +3399,8 @@ def main(argv=()) -> int:
                     "launches": bf16_mini_counts[bname],
                     "launches_by_path": {path: c.get(bname, 0)
                                          for path, c in bf16_paths.items()}
-                    | {path: c[bname] for path, c in paths_f32.items()},
+                    | {path: c[bname] for path, c in paths_f32.items()}
+                    | {path: c.get(bname, 0) for path, c in extra_paths.items()},
                     "max_abs_err": max(s["err"], mini_errs[bname]),
                     "max_err_of_bound": s["ulps"], "ms": s["ms"],
                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -2741,6 +3409,7 @@ def main(argv=()) -> int:
                     "library": "none: no single PyTorch call computes the cost volume",
                     "float32_ms": cstats[kname]["ms"], "earlier_ms": earlier.get(bname)}
                     | ({"design": TENSOR_CORE_DESIGN} if bname in TENSOR_CORE_KERNELS else {}))
+            clock("report")
             print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s {tag}",
                   flush=True)
             print(json.dumps({"kernels": report}), flush=True)
@@ -2749,6 +3418,8 @@ def main(argv=()) -> int:
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
         traceback.print_exc()
         return 1
+    finally:
+        _CPU_RUNS.stop()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

@@ -17,6 +17,7 @@ import chip_smoke
 from xpt_mde_tpu.training.logger import TrainingLogger as JTrainingLogger
 from xpt_mde_tpu_torch.config import (AUGMENT_PROBS, SCALE_WEIGHT_T1, Config, TrainStage)
 from xpt_mde_tpu_torch.models import ModelFactory
+from xpt_mde_tpu_torch.parallel import Mesh, make_mesh
 from xpt_mde_tpu_torch.training import optimizer_factory
 from xpt_mde_tpu_torch.training.checkpoint import CheckpointManager, snapshot_config
 from xpt_mde_tpu_torch.training.logger import TrainingLogger
@@ -141,9 +142,14 @@ def test_config_drift_and_unported_modes_raise(tmp_path):
     with pytest.raises(WrongInputError, match="depth_activation"):
         snapshot_config(tmp_path, _cfg(tmp_path, PLAN, depth_activation="Exponential")
                         .to_json_dict())
-    for kw in (dict(train_mode="distributed"), dict(mesh_shape={"data": 2})):
+    # the data mesh is ported (test_torch_parallel.py, test_torch_multihost.py);
+    # the height-sharded mesh is not, and a global batch must divide by the ranks
+    for shape in ({"data": 1, "spatial": 2}, {"data": 1, "model": 2}):
         with pytest.raises(NotImplementedError, match="item 7"):
-            train_by_plan(_cfg(tmp_path, PLAN, **kw), device="cpu")
+            make_mesh(_cfg(tmp_path, PLAN, mesh_shape=shape).mesh_shape, device="cpu")
+    with pytest.raises(ValueError, match="must divide by the world size"):
+        train_by_plan(_cfg(tmp_path, PLAN), device="cpu",
+                      mesh=Mesh(None, 0, 3, torch.device("cpu")))
 
 
 class _Preempted(RuntimeError):

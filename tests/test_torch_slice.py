@@ -12,6 +12,7 @@ add the ~1e-5 reprojection error of test_torch_warp.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -497,3 +498,80 @@ def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert rc != 0
     assert '"ok": true' not in out
+
+
+SCALE_OUT_DRIVER = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)  # the test workers beside it share the cores
+from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1, Config, TestStage, TrainStage
+
+NETS = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+
+
+def cfg(root, world):
+    return Config(stereo=False, per_replica_batch=4 // world, mesh_shape={"data": world},
+                  datapath=root, ckpt_name="so", pretrained_weight=False,
+                  compute_dtype="float32", loader_workers=1,
+                  training_plan=[TrainStage(NETS, "synthetic", 1, 1e-4, {"L1": 1.0},
+                                            SCALE_WEIGHT_T1)],
+                  test_plan=[TestStage(NETS, "synthetic", ["depth"], "so")])
+
+
+def serve_and_step(root):
+    from xpt_mde_tpu_torch.scripts import export_serving_main
+    from xpt_mde_tpu_torch.serving import load_predictor
+    from xpt_mde_tpu_torch.tools import ddp_check
+
+    written = export_serving_main.main(cfg(root, 1), device="cpu")
+    assert [p.name for p in written] == ["serving_synthetic_latest"], written
+    assert export_serving_main.main(cfg(root, 1), device="cpu") == []  # exists: skipped
+    predictor = load_predictor(written[0])
+    spec = predictor.meta["input_spec"]
+    assert spec["image5d"]["dtype"] == "uint8" and spec["image5d"]["shape"][0] == 4
+    feats = {k: np.zeros(v["shape"], v["dtype"]) for k, v in spec.items()}
+    assert bool(torch.isfinite(predictor(feats)["depth_ms"][0]).all())
+    case = ddp_check.b0_case(batch=4, height=64, width=128)
+    distances = ddp_check.compare(ddp_check.single_step(case), ddp_check.ddp_steps(
+        [case], 2, "cpu", workdir=root)[0])
+    assert distances["loss"] <= 1e-5 and distances["replicas"] == 0.0, distances
+    assert all(sys.modules.get(m) is None for m in ("jax", "flax", "optax", "xpt_mde_tpu"))
+    print("SCALE-OUT JAX-FREE OK")
+
+
+if __name__ == "__main__":
+    if sys.argv[2] == "train":  # under torchrun
+        from xpt_mde_tpu_torch.scripts import train_main
+        train_main.main(cfg(sys.argv[1], 2), device_type="cpu")
+        assert all(sys.modules.get(m) is None for m in ("jax", "xpt_mde_tpu"))
+    else:
+        serve_and_step(sys.argv[1])
+"""
+
+
+def test_scale_out_and_serving_run_with_jax_blocked(tmp_path):
+    """``train_main`` under torchrun with two gloo ranks on the CPU (a
+    one-row plan at 64x128, then predict_by_plan on rank 0), then
+    ``export_serving_main`` from its checkpoint, the artifact loaded and
+    run, and ``tools/ddp_check.py``'s two-rank step against one process,
+    all with jax/flax/optax and the JAX package made unimportable."""
+    chip_smoke.write_synthetic_shards(tmp_path / "shards", 64, 128,
+                                      {"train": 8, "val": 4, "test": 4})
+    driver = tmp_path / "driver.py"
+    driver.write_text(SCALE_OUT_DRIVER)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=2", str(driver), str(tmp_path), "train"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
+    ckpt = tmp_path / "checkpts" / "so"
+    assert (ckpt / "history.csv").read_text().count("\n") == 2  # the header and epoch 0
+    assert (tmp_path / "prediction" / "so" / "synthetic_latest.npz").exists()
+    proc = subprocess.run([sys.executable, str(driver), str(tmp_path), "serve"], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    shutil.rmtree(tmp_path / "checkpts")  # ~0.3 GB of checkpoints
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SCALE-OUT JAX-FREE OK" in proc.stdout

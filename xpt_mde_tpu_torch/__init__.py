@@ -30,7 +30,11 @@ and PWC-Net's cost volume as K2, with K3 and K4 for its gradient
 (``ops/kernels/correlation.py`` + ``csrc/correlation.cu``). The nets
 compute in ``Config.compute_dtype``: bfloat16 by default, as in the JAX
 package (float32 parameters, float32 heads and geometry, bfloat16 K2, K3
-and K4), or float32, the parity mode.
+and K4), or float32, the parity mode. ``parallel/`` trains over a data
+mesh of one process a card (``torch.distributed``; ``train_main`` under
+torchrun) with the JAX package's global-batch semantics, and ``serving/``
+exports the predict step as a ``torch.export`` artifact that loads
+without the model code.
 """
 
 __version__ = "0.1.0"

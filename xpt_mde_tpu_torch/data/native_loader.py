@@ -143,11 +143,11 @@ class NativeDatasetLoader(DatasetLoader):
     def __init__(self, shard_dir, batch_size: int, snippet_len: int = 5,
                  shuffle: bool = True, seed: int = 0, num_threads: int = 8,
                  process_index: int = 0, process_count: int = 1,
-                 raw_images: bool = False):
+                 raw_images: bool = False, microbatches: int = 1):
         self.native = NativeShardReader(shard_dir, num_threads)
         super().__init__(self.native.ds, batch_size, snippet_len, shuffle, seed,
                          process_index=process_index, process_count=process_count,
-                         raw_images=raw_images)
+                         raw_images=raw_images, microbatches=microbatches)
 
     def config_keys(self):
         return self.ds.keys()
@@ -323,12 +323,13 @@ class MultiWorkerLoader:
 def make_loader(shard_dir, batch_size: int, snippet_len: int = 5,
                 shuffle: bool = True, seed: int = 0, prefetch: int = 2,
                 process_index: int = 0, process_count: int = 1,
-                raw_images: bool = False, workers: int = 1):
+                raw_images: bool = False, workers: int = 1, microbatches: int = 1):
     """The native loader behind a prefetch thread (``workers > 1``: the
     multi-threaded one), else the numpy loader where the native library
     cannot be built. The result's ``kind`` is ``"native"`` or ``"numpy"``.
 
-    ``batch_size`` is per process; ``raw_images`` ships ``image5d`` as
+    ``batch_size`` is per process (``microbatches``: ``DatasetLoader``'s);
+    ``raw_images`` ships ``image5d`` as
     uint8, which the train, eval and predict steps decode on the device."""
     try:
         load_library()
@@ -336,12 +337,14 @@ def make_loader(shard_dir, batch_size: int, snippet_len: int = 5,
         print(f"[make_loader] native loader unavailable ({e}); numpy path")
         loader = DatasetLoader(ShardDataset(shard_dir), batch_size, snippet_len, shuffle,
                                seed, process_index=process_index,
-                               process_count=process_count, raw_images=raw_images)
+                               process_count=process_count, raw_images=raw_images,
+                               microbatches=microbatches)
     else:
         loader = NativeDatasetLoader(shard_dir, batch_size, snippet_len, shuffle, seed,
                                      num_threads=max(2, 8 // max(workers, 1)),
                                      process_index=process_index,
-                                     process_count=process_count, raw_images=raw_images)
+                                     process_count=process_count, raw_images=raw_images,
+                                     microbatches=microbatches)
         if workers > 1:
             return MultiWorkerLoader(loader, workers=workers,
                                      depth=max(2 * workers, prefetch))

@@ -207,6 +207,22 @@ class ShardDataset:
         return out
 
 
+def _microbatch_share(order: np.ndarray, rank: int, world: int, batch: int,
+                      microbatches: int) -> np.ndarray:
+    """Process ``rank``'s rows, step after step, of the global batches that
+    the ``world`` processes' strided slices of ``order`` make side by side:
+    its share of each global microbatch (``parallel.sharding.rank_rows``)."""
+    from xpt_mde_tpu_torch.parallel.sharding import rank_rows
+
+    shares = [order[q::world] for q in range(world)]
+    steps = min(len(share) for share in shares) // batch
+    if steps == 0:
+        return order[:0]
+    global_batches = np.stack([np.concatenate([share[i * batch: (i + 1) * batch]
+                                               for share in shares]) for i in range(steps)])
+    return global_batches[:, rank_rows(batch * world, world, rank, microbatches)].reshape(-1)
+
+
 class DatasetLoader:
     """Batched loader with shuffle/repeat/drop-remainder and host->device
     friendly output (float images in [-1, 1], image5d views).
@@ -220,10 +236,15 @@ class DatasetLoader:
     def __init__(self, dataset: ShardDataset, batch_size: int,
                  snippet_len: int = 5, shuffle: bool = True, seed: int = 0,
                  process_index: int = 0, process_count: int = 1,
-                 raw_images: bool = False):
+                 raw_images: bool = False, microbatches: int = 1):
         """``batch_size`` is the per-process batch. With several processes
         set (process_index, process_count) so each reads a disjoint slice
-        of the same shuffled order.
+        of the same shuffled order. The global batch is the processes'
+        batches side by side; with ``microbatches`` = k > 1 (a step that
+        accumulates k microbatches) each process reads instead its share
+        of each of that global batch's k contiguous microbatches
+        (``parallel.sharding.rank_rows``), so its i-th microbatch is its
+        share of the global i-th.
 
         ``raw_images`` yields ``image5d*`` as uint8 (decode happens on
         device in the train/eval/predict steps -- exact same math, 4x
@@ -237,6 +258,7 @@ class DatasetLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.raw_images = raw_images
+        self.microbatches = microbatches
 
     @property
     def steps_per_epoch(self) -> int:
@@ -283,6 +305,9 @@ class DatasetLoader:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(order)
         self.epoch += 1
+        if self.process_count > 1 and self.microbatches > 1:
+            return _microbatch_share(order, self.process_index, self.process_count,
+                                     self.batch_size, self.microbatches)
         if self.process_count > 1:
             order = order[self.process_index::self.process_count]
         return order

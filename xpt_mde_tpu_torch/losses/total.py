@@ -23,10 +23,12 @@ from __future__ import annotations
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
 from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
+from xpt_mde_tpu_torch.parallel.multihost import step_group
 from xpt_mde_tpu_torch.utils import se3
 from xpt_mde_tpu_torch.utils.image import multi_scale_like, resize_image
 
@@ -130,12 +132,25 @@ class MoALossMultiScale:
         return _merge_multi_scale(losses, self.scale_weights)
 
 
+def _global_sum(value: torch.Tensor) -> torch.Tensor:
+    """``value`` (no gradient) summed over the ranks of the enclosing
+    data-parallel step (``parallel.multihost.reducing_over``); itself
+    outside one."""
+    group = step_group()
+    if group is None:
+        return value
+    value = value.clone()
+    dist.all_reduce(value, group=group)
+    return value
+
+
 class MD2CombLossMultiScale:
     """The minimum over the sources with the flow's outliers excluded: a
     source's pixel whose static error exceeds twice the flow-warped
     view's error gets 1000 added; pixels whose minimum stays at or above
     1000 are dropped. Each sample's sum is divided by the valid pixels of
-    the WHOLE batch (the reference's ``count_nonzero``, kept as is)."""
+    the WHOLE batch (the reference's ``count_nonzero``, kept as is): in a
+    data-parallel step, of the global batch, summed over the ranks."""
 
     def __init__(self, method: str, scale_weights, key_suffix: str = ""):
         self.photo = PHOTOMETRIC_FNS[method]
@@ -154,7 +169,7 @@ class MD2CombLossMultiScale:
             outlier = (static > flow_loss * 2.0).to(static.dtype)
             static = torch.amin(static + outlier * 1000.0, dim=1)  # [B, H, W, C]
             keep = (static < 1000.0).to(static.dtype)
-            count = torch.clamp(torch.sum(keep), min=1.0)
+            count = torch.clamp(_global_sum(torch.sum(keep)), min=1.0)
             losses.append(torch.sum(static * keep, dim=(1, 2, 3)) / count)
         return _merge_multi_scale(losses, self.scale_weights)
 

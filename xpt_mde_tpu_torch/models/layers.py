@@ -24,8 +24,10 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from xpt_mde_tpu_torch.parallel.multihost import step_group
 from xpt_mde_tpu_torch.utils.image import resize_image, resize_nchw
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
@@ -220,7 +222,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     returns (as 1 / invstd^2 - eps). Inside :func:`fold_statistics_at_end`
     (the backbones' forwards) that update waits for the block's end, where
     all its BatchNorms fold theirs in together. Inside
-    :func:`frozen_statistics` nothing is folded in."""
+    :func:`frozen_statistics` nothing is folded in.
+
+    Inside a data-parallel step (``parallel.multihost.reducing_over`` a
+    group of several ranks) train mode takes the statistics of the GLOBAL
+    batch, as the JAX package's BatchNorm does on a batch sharded over a
+    mesh: the ranks' per-channel (count, mean, biased variance), in
+    float32 at least, are gathered by one all-reduce and combined, and
+    the global mean and biased variance normalize every rank's rows and
+    fold into every rank's running statistics; the backward sums its
+    per-channel terms over the ranks too (:class:`_GlobalBatchNorm`).
+    Outside one, or over a group of one, the paths above run unchanged."""
 
     # the batch statistics of the enclosing fold_statistics_at_end block
     _pending: list | None = None
@@ -241,6 +253,10 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(keep).add_(var, alpha=self.momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            group = step_group()
+            if group is not None:
+                return self._forward_global(x, group)
         if self.compute_dtype != torch.float32:
             return self._forward_f32_stats(x)
         if not self.training:
@@ -268,6 +284,63 @@ class BatchNorm2d(nn.BatchNorm2d):
                 var = invstd.detach().pow(-2).sub_(self.eps)
             self._update_running(mean.detach(), var)
         return out
+
+
+    def _forward_global(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Train mode over the ranks of ``group``: the statistics of the
+        global batch (see the class), the output in the compute dtype."""
+        x = to_compute(self.compute_dtype, x)
+        out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+        self._update_running(mean, var)
+        return out
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch norm over the global batch of a group's ranks, each holding
+    some of its rows, in float32 at least.
+
+    Forward: each rank's per-channel mean and biased variance (two
+    passes), gathered by one summing all-reduce of a row per rank and
+    combined exactly (Chan's formula). Backward, as a fused batch norm's:
+    with xhat the normalized input and N the global count,
+    dx = w invstd (dy - (S_dy + xhat S_dyx) / N), where S_dy and S_dyx,
+    the global sums of dy and dy xhat per channel, take one all-reduce;
+    the weight and bias get this rank's own sums, which the step's
+    gradient all-reduce adds up with the other ranks'."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = at_least_f32(x)
+        channels = xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        rows = xf.new_zeros(world, 2 * channels + 1)
+        rows[rank] = torch.cat([mean, var, mean.new_full((1,), xf.numel() // channels)])
+        dist.all_reduce(rows, group=group)
+        means, variances, counts = rows[:, :channels], rows[:, channels:-1], rows[:, -1:]
+        total = torch.sum(counts)
+        mean = torch.sum(counts * means, dim=0) / total
+        var = torch.sum(counts * (variances + torch.square(means - mean)), dim=0) / total
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, total)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        out = xhat * weight[:, None, None] + bias[:, None, None]
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_mean, _grad_var):
+        xhat, weight, invstd, total = ctx.saved_tensors
+        dy = at_least_f32(grad_out)
+        sum_dy = torch.sum(dy, dim=(0, 2, 3))
+        sum_dyx = torch.sum(dy * xhat, dim=(0, 2, 3))
+        sums = torch.cat([sum_dy, sum_dyx])
+        dist.all_reduce(sums, group=ctx.group)
+        glob_dy, glob_dyx = sums.chunk(2)
+        dx = (dy - (glob_dy[:, None, None] + xhat * glob_dyx[:, None, None]) / total) \
+            * (weight * invstd)[:, None, None]
+        return dx.to(grad_out.dtype), sum_dyx, sum_dy, None, None
 
 
 def batch_norm(channels: int, dtype: torch.dtype = torch.float32, eps: float = 1e-3,

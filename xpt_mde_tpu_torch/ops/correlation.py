@@ -10,8 +10,10 @@ counts as zero:
 The port works channel-first (NCHW), the layout of its convolutions and
 of the Pallas kernel; the JAX twin works channel-last. On a CUDA tensor
 the cost volume is :class:`~xpt_mde_tpu_torch.ops.kernels.correlation.
-Correlation` (kernel K2 forward, K3 and K4 backward); on a CPU tensor it
-is :func:`correlation_cost_plain` and its autograd. The plain versions of
+Correlation` (kernel K2 forward, K3 and K4 backward), or where no
+gradient is needed K2 alone through the registered operator
+``torch.ops.xpt_mde.correlation_cost``, which ``torch.export`` records; on
+a CPU tensor it is :func:`correlation_cost_plain` and its autograd. The plain versions of
 the three kernels, their oracles on the card, are
 :func:`correlation_cost_plain`, :func:`correlation_grad_cl_plain` and
 :func:`correlation_grad_cr_plain`; the autograd of the first is a second
@@ -109,7 +111,11 @@ def correlation_cost(cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
     """
     if cl.device.type == "cpu":
         return correlation_cost_plain(cl, cr, max_displacement, stride)
-    return Correlation.apply(cl.contiguous(), cr.contiguous(), max_displacement, stride)
+    cl, cr = cl.contiguous(), cr.contiguous()
+    if torch.is_grad_enabled() and (cl.requires_grad or cr.requires_grad):
+        return Correlation.apply(cl, cr, max_displacement, stride)
+    # no gradient (a predict step, an exported predictor): the operator alone
+    return torch.ops.xpt_mde.correlation_cost(cl, cr, max_displacement, stride)
 
 
 def correlation_channels(max_displacement: int, stride: int = 1) -> int:

@@ -11,7 +11,9 @@ entries and wrappers (``K2`` and ``K2_BF16``, ...), each with its own
 launch count; the bfloat16 kernels read and write bfloat16 in global
 memory, sum in float32, divide by C and round once. :class:`Correlation`
 joins them into one differentiable op and picks the kernels by the
-operands' dtype. The TPU's routing gate (``_pallas_pays``), its VMEM
+operands' dtype; its forward is the registered operator
+``xpt_mde::correlation_cost`` (:func:`correlation_cost_op`), which an
+exported predictor records and calls. The TPU's routing gate (``_pallas_pays``), its VMEM
 gates and the dy-row pre-slicing of its backward are not ported: every
 level takes these kernels.
 
@@ -891,20 +893,39 @@ def kernels_for(dtype: torch.dtype) -> tuple:
     raise ValueError(f"the correlation kernels take float32 or bfloat16, got {dtype}")
 
 
+@torch.library.custom_op("xpt_mde::correlation_cost", mutates_args=())
+def correlation_cost_op(cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
+                        stride: int) -> torch.Tensor:
+    """K2, or K2-bf16 on bfloat16 operands, as the registered operator
+    ``torch.ops.xpt_mde.correlation_cost``: ``torch.export`` records it in
+    a graph (a ctypes launch cannot be traced), and a loaded artifact calls
+    it, so its launches count as any other's. Forward only: the gradients
+    are :class:`Correlation`'s. Registered when this module is imported;
+    nothing is built until the first call."""
+    with torch.no_grad():
+        return kernels_for(cl.dtype)[0](cl, cr, max_displacement, stride)
+
+
+@correlation_cost_op.register_fake
+def _correlation_cost_shape(cl, cr, max_displacement, stride):
+    n = num_displacements(max_displacement, stride)
+    return cl.new_empty((cl.shape[0], n * n, cl.shape[2], cl.shape[3]))
+
+
 class Correlation(torch.autograd.Function):
-    """K2 forward; K3 and K4 backward, each only for an input that needs
-    its gradient: the float32 kernels on float32 operands, the bfloat16
-    ones on bfloat16 operands; other or mixed dtypes raise."""
+    """K2 forward (through :func:`correlation_cost_op`); K3 and K4
+    backward, each only for an input that needs its gradient: the float32
+    kernels on float32 operands, the bfloat16 ones on bfloat16 operands;
+    other or mixed dtypes raise."""
 
     @staticmethod
     def forward(ctx, cl, cr, max_displacement, stride):
         if cr.dtype != cl.dtype:
             raise ValueError(f"the correlation kernels take two feature maps of one dtype, "
                              f"got {cl.dtype} and {cr.dtype}")
-        k2 = kernels_for(cl.dtype)[0]
         ctx.save_for_backward(cl, cr)
         ctx.md_stride = (max_displacement, stride)
-        return k2(cl, cr, max_displacement, stride)
+        return torch.ops.xpt_mde.correlation_cost(cl, cr, max_displacement, stride)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -1,0 +1,400 @@
+"""The data-parallel step against the single-process step on the same
+global batch.
+
+``run_ranks`` starts W processes (``spawn``) that meet over a named backend
+(gloo, or NCCL with one card per rank) through a ``file://`` rendezvous in
+a work directory; each runs ``rank_steps`` or ``rank_plan`` and writes its
+result there. ``single_step`` is the one-process step on the whole batch,
+``compare`` the distances between them. A step case (``StepCase``) names
+the nets, the loss recipe, the step's options and the global batch, and
+carries the initial weights, so every rank and the single process start
+from the same ones.
+
+Both the CPU tests (``tests/test_torch_parallel.py``,
+``test_torch_multihost.py``) and ``chip_smoke.py`` drive it. From the
+repository root, on a machine with a card:
+
+    python -m xpt_mde_tpu_torch.tools.ddp_check --world 2 --backend gloo
+    python -m xpt_mde_tpu_torch.tools.ddp_check --world 2 --backend nccl   # 2 cards
+
+(EfficientNetB0 + PoseNetImproved at 64x128, batch 4: the rigid step;
+prints the distances and exits 1 past the stated tolerances.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+from typing import Callable, Mapping
+
+import numpy as np
+import torch
+
+# one data-parallel step against the single-process step, float32: the
+# same sums grouped by rank (each rank's convolutions on fewer rows, which
+# cuDNN may serve with other algorithms, the BatchNorm statistics combined
+# from the ranks', the gradients summed over them), so two float32 results
+# that each sit float32's distance from the exact step, which the
+# train-mode BatchNorms' backward amplifies: at most twice that distance
+# apart. On the card EfficientNetB5's float32 step sits a median 0.0136
+# (worst 0.028) from a float64 step (chip_smoke.py phase 7, batch 2; on
+# the CPU B0's at batch 4 ~1e-3 to 7e-3)
+LOSS_RTOL = 1e-4          # the loss and each term, relative
+GRAD_MEDIAN_RTOL = 0.03   # the gradient tensors' median distance, relative to norm
+GRAD_MAX_RTOL = 0.1       # each gradient tensor (chip_smoke.GRAD_MAX_RTOL)
+STAT_ATOL = 1e-4          # each running statistic (chip_smoke.BN_TOL's atol)
+PARAM_ATOL = 2e-4         # Adam's first step moves a weight by +-lr (1e-4): a sign
+
+
+@dataclasses.dataclass
+class StepCase:
+    """One train step's inputs, the same in every process.
+
+    :ivar batch: the global batch (numpy), uint8 or float images
+    :ivar state: the initial ``state_dict`` (CPU tensors); None: the
+        factory's seeded weights
+    :ivar generator_seed: the step's augmentation stream (every rank seeds
+        it alike); None: no augmentation
+    """
+
+    nets: dict
+    keys: list
+    recipe: dict
+    batch: dict
+    stereo: bool = False
+    grad_accum_steps: int = 1
+    frozen_nets: tuple = ()
+    regularize_net: str | None = None
+    compute_dtype: str = "float32"
+    lr: float = 1e-4
+    state: dict | None = None
+    augment_probs: dict | None = None
+    generator_seed: int | None = None
+    seed: int = 0
+
+    @property
+    def global_batch(self) -> int:
+        return len(next(iter(self.batch.values())))
+
+
+def _build(case: StepCase, device: torch.device):
+    """(model, loss, optimizer, augmenter) of ``case`` on ``device``."""
+    from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
+    from xpt_mde_tpu_torch.losses import loss_factory
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.training import augmentation_factory, optimizer_factory
+
+    model = ModelFactory(case.keys, case.nets, stereo=case.stereo,
+                         compute_dtype=case.compute_dtype, device=device,
+                         seed=case.seed).get_model()
+    if case.state is not None:
+        model.load_state_dict(case.state)
+    loss = loss_factory(case.keys, case.recipe, SCALE_WEIGHT_T1, stereo=case.stereo,
+                        batch_size=case.global_batch)
+    optimizer = optimizer_factory("adam_constant", case.lr, model,
+                                  frozen_nets=case.frozen_nets)
+    augmenter = augmentation_factory(case.augment_probs) if case.augment_probs else None
+    return model, loss, optimizer, augmenter
+
+
+def _generator(case: StepCase):
+    if case.generator_seed is None:
+        return None
+    return torch.Generator().manual_seed(case.generator_seed)
+
+
+def _result(model, metrics, seconds: float, **extra) -> dict:
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "grads": {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "seconds": seconds, **extra}
+
+
+def _spy_augmenter(augmenter, draws: list):
+    """Record each augmenter's drawn parameters as it draws them."""
+    for aug in getattr(augmenter, "augmenters", [augmenter]):
+        def draw(generator=None, _draw=aug.draw, _name=type(aug).__name__):
+            value = _draw(generator)
+            draws.append((_name, value))
+            return value
+        aug.draw = draw
+
+
+def single_step(case: StepCase, device: torch.device | str = "cpu",
+                dtype: torch.dtype = torch.float32) -> dict:
+    """The one-process step on the whole global batch; ``dtype=
+    torch.float64`` runs it in float64 (the model and the batch, its uint8
+    images decoded in float64), a reference for float32's rounding."""
+    from xpt_mde_tpu_torch.training import make_train_step
+    from xpt_mde_tpu_torch.training.train_step import features_to_device
+    from xpt_mde_tpu_torch.utils.precision import full_f32
+
+    device = torch.device(device)
+    with full_f32():
+        model, loss, optimizer, augmenter = _build(case, device)
+        features = features_to_device(case.batch, device)
+        if dtype == torch.float64:
+            model.double()
+            features = {k: v.double() for k, v in features.items()}
+            features.update({k: v * (2.0 / 255.0) - 1.0 for k, v in features.items()
+                             if k.startswith("image5d") and case.batch[k].dtype == np.uint8})
+        draws = []
+        if augmenter is not None:
+            _spy_augmenter(augmenter, draws)
+        step = make_train_step(model, loss, optimizer, augmenter=augmenter,
+                               frozen_nets=case.frozen_nets,
+                               regularize_net=case.regularize_net,
+                               grad_accum_steps=case.grad_accum_steps)
+        t0 = time.perf_counter()
+        metrics = step(features, _generator(case))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return _result(model, metrics, time.perf_counter() - t0, draws=draws)
+
+
+def rank_step(mesh, case: StepCase, steps: int = 1) -> dict:
+    """``steps`` data-parallel steps of ``case`` in this rank: the first
+    one's result with its kernel launches, and with more steps the
+    (seconds, gradient all-reduce ms) of each later one as ``timed``."""
+    from xpt_mde_tpu_torch.parallel import (local_rows, make_parallel_train_step,
+                                            replicate_state, shard_batch)
+    from xpt_mde_tpu_torch.tools.check_learns import kernel_launches
+    from xpt_mde_tpu_torch.utils.precision import full_f32
+
+    with full_f32():
+        model, loss, optimizer, augmenter = _build(case, mesh.device)
+        replicate_state(model, optimizer, mesh)
+        draws = []
+        if augmenter is not None:
+            _spy_augmenter(augmenter, draws)
+        step = make_parallel_train_step(model, loss, optimizer, mesh, augmenter=augmenter,
+                                        regularize_net=case.regularize_net,
+                                        frozen_nets=case.frozen_nets,
+                                        grad_accum_steps=case.grad_accum_steps)
+        features = shard_batch(local_rows(case.batch, mesh, case.grad_accum_steps), mesh)
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        metrics = step(features, _generator(case))
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        after = kernel_launches()
+        result = _result(model, metrics, time.perf_counter() - t0, draws=draws,
+                         reduce_ms=step.reduce_ms(), rank=mesh.rank,
+                         launches={k: after[k] - before[k] for k in after})
+        timed = []
+        for _ in range(steps - 1):
+            t0 = time.perf_counter()
+            step(features, _generator(case))
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            timed.append((time.perf_counter() - t0, step.reduce_ms()))
+        result["timed"] = timed
+        return result
+
+
+def rank_steps(mesh, cases: list, steps=1) -> list:
+    """:func:`rank_step` of each case in turn, in one group; ``steps`` for
+    every case, or a list of one count per case."""
+    counts = steps if isinstance(steps, (list, tuple)) else [steps] * len(cases)
+    return [rank_step(mesh, case, n) for case, n in zip(cases, counts)]
+
+
+def rank_plan(mesh, cfg, runs: int = 1) -> list:
+    """``train_by_plan(cfg)`` over ``mesh``, ``runs`` times (a second run
+    resumes and should find every row done). Returns, per run, how many
+    times this rank wrote the config snapshot, a checkpoint or a
+    history.csv row."""
+    from xpt_mde_tpu_torch.training import checkpoint, logger, trainer
+
+    counts = {}
+
+    def spy(owner, name):
+        original = getattr(owner, name)
+
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return original(*args, **kwargs)
+        setattr(owner, name, call)
+
+    spy(trainer, "snapshot_config")
+    for name in ("save", "save_midway"):
+        spy(checkpoint.CheckpointManager, name)
+    spy(logger.TrainingLogger, "save_log")
+    writes = []
+    for _ in range(runs):
+        counts.clear()
+        trainer.train_by_plan(cfg, mesh=mesh)
+        writes.append(dict(counts))
+    return writes
+
+
+def _rank_main(rank: int, world: int, device_type: str, backend: str | None, workdir: str,
+               fn: Callable, args: tuple, threads: int) -> None:
+    """One spawned rank: join the group, run ``fn(mesh, *args)``, save its
+    result (or the traceback) as ``rank{r}.pt`` in ``workdir``."""
+    torch.set_num_threads(threads)
+    out = Path(workdir) / f"rank{rank}.pt"
+    try:
+        import torch.distributed as dist
+
+        from xpt_mde_tpu_torch.parallel import initialize, make_mesh
+
+        device = torch.device(device_type, 0 if backend == "gloo" else rank) \
+            if device_type == "cuda" else torch.device("cpu")
+        initialize(device, rank, world, init_method=f"file://{Path(workdir) / 'rendezvous'}",
+                   backend=backend)
+        mesh = make_mesh({"data": world}, device=device)
+        result = fn(mesh, *args)
+        if dist.is_initialized():  # fn may have ended the group itself
+            dist.barrier()
+            dist.destroy_process_group()
+        torch.save({"ok": True, "result": result}, out)
+    except BaseException:  # reported by run_ranks in the parent
+        torch.save({"ok": False, "error": traceback.format_exc()}, out)
+        raise
+
+
+def run_ranks(fn: Callable, args: tuple, world: int, device_type: str = "cpu",
+              backend: str | None = None, workdir=None, threads: int = 2,
+              timeout_s: float = 600.0) -> list:
+    """``fn(mesh, *args)`` in ``world`` spawned ranks over ``backend``
+    (gloo on the CPU; on cards NCCL, one card per rank, or ``"gloo"``:
+    every rank on card 0). ``fn`` and ``args`` must pickle. Returns the
+    ranks' results in rank order; a rank that fails raises here with its
+    traceback."""
+    import multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_main, args=(r, world, device_type, backend, tmp,
+                                                      fn, args, threads))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join()
+        results = []
+        for r in range(world):
+            path = Path(tmp) / f"rank{r}.pt"
+            if not path.exists():
+                raise RuntimeError(f"rank {r} of {world} left no result (exit code "
+                                   f"{procs[r].exitcode}{', timed out' if hung else ''})")
+            saved = torch.load(path, weights_only=False)
+            if not saved["ok"]:
+                raise RuntimeError(f"rank {r} of {world} failed:\n{saved['error']}")
+            results.append(saved["result"])
+        return results
+
+
+def ddp_steps(cases: list, world: int, device_type: str = "cpu",
+              backend: str | None = None, workdir=None, steps=1) -> list:
+    """The data-parallel step of each case in ``world`` ranks (one group
+    for them all): for each case, the ranks' results in rank order."""
+    ranks = run_ranks(rank_steps, (cases, steps), world, device_type, backend, workdir)
+    return [[results[i] for results in ranks] for i in range(len(cases))]
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor, floor: float = 1e-6) -> float:
+    return float(torch.linalg.norm(a.double() - b.double())
+                 / max(float(torch.linalg.norm(b.double())), floor))
+
+
+def compare(single: Mapping, ranks: list) -> dict:
+    """The distances of the ranks' step from the single-process step:
+    ``loss`` (relative, worst term of the loss family; a term below 1e-4
+    of the loss relative to that), ``grad`` (worst
+    relative gradient, by tensor norm), ``grad_median``, ``stat`` (worst
+    running statistic, absolute), ``param`` (worst parameter, absolute),
+    ``replicas`` (the largest difference between ranks' states: 0 keeps
+    them in step) and ``draws_equal`` (every rank drew the single step's
+    augmentation)."""
+    first = ranks[0]
+    losses = [k for k in single["metrics"] if k == "loss" or k.startswith("loss/")]
+    # a term relative to itself, or to 1e-4 of the whole loss where it is
+    # smaller (a smoothness term of ~1e-6 carries no digits beyond that)
+    floor = 1e-4 * abs(single["metrics"]["loss"])
+    grads = {n: _rel(first["grads"][n], g) for n, g in single["grads"].items()}
+    stats = [k for k in single["state"] if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in single["state"] if k in single["grads"]]
+    return {
+        "loss": max(abs(first["metrics"][k] - single["metrics"][k])
+                    / max(abs(single["metrics"][k]), floor, 1e-12) for k in losses),
+        "metrics_equal_across_ranks": all(r["metrics"] == first["metrics"] for r in ranks),
+        "grad": max(grads.values()) if grads else 0.0,
+        "grad_median": float(np.median(list(grads.values()))) if grads else 0.0,
+        "grad_keys_equal": set(first["grads"]) == set(single["grads"]),
+        "stat": max((float((first["state"][k] - single["state"][k]).abs().max())
+                     for k in stats), default=0.0),
+        "param": max((float((first["state"][k] - single["state"][k]).abs().max())
+                      for k in params), default=0.0),
+        "replicas": max(float((r["state"][k].double() - first["state"][k].double())
+                              .abs().max()) for r in ranks[1:] for k in first["state"])
+        if len(ranks) > 1 else 0.0,
+        "draws_equal": all(r["draws"] == single["draws"] for r in ranks)}
+
+
+def within_tolerance(distances: Mapping) -> bool:
+    """The module's tolerances (LOSS_RTOL, ...) hold, the replicas are
+    equal and every rank drew the single step's augmentation."""
+    return (distances["loss"] <= LOSS_RTOL and distances["grad_median"] <= GRAD_MEDIAN_RTOL
+            and distances["grad"] <= GRAD_MAX_RTOL
+            and distances["stat"] <= STAT_ATOL and distances["param"] <= PARAM_ATOL
+            and distances["replicas"] == 0.0 and distances["grad_keys_equal"]
+            and distances["metrics_equal_across_ranks"] and distances["draws_equal"])
+
+
+# b0_case's pose: the seeded pose head predicts ~0, where every warped
+# pixel sits on a cell border of the bilinear warp and rounding flips the
+# synthesized views (chip_smoke.py's CHECK_TWIST, for the same reason)
+CHECK_TWIST = [0.3, 0.05, -0.1, 0.01, 0.02, -0.015]
+
+
+def b0_case(batch: int = 4, height: int = 64, width: int = 128, **options) -> StepCase:
+    """EfficientNetB0 + PoseNetImproved, the rigid recipe, on a synthetic
+    uint8 batch (seed 3), from the seeded weights with the pose head's
+    bias at CHECK_TWIST."""
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.models import ModelFactory
+
+    dataset = SyntheticDataset(batch_size=batch, height=height, width=width, num_batches=1,
+                               seed=3)
+    data = next(iter(dataset))
+    data["image5d"] = np.round((data["image5d"] + 1.0) * 127.5).astype(np.uint8)
+    nets = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+    model = ModelFactory(dataset.config_keys(), nets, stereo=False, device="cpu").get_model()
+    with torch.no_grad():
+        list(model.posenet.children())[-1].Conv_0.bias.copy_(
+            torch.tensor(CHECK_TWIST * model.posenet.numsrc))
+    return StepCase(nets, dataset.config_keys(), {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0},
+                    data, state=model.state_dict(), **options)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--world", type=int, default=2)
+    parser.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = parser.parse_args(argv)
+    case = b0_case()
+    single = single_step(case, args.device)
+    ranks = ddp_steps([case], args.world, args.device, args.backend)[0]
+    distances = compare(single, ranks)
+    print(f"ddp_check world {args.world} {args.backend} on {args.device}: {distances}")
+    return 0 if within_tolerance(distances) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

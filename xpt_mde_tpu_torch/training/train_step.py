@@ -72,7 +72,8 @@ def make_train_step(model: torch.nn.Module, total_loss,
                     optimizer: torch.optim.Optimizer, augmenter=None,
                     frozen_nets: Sequence[str] = (),
                     regularize_net: str | None = None,
-                    grad_accum_steps: int = 1) -> Callable:
+                    grad_accum_steps: int = 1,
+                    reduce_gradients: Callable[[], None] | None = None) -> Callable:
     """Train step: decode, augment, forward in train mode, ``total_loss``,
     backward, ``optimizer.step()``.
 
@@ -99,6 +100,9 @@ def make_train_step(model: torch.nn.Module, total_loss,
         batches of batch/k into its running ones), and the md2cmb terms
         count valid pixels per microbatch. The metrics: the loss terms
         summed over the microbatches, the others averaged
+    :param reduce_gradients: called once after the backward (of every
+        microbatch) and before the optimizer step: the data-parallel step's
+        cross-rank gradient sum (``parallel.sharding``)
     :return: ``step(features, generator=None) -> metrics``, the metrics of
         the train-mode forward (detached), as the JAX step reports them
     """
@@ -142,6 +146,8 @@ def make_train_step(model: torch.nn.Module, total_loss,
                     metrics = forward_backward(features)
                 else:
                     metrics = _accumulate(forward_backward, features, grad_accum_steps)
+                if reduce_gradients is not None:
+                    reduce_gradients()
                 optimizer.step()
                 return metrics
         finally:

@@ -1,4 +1,4 @@
-"""Plan-driven training on one card (port of ``xpt_mde_tpu.training.trainer``).
+"""Plan-driven training (port of ``xpt_mde_tpu.training.trainer``).
 
 ``train_by_plan`` walks ``Config.training_plan``: each row (nets, dataset,
 epochs, learning rate, loss recipe, scale weights, save_ckpt) runs its
@@ -16,12 +16,22 @@ Per epoch: train, validate, then the "latest" checkpoint, then the
 order: history.csv drives resume, so an epoch's weights are on disk
 before the log claims it); "ep{NN}" at a row's end.
 
-One process, one card: ``train_mode="distributed"`` and a mesh of more
-than one device raise; ``grad_accum_steps > 1`` splits each batch into
-that many microbatches before one optimizer step. The step's random stream
-is a CPU ``torch.Generator`` seeded from (epoch, step), so a run resumed
-mid-epoch draws what the uninterrupted run drew. Metrics add up on the
-device and are read once per log interval.
+One process on one card, or one per card over a data mesh
+(``parallel.make_mesh``, one rank per card): ``cfg.batch_size`` is then
+the GLOBAL batch, each rank's loader reads its ``batch_size / W`` rows of
+the shared shuffle order (a global batch that W does not divide raises),
+the step is ``parallel.make_parallel_train_step`` (BatchNorm statistics,
+md2cmb's count, gradients and metrics over the global batch), and the
+validation metrics are reduced over the ranks too, so every rank logs the
+values a single process would. Only the main process writes the config
+snapshot, the checkpoints and ``history.csv``; every rank reads them at a
+resume, each after a barrier that follows the writes.
+``grad_accum_steps > 1`` splits each batch into that many microbatches
+before one optimizer step. The step's random stream is a CPU
+``torch.Generator`` seeded from (epoch, step), the same on every rank (one
+augmentation per global batch), so a run resumed mid-epoch draws what the
+uninterrupted run drew. Metrics add up on the device and are read once
+per log interval.
 """
 
 from __future__ import annotations
@@ -38,6 +48,10 @@ from xpt_mde_tpu_torch.config import Config, TrainStage
 from xpt_mde_tpu_torch.data import example_batch
 from xpt_mde_tpu_torch.losses import loss_factory
 from xpt_mde_tpu_torch.models import ModelFactory
+from xpt_mde_tpu_torch.parallel import (barrier, is_main_process, make_parallel_train_step,
+                                        replicate_state)
+from xpt_mde_tpu_torch.parallel.multihost import reducing_over
+from xpt_mde_tpu_torch.parallel.sharding import reduce_metrics
 from xpt_mde_tpu_torch.training.augmentation import augmentation_factory
 from xpt_mde_tpu_torch.training.checkpoint import (CheckpointManager,
                                                    load_pretrained_backbone,
@@ -87,16 +101,21 @@ def inspect_model(preds, features, step: int, steps_per_epoch: int) -> bool:
     return True
 
 
-def default_dataset_factory(cfg: Config):
+def default_dataset_factory(cfg: Config, mesh=None):
     """Shard loaders over ``cfg.datapath_shd/{dataset}_{split}``: the
     native reader behind a prefetch thread, uint8 snippets (the steps
-    decode them on the device), shuffled for the train split only."""
+    decode them on the device), shuffled for the train split only. Over a
+    mesh, ``batch_size`` is the rank's and each rank reads its slice of
+    the shared order (its share of each microbatch)."""
     from xpt_mde_tpu_torch.data.native_loader import make_loader
+
+    rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
 
     def factory(dataset_name: str, split: str, batch_size: int):
         return make_loader(Path(cfg.datapath_shd) / f"{dataset_name}_{split}",
                            batch_size, cfg.snippet_len, shuffle=(split == "train"),
-                           raw_images=True, workers=cfg.loader_workers)
+                           process_index=rank, process_count=world, raw_images=True,
+                           workers=cfg.loader_workers, microbatches=cfg.grad_accum_steps)
     return factory
 
 
@@ -128,13 +147,21 @@ class StageRuntime:
     """The loaders, model, loss, optimizer and steps of one plan row."""
 
     def __init__(self, cfg: Config, stage: TrainStage, dataset_factory,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.cfg = cfg
         self.stage = stage
         self.device = device
-        self.train_loader = dataset_factory(stage.dataset, "train", cfg.batch_size)
+        self.group = mesh.group if mesh is not None else None
+        # cfg.batch_size is the GLOBAL batch (the loss divides by it); each
+        # rank loads its share
+        world = mesh.world_size if mesh is not None else 1
+        if cfg.batch_size % world:
+            raise ValueError(f"global batch {cfg.batch_size} must divide by the world size "
+                             f"{world}")
+        rank_batch = cfg.batch_size // world
+        self.train_loader = dataset_factory(stage.dataset, "train", rank_batch)
         try:
-            self.val_loader = dataset_factory(stage.dataset, "val", cfg.batch_size)
+            self.val_loader = dataset_factory(stage.dataset, "val", rank_batch)
         except FileNotFoundError as exc:
             # only an absent val split is skippable; schema or IO errors surface
             print(f"[StageRuntime] no val split for {stage.dataset}, "
@@ -152,10 +179,17 @@ class StageRuntime:
         reg_net = "flownet" if "flow_reg" in stage.loss_weights else None
         self.optimizer = optimizer_factory(cfg.optimizer, stage.learning_rate, self.model,
                                            frozen_nets=frozen)
-        self.train_step = make_train_step(
-            self.model, self.total_loss, self.optimizer,
-            augmenter=augmentation_factory(cfg.augment_probs), frozen_nets=frozen,
-            regularize_net=reg_net, grad_accum_steps=cfg.grad_accum_steps)
+        augmenter = augmentation_factory(cfg.augment_probs)
+        if mesh is not None:
+            self.train_step = make_parallel_train_step(
+                self.model, self.total_loss, self.optimizer, mesh, augmenter=augmenter,
+                regularize_net=reg_net, frozen_nets=frozen,
+                grad_accum_steps=cfg.grad_accum_steps)
+        else:
+            self.train_step = make_train_step(
+                self.model, self.total_loss, self.optimizer, augmenter=augmenter,
+                frozen_nets=frozen, regularize_net=reg_net,
+                grad_accum_steps=cfg.grad_accum_steps)
         self.eval_step = make_eval_step(self.model, self.total_loss)
         self.predict_step = make_predict_step(self.model)
         # one fixed batch for the per-epoch scale log; reading it consumes no epoch
@@ -192,10 +226,10 @@ class StageRuntime:
                 if save_cb is not None and every > 0 and (step_idx + 1) % every == 0:
                     save_cb(step_idx + 1, {k: float(v) for k, v in metric_sums.items()},
                             count)
-                if step_idx % log_every == 0:
+                if step_idx % log_every == 0 and is_main_process():
                     print_progress(f"  train {step_idx}/{steps} "
                                    f"loss={float(metrics['loss']):.4f}")
-                if self.cfg.inspect_model and steps:
+                if self.cfg.inspect_model and steps and is_main_process():
                     stride = max(steps // 3, 1)
                     if step_idx % stride == 0:
                         inspect_model(self.predict_step(features), features, step_idx, steps)
@@ -212,7 +246,10 @@ class StageRuntime:
             return {}
         metric_sums, count = None, 0
         for batch in self.val_loader:
-            metrics = self.eval_step(self.to_device(batch))
+            # md2cmb's count over the global batch; the metrics over the ranks
+            with reducing_over(self.group):
+                metrics = self.eval_step(self.to_device(batch))
+            metrics = reduce_metrics(metrics, self.group)
             metric_sums = metrics if metric_sums is None else \
                 {k: metric_sums[k] + v for k, v in metrics.items()}
             count += 1
@@ -222,21 +259,22 @@ class StageRuntime:
 
 
 def train_by_plan(cfg: Config, dataset_factory: Optional[Callable] = None,
-                  device: torch.device | str = "cuda") -> None:
+                  device: torch.device | str = "cuda", mesh=None) -> None:
     """Walk the training plan, skipping the rows already done.
 
-    :param dataset_factory: ``(dataset, split, batch_size) -> loader``;
-        the shard loaders of ``default_dataset_factory`` by default
+    :param dataset_factory: ``(dataset, split, batch_size) -> loader``
+        (``batch_size`` the rank's); the shard loaders of
+        ``default_dataset_factory`` by default
     :param device: the card by default; ``"cpu"`` where the caller asks
+    :param mesh: the data mesh (``parallel.make_mesh``) to train over, its
+        rank's device taking the place of ``device``; None: one process
     """
-    if cfg.train_mode == "distributed" or cfg.batch_size != cfg.per_replica_batch:
-        raise NotImplementedError(
-            "data-parallel training over several devices is not ported yet "
-            "(ROADMAP queue 1 item 7: 'Scale-out and serving')")
-    device = torch.device(device)
-    dataset_factory = dataset_factory or default_dataset_factory(cfg)
+    device = mesh.device if mesh is not None else torch.device(device)
+    dataset_factory = dataset_factory or default_dataset_factory(cfg, mesh)
     ckpt_dir = Path(cfg.datapath_ckp) / cfg.ckpt_name
-    snapshot_config(ckpt_dir, cfg.to_json_dict())
+    if is_main_process():  # one writer per shared file system
+        snapshot_config(ckpt_dir, cfg.to_json_dict())
+    barrier()
     initial_epoch = read_previous_epoch(ckpt_dir)
 
     target_epoch = 0
@@ -246,7 +284,7 @@ def train_by_plan(cfg: Config, dataset_factory: Optional[Callable] = None,
             print(f"[train_by_plan] stage {stage_idx} already done")
             continue
         train_stage(cfg, stage, stage_idx, initial_epoch, target_epoch,
-                    dataset_factory, device)
+                    dataset_factory, device, mesh)
         initial_epoch = max(initial_epoch, target_epoch)
         # the row's model, optimizer and cached workspaces go before the
         # next row builds its own
@@ -256,12 +294,14 @@ def train_by_plan(cfg: Config, dataset_factory: Optional[Callable] = None,
 
 
 def train_stage(cfg: Config, stage: TrainStage, stage_idx: int, initial_epoch: int,
-                target_epoch: int, dataset_factory, device: torch.device) -> None:
+                target_epoch: int, dataset_factory, device: torch.device,
+                mesh=None) -> None:
     print(f"[train_stage] stage {stage_idx}: nets={dict(stage.net_names)} "
           f"dataset={stage.dataset} lr={stage.learning_rate} "
           f"epochs {initial_epoch}..{target_epoch}")
     ckpt_dir = Path(cfg.datapath_ckp) / cfg.ckpt_name
-    runtime = StageRuntime(cfg, stage, dataset_factory, device)
+    runtime = StageRuntime(cfg, stage, dataset_factory, device, mesh)
+    main = is_main_process()
     model, optimizer = runtime.model, runtime.optimizer
     ckpt = CheckpointManager(ckpt_dir)
     logger = TrainingLogger(ckpt_dir, cfg.log_loss)
@@ -279,12 +319,14 @@ def train_stage(cfg: Config, stage: TrainStage, stage_idx: int, initial_epoch: i
     midway = ckpt.restore_midway(model, optimizer, stage_idx, initial_epoch)
     if midway is not None:
         runtime.step, start_step, mid_sums, mid_count = midway
+    if mesh is not None:  # every rank read the same files; rank 0's state wins
+        replicate_state(model, optimizer, mesh)
 
     first_epoch = target_epoch - stage.epochs
     for epoch in range(initial_epoch, target_epoch):
         print(f"========== epoch {epoch} (stage {stage_idx})")
         save_cb = None
-        if cfg.ckpt_every_steps > 0:
+        if cfg.ckpt_every_steps > 0 and main:
             def save_cb(steps_done, sums, count, _epoch=epoch):
                 ckpt.save_midway(model, optimizer, stage_idx, _epoch, steps_done, sums,
                                  count, runtime.step)
@@ -296,10 +338,13 @@ def train_stage(cfg: Config, stage: TrainStage, stage_idx: int, initial_epoch: i
         print(f"  epoch {epoch}: train_loss={train_metrics.get('loss', 0):.4f}"
               f" val_loss={val_metrics.get('loss', 0):.4f}"
               f" ({train_metrics.get('sec_per_epoch', 0):.1f}s)")
-        ckpt.save(model, optimizer, "latest", stage_idx=stage_idx, step=runtime.step)
-        logger.save_log(epoch, train_metrics, val_metrics)
-        ckpt.clear_midway()
-        logger.save_scales(epoch, runtime.predict_step(runtime.example))
-    if stage.save_ckpt:
+        if main:
+            ckpt.save(model, optimizer, "latest", stage_idx=stage_idx, step=runtime.step)
+            logger.save_log(epoch, train_metrics, val_metrics)
+            ckpt.clear_midway()
+            logger.save_scales(epoch, runtime.predict_step(runtime.example))
+        barrier()
+    if stage.save_ckpt and main:
         ckpt.save(model, optimizer, f"ep{target_epoch:02d}", stage_idx=stage_idx,
                   step=runtime.step)
+    barrier()
