@@ -96,7 +96,7 @@ per library started together, and prints one line per phase:
     written by the port's ``ShardWriter`` in the schema of the port's
     ``ShardMaker("synthetic")``) in a temporary directory under
     ``build/``; ``train_by_plan`` through the native shard loader over a
-    rigid, a flow and a joint row of one epoch of 4 steps at batch 8
+    rigid, a flow and a joint row of one epoch of 2 steps at batch 8
     (first the two pretraining rows, then the whole plan): history.csv's
     3 rows, every row's "latest" and "ep{NN}" files, the joint row
     starting from the rigid row's depth and pose weights, its flownet
@@ -104,7 +104,9 @@ per library started together, and prints one line per phase:
     that skips every row and launches nothing; then ``predict_by_plan``
     and ``evaluate_by_plan`` over the test split with the joint nets:
     finite Eigen depth metrics and pose errors. Every kernel must launch
-    in this run; images/s per row;
+    in this run; images/s per row; the logger's reconstruction panels:
+    4 views (PANEL_VIEWS) in the rigid row's, none in the flow row's,
+    and 6 in the joint row's (the flow and the flow-warped source too);
 16. stereo train: EfficientNetB5 + PoseNetImproved on stereo snippets
     (the keys of the kitti_raw shards), STEREO_RECIPE (the published MS
     recipe) at the T1 scale weights, the default augmentation,
@@ -163,7 +165,7 @@ per library started together, and prints one line per phase:
     after the joint rows equal to the flow row's tensor for tensor, the
     depth net changed; every float32 kernel launches, no bfloat16 one;
     each row's seconds, images/s and launches per step;
-27. the same plan in bfloat16 at MINI_PLAN_DEPTH's epochs (2 rigid, 1
+27. the same plan in bfloat16 at MINI_PLAN_DEPTH's epochs (1 rigid, 1
     flow, 1 joint): the hand-off exact and the metrics finite;
     whether it meets the criteria is reported (``bf16_meets_criteria``)
     and fails nothing; K1, K1-bwd and the bfloat16 K2-K4 launch, the
@@ -172,8 +174,10 @@ per library started together, and prints one line per phase:
     ``Config()``'s defaults (synthetic at 128x384, SHARD_DRIVES drives) builds
     ``synthetic_train``, ``synthetic_test`` and ``synthetic_val`` serially
     and then with ``shard_build_workers=2`` through the spawn pool: the
-    trees byte-identical, the pool run (no serial fallback), neither
-    OpenCV nor PIL loaded; each build's host seconds and examples/s; then
+    trees byte-identical, the pool run (no serial fallback), OpenCV and
+    PIL unimportable while they build (the logger's panels of the phases
+    before have loaded OpenCV, and an import of either fails the build);
+    each build's host seconds and examples/s; then
     ``train_by_plan`` over one rigid row (RIGID_NET, batch 8, bfloat16)
     on those shards through the native loader, ``predict_by_plan`` and
     ``evaluate_by_plan`` on ``synthetic_test``: finite metrics, K1 and
@@ -217,7 +221,20 @@ per library started together, and prints one line per phase:
     the live ``make_predict_step`` (SERVE_RTOL), the flow artifacts'
     K2-bf16 / K2 launches counted there (5 a call), a wrong shape raising
     ValueError; the export seconds, the artifact bytes, and the
-    artifact's images/s beside the live predict step's.
+    artifact's images/s beside the live predict step's;
+32. weights in, diagnostics out (``_pretrained_phase``): a pretrained
+    backbone file written from a seeded EfficientNetB5 backbone
+    (``convert.state_dict_to_flax``, ``utils/flax_msgpack.py``) under a
+    temporary datapath, loaded into a fresh bfloat16 RIGID_NET on the
+    card by ``load_pretrained_backbone`` bit for bit, an EfficientNetB0
+    file refused with every weight unchanged; ``train_by_plan`` of one
+    rigid row at ``Config()``'s defaults (bfloat16, pretrained_weight)
+    on PRETRAINED_SNIPPETS of synthetic shards, starting from the file:
+    K1 and K1-bwd launched, history.csv, the reconstruction panels and,
+    where matplotlib is installed, history.png written; ``debug_by_plan``
+    over the row's checkpoint: the three CSVs and the worst frames'
+    views written, K1 launched; which of h5py, matplotlib and cv2 the
+    machine has.
 
 Then the script's seconds, a JSON line with each kernel's launches on its
 main path's run (the float32 kernels': the float32 mini plan; the
@@ -349,8 +366,8 @@ JOINT_LOSS_TOL = {"loss": (1e-3, 0.0), "loss/cmbL1": (1e-3, 0.0),
 # more than 1e-3 of the largest)
 JOINT_LOSS_GRAD_RULE = (1e-2, 1e-4)
 # the plan's synthetic shards (snippets per split) and its rows' epochs;
-# at batch 8 each row trains 4 steps and validates 1
-PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
+# at batch 8 each row trains 2 steps and validates 1
+PLAN_SNIPPETS = {"train": 16, "val": 8, "test": 16}
 # the stereo ("MS") path runs on snippets of STEREO_KEYS (the keys of the
 # JAX package's kitti_raw shards) under STEREO_RECIPE, both from
 # tools/profile_steps.py
@@ -385,7 +402,7 @@ STEREO_LOSS_TOL = dict(LOSS_TOL, **{"loss/L1_R": (1e-3, 0.0), "loss/SSIM_R": (1e
 CHECK_T_LR = [[1.0, 0.0, 0.0, 0.3], [0.0, 1.0, 0.0, 0.013], [0.0, 0.0, 1.0, 0.0],
               [0.0, 0.0, 0.0, 1.0]]
 # the stereo plan's shards, as PLAN_SNIPPETS
-STEREO_PLAN_SNIPPETS = {"train": 32, "val": 8, "test": 16}
+STEREO_PLAN_SNIPPETS = {"train": 16, "val": 8, "test": 16}
 # phase 28: the synthetic reader's drives (8 snippets each) per split, so
 # that the pool's two workers build two drives each
 SHARD_DRIVES = 4
@@ -393,7 +410,7 @@ SHARD_DRIVES = 4
 # each as the depth net with PoseNetImproved in the bfloat16 rigid step
 ZOO_BACKBONES = ["ResNet50V2", "MobileNetV2", "VGG16", "DenseNet121", "Xception",
                  "NASNetMobile", "NASNetLarge"]
-ZOO_TIMED_STEPS = 6
+ZOO_TIMED_STEPS = 4
 # the zoo's cross-checks run at ZOO_CHECK_SIZE (a 64x256 synthetic batch
 # of CHECK_BATCH: a CPU float64 step of VGG16 or NASNetLarge at 128x512
 # takes tens of seconds), on images scaled to [0, 255]: the range the
@@ -428,19 +445,24 @@ TAP_RTOL = 1e-3
 # float32 run keeps the JAX check's 12, 3, 3 and gates its criteria (at 8,
 # 2, 2 it ends, on the CPU, at AbsRel 0.125 after the joint rows against a
 # limit of 0.2667: too little room to cut). The bfloat16 run is cut so
-# that the script fits phases 30-31 in its time: it gates only the
-# hand-off and finite metrics, and reports the criteria;
+# that the script fits phases 30-32 in its 1200 s on a slow host: it gates
+# only the hand-off and finite metrics, and reports the criteria;
 # `tools/check_learns.py --check plan --dtype bfloat16` runs the protocol
 MINI_PLAN_DEPTH = {"float32": {},
-                   "bfloat16": {"rigid_epochs": 2, "flow_epochs": 1, "joint_epochs": 1}}
+                   "bfloat16": {"rigid_epochs": 1, "flow_epochs": 1, "joint_epochs": 1}}
+# phase 32: the rigid row trained from a pretrained file (2 steps) and
+# the test split of its debug evaluation (1 batch)
+PRETRAINED_SNIPPETS = {"train": 16, "test": 8}
+# phases 15 and 32: the views stacked in one reconstruction panel per row
+PANEL_VIEWS = {"rigid": 4, "flow": 0, "joint": 6}
 # phase 30: timed bfloat16 data-parallel steps per world and backend
-DDP_TIMED_STEPS = 4
+DDP_TIMED_STEPS = 2
 # phase 31: an artifact against the live predict step, both on the card,
 # each output's largest difference over its largest value: the same
 # operations in float32 (1e-5); in bfloat16 a few ulps (2^-8 each) where
 # the exported graph's ops are fused or ordered otherwise
 SERVE_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
-SERVE_TIMED_CALLS = 10
+SERVE_TIMED_CALLS = 5
 # phase 29's joint step: the md2cmb terms at LOSS_RIGID_COMB's weights (as JOINT_RECIPE)
 MD2CMB_RECIPE = {"md2cmbL1": 5.0, "md2cmbSSIM": 0.5, "smoothe": 20.0}
 # the bfloat16 K2, K3 and K4 and their plain versions each read the
@@ -1510,6 +1532,7 @@ def _plan_phase(workdir, device, counts, zero_counts, tag):
     rows = [dict(zip(header, line.split(","))) for line in history[1:]]
     if [r["epoch"] for r in rows] != ["0", "1", "2"]:
         raise AssertionError(f"history.csv has epochs {[r['epoch'] for r in rows]}")
+    panels = _check_panels(ckpt, ["rigid", "flow", "joint"], HEIGHT)
     before = counts()
     log, skip_s = run(plan)
     if counts() != before or log.count("already done") != len(plan):
@@ -1539,10 +1562,151 @@ def _plan_phase(workdir, device, counts, zero_counts, tag):
     note = (f"{loader_kind} loader; history.csv epochs 0-2 with train_loss "
             f"{[round(float(r['train_loss']), 6) for r in rows]}; the joint row started from "
             f"the rigid row's depthnet/posenet and the flow row's flownet, which stayed "
-            f"bit-equal to flownet_ep02.pt; a third call skipped all {len(plan)} rows with no "
-            f"launch; evaluate_by_plan on {n_test} test snippets: "
+            f"bit-equal to flownet_ep02.pt; reconstruction panels of {panels} views; a third "
+            f"call skipped all {len(plan)} rows with no launch; evaluate_by_plan on {n_test} "
+            f"test snippets: "
             f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
     return counts(), note
+
+
+def _panel_views(ckpt_dir, epoch: int, height: int) -> list:
+    """The number of views in each reconstruction panel the logger wrote
+    for ``epoch`` (a panel stacks 12-row title banners and views of
+    ``height`` rows)."""
+    import cv2
+
+    counts = []
+    for png in sorted((Path(ckpt_dir) / "reconstruction").glob(f"ep{epoch:03d}_*.png")):
+        rows = cv2.imread(str(png)).shape[0]
+        if rows % (12 + height):
+            raise AssertionError(f"{png.name}: {rows} rows are no stack of {height}-row views")
+        counts.append(rows // (12 + height))
+    return counts
+
+
+def _check_panels(ckpt_dir, rows: list, height: int) -> str:
+    """Every epoch of ``rows`` (the plan's row kinds in order, one epoch
+    each) has min(4, BATCH) panels of PANEL_VIEWS[kind] views; a flow row
+    none."""
+    for epoch, kind in enumerate(rows):
+        views = _panel_views(ckpt_dir, epoch, height)
+        want = [PANEL_VIEWS[kind]] * min(4, BATCH) if PANEL_VIEWS[kind] else []
+        if views != want:
+            raise AssertionError(f"epoch {epoch} ({kind} row): panels of {views} views, "
+                                 f"want {want}")
+    return ", ".join(f"{kind} {PANEL_VIEWS[kind]}" for kind in rows)
+
+
+def _pretrained_phase(device, counts, zero_counts, tag):
+    """Phase 32: returns ({path: kernel launches}, a summary line)."""
+    import importlib.util
+
+    import torch
+
+    from xpt_mde_tpu_torch.config import (NUM_SRC, RIGID_NET, SCALE_WEIGHT_T1, Config,
+                                          TestStage, TrainStage)
+    from xpt_mde_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+    from xpt_mde_tpu_torch.evaluate.evaluate_debug import debug_by_plan
+    from xpt_mde_tpu_torch.models import ModelFactory
+    from xpt_mde_tpu_torch.scripts.convert_backbone_weights import write_pretrained
+    from xpt_mde_tpu_torch.training.checkpoint import load_pretrained_backbone
+    from xpt_mde_tpu_torch.training.trainer import train_by_plan
+    from xpt_mde_tpu_torch.utils.flax_msgpack import from_bytes
+
+    libraries = {name: importlib.util.find_spec(name) is not None
+                 for name in ("h5py", "matplotlib", "cv2")}
+    print(f"phase 32 libraries on this machine: {json.dumps(libraries)}", flush=True)
+    keys = ["image", "intrinsic", "depth_gt", "pose_gt"]
+
+    def seeded_file(net, seed, datapath):
+        """A pretrained file of ``net``'s backbone, every weight and
+        statistic drawn from ``seed``."""
+        backbone = ModelFactory(keys, {"depth": net}, stereo=False, device="cpu",
+                                seed=seed).get_model().depthnet.backbone
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, buf in backbone.named_buffers():
+                if buf.is_floating_point():
+                    buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+        tree = state_dict_to_flax(backbone)
+        return write_pretrained(tree["params"], tree["batch_stats"], datapath, net)
+
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as workdir:
+        root = Path(workdir)
+        # 1. the file, loaded on the card bit for bit; another width refused
+        path = seeded_file(RIGID_NET["depth"], 1, root)
+        other = seeded_file("EfficientNetB0", 2, root / "other")
+        model = ModelFactory(keys, RIGID_NET, stereo=False, compute_dtype="bfloat16",
+                             device=device).get_model()
+        if not load_pretrained_backbone(model, path):
+            raise AssertionError(f"load_pretrained_backbone refused {path}")
+        want = flax_to_state_dict(from_bytes(path.read_bytes()), model.depthnet.backbone)
+        got = model.depthnet.backbone.state_dict()
+        off = [k for k in want if not k.endswith("num_batches_tracked")
+               and not (got[k].device == device and torch.equal(got[k].cpu(), want[k]))]
+        if set(got) != set(want) or off:
+            raise AssertionError(f"backbone tensors not the file's bits on the card: {off[:5]}")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        if load_pretrained_backbone(model, other):
+            raise AssertionError("an EfficientNetB0 file loaded into EfficientNetB5")
+        if any(not torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+            raise AssertionError("the refused file changed a weight")
+        n_tensors = len(want)
+        del model, before, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. one rigid row at Config()'s defaults, from the file
+        write_synthetic_shards(root / "shards", HEIGHT, WIDTH, PRETRAINED_SNIPPETS)
+        cfg = Config(stereo=False, per_replica_batch=BATCH, datapath=workdir,
+                     ckpt_name="pretrained",
+                     training_plan=[TrainStage(RIGID_NET, "synthetic", 1, LR, RECIPE,
+                                               SCALE_WEIGHT_T1)],
+                     test_plan=[TestStage(RIGID_NET, "synthetic", ["depth", "pose"],
+                                          "pretrained")])
+        if not (cfg.pretrained_weight and cfg.compute_dtype == "bfloat16"):
+            raise AssertionError("Config() no longer defaults to bfloat16 from pretrained weights")
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout)) as log:
+            train_by_plan(cfg, device=device)
+        row_s = time.perf_counter() - t0
+        row_counts = counts()
+        if f"[ckpt] loaded pretrained backbone from {path}" not in log.getvalue():
+            raise AssertionError("the row did not start from the pretrained file")
+        missing = [k for k in ("K1", "K1-bwd") if row_counts[k] == 0]
+        if missing:
+            raise AssertionError(f"the pretrained row never launched {missing}: {row_counts}")
+        ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
+        written = ["history.csv"] + (["history.png"] if libraries["matplotlib"] else [])
+        absent = [name for name in written if not (ckpt / name).is_file()]
+        if absent:
+            raise AssertionError(f"the logger did not write {absent}")
+        panels = _check_panels(ckpt, ["rigid"], HEIGHT)
+
+        # 3. the debug evaluator over the row's checkpoint
+        zero_counts()
+        t0 = time.perf_counter()
+        debug_by_plan(cfg, device=device)
+        debug_s = time.perf_counter() - t0
+        debug_counts = counts()
+        if debug_counts["K1"] == 0:
+            raise AssertionError(f"debug_by_plan never launched K1: {debug_counts}")
+        debug = Path(cfg.datapath_evl) / "pretrained" / "debug_synthetic_latest"
+        csvs = {name: len((debug / name).read_text().strip().splitlines()) - 1
+                for name in ("debug_depth.csv", "debug_pose.csv", "trajectory.csv")}
+        n_test = PRETRAINED_SNIPPETS["test"]
+        if csvs != {"debug_depth.csv": n_test, "debug_pose.csv": n_test * NUM_SRC,
+                    "trajectory.csv": n_test * NUM_SRC}:
+            raise AssertionError(f"debug CSV rows {csvs}")
+        views = sorted(debug.glob("worst_*/frame_*.png"))
+        if not views:
+            raise AssertionError("debug_by_plan wrote no worst-frame views")
+    note = (f"{n_tensors} backbone tensors of a seeded EfficientNetB5 file on the card bit for "
+            f"bit, an EfficientNetB0 file refused with every weight unchanged; a bf16 rigid row "
+            f"from the file ({row_s:.1f} s, panels of {panels} views); debug_by_plan "
+            f"({debug_s:.1f} s): rows {json.dumps(csvs)}, {len(views)} worst-frame views {tag}")
+    return {"pretrained row": row_counts, "debug_by_plan": debug_counts}, note
 
 
 def _stereo_plan_phase(workdir, device, counts, zero_counts, tag, compute_dtype="float32"):
@@ -1707,6 +1871,23 @@ def _learning_phase(device, counts, zero_counts, tag):
     return runs
 
 
+@contextlib.contextmanager
+def _unimportable(names):
+    """Make the modules ``names`` unimportable in this process for the
+    block (an import of them raises ImportError); those already loaded
+    come back after it."""
+    saved = {name: sys.modules.get(name) for name in names}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = module
+
+
 def _shard_phase(device, counts, zero_counts, tag):
     """Phase 28, the shard chain, in a temporary directory under
     ``build/``: the port's ``convert_to_shards`` builds ``synthetic_train``,
@@ -1715,7 +1896,9 @@ def _shard_phase(device, counts, zero_counts, tag):
     serially and then with
     ``shard_build_workers=2`` through the spawn pool; the two trees must
     be byte-identical, the pool must really have run (no serial
-    fallback), and neither OpenCV nor PIL may be loaded. Then one rigid
+    fallback), and neither may import OpenCV or PIL (both are made
+    unimportable in this process while they run: the logger's panels of
+    the phases before have loaded OpenCV). Then one rigid
     row (RIGID_NET, batch 8, bfloat16: ``Config()``'s dtype) trains on
     those shards through ``train_by_plan`` and the native loader, and
     ``predict_by_plan`` + ``evaluate_by_plan`` run on ``synthetic_test``:
@@ -1736,8 +1919,9 @@ def _shard_phase(device, counts, zero_counts, tag):
         for mode, workers in (("serial", 0), ("pool", 2)):
             cfg = Config(datapath=str(Path(workdir) / mode), shard_build_workers=workers)
             t0 = time.perf_counter()
-            modes = convert_to_shards(cfg, {"synthetic": {"drives": SHARD_DRIVES}},
-                                      {"synthetic": ["train", "test"]})
+            with _unimportable(("cv2", "PIL")):
+                modes = convert_to_shards(cfg, {"synthetic": {"drives": SHARD_DRIVES}},
+                                          {"synthetic": ["train", "test"]})
             seconds = time.perf_counter() - t0
             if modes != {"synthetic_train": mode, "synthetic_test": mode}:
                 raise AssertionError(f"the {mode} build ran as {modes}")
@@ -1752,9 +1936,6 @@ def _shard_phase(device, counts, zero_counts, tag):
                   if (builds["serial"][0] / f).read_bytes() != (builds["pool"][0] / f).read_bytes()]
         if differ:
             raise AssertionError(f"the pool build differs from the serial one in {differ}")
-        loaded = [m for m in ("cv2", "PIL") if m in sys.modules]
-        if loaded:
-            raise AssertionError(f"building the shards loaded {loaded}")
         example = ShardDataset(builds["serial"][0] / "synthetic_train").read_example(0)
         height, width = Config().image_sizes["synthetic"]
         if example["image"].shape != (5 * height, width, 3):
@@ -1794,7 +1975,7 @@ def _shard_phase(device, counts, zero_counts, tag):
               f"{height}x{width}, the native loader): {rate:.2f} images/s over the train epoch "
               f"{tag}", flush=True)
     note = (f"serial and pool builds byte-identical ({len(files['serial'])} files), the pool "
-            f"ran, no cv2 or PIL loaded; rigid row train_loss {float(row['train_loss']):.6f}; "
+            f"ran, cv2 and PIL unimportable; rigid row train_loss {float(row['train_loss']):.6f}; "
             f"evaluate_by_plan on {builds['serial'][2]['test']} test snippets: "
             f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}")
     return launches, note
@@ -3003,10 +3184,10 @@ def main(argv=()) -> int:
 
             # 12. step timings and peak memory
             phase = clock("timings")
-            # the steps are host-bound: report the spread (3 rounds of 2
-            # steps, float32 and bfloat16 alike: the script, phases 30-31
+            # the steps are host-bound: report the spread (3 rounds of 1
+            # step, float32 and bfloat16 alike: the script, phases 30-32
             # with it, must stay well inside its 1200 s)
-            rounds, steps = 3, 2
+            rounds, steps = 3, 1
             f32_rates = {}  # step: (median images/s, peak bytes), for the bf16 phase
             for label, step, step_batches, net, opt, opt_model in (
                     ("predict", predict_step, gpu_batches, "B5", None, None),
@@ -3333,7 +3514,17 @@ def main(argv=()) -> int:
             serving_paths, serving_note = _serving_phase(device, tag)
             print(f"{serving_note}\nphase 31 serving: {time.perf_counter() - t0:.1f} s for "
                   f"the phase {tag}", flush=True)
-            extra_paths = ddp_paths | serving_paths
+            # 32. weights in, diagnostics out: a pretrained backbone file,
+            # a bf16 rigid row from it, its debug evaluation, their counts
+            # read from zero
+            phase = clock("weights in, diagnostics out")
+            t0 = time.perf_counter()
+            pretrained_paths, pretrained_note = _pretrained_phase(device, counts, zero_counts,
+                                                                  tag)
+            print(f"phase 32 weights in, diagnostics out: {pretrained_note}; launches "
+                  f"{json.dumps(pretrained_paths)}; {time.perf_counter() - t0:.1f} s for the "
+                  f"phase {tag}", flush=True)
+            extra_paths = ddp_paths | serving_paths | pretrained_paths
 
             # ms, plain_ms, library_ms, bound_ms: device time per train step,
             # summed over the scales or levels; launches: the mini plan run's

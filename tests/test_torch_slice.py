@@ -149,9 +149,10 @@ def test_port_runs_with_jax_blocked():
     entry scripts and tools too) and chip_smoke, then run the rigid slice
     (predict, eval and an augmented train step), the flow slice (predict
     and a regularized train step), the entry point (a one-row plan on
-    shards, predict and evaluate) and the learning chain's mini_plan and
-    check_learns at a tiny size, with jax/flax/optax and the JAX package
-    itself made unimportable."""
+    shards, from a pretrained backbone file, writing its panels; predict,
+    evaluate, the debug evaluator and the depth comparison) and the
+    learning chain's mini_plan and check_learns at a tiny size, with
+    jax/flax/optax and the JAX package itself made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "xpt_mde_tpu"):
@@ -168,6 +169,9 @@ def test_port_runs_with_jax_blocked():
                        "data.readers.waymo_reader", "data.readers.waymo_protos.dataset_pb2",
                        "scripts.create_shards_main"]
         assert all(f"xpt_mde_tpu_torch.{m}" in sys.modules for m in shard_chain)
+        # the weight and diagnostics libraries load only where they are used
+        lazy = ("tensorflow", "h5py", "cv2", "matplotlib", "msgpack")
+        assert not [m for m in lazy if m in sys.modules], [m for m in lazy if m in sys.modules]
         import torch
         torch.set_num_threads(2)  # the test workers beside it share the cores
         from xpt_mde_tpu_torch.config import AUGMENT_PROBS, FLOW_NET, SCALE_WEIGHT_T1
@@ -222,16 +226,39 @@ def test_port_runs_with_jax_blocked():
         with tempfile.TemporaryDirectory() as root:
             chip_smoke.write_synthetic_shards(Path(root) / "shards", 32, 64,
                                               {"train": 1, "test": 1})
+            # a pretrained backbone file (the flax layout), which the row starts from
+            import contextlib, io
+            from xpt_mde_tpu_torch.convert import state_dict_to_flax
+            from xpt_mde_tpu_torch.scripts import convert_backbone_weights
+            seeded = ModelFactory(keys, rigid, stereo=False, device="cpu", seed=5).get_model()
+            tree = state_dict_to_flax(seeded.depthnet.backbone)
+            pre = convert_backbone_weights.write_pretrained(tree["params"], tree["batch_stats"],
+                                                            root, "EfficientNetB0")
             cfg = Config(stereo=False, per_replica_batch=1, datapath=root,
-                         pretrained_weight=False, compute_dtype="float32",
+                         compute_dtype="float32",
                          training_plan=[TrainStage(rigid, "synthetic", 1, 1e-4,
                                                    {"L1": 1.0}, SCALE_WEIGHT_T1)],
                          test_plan=[TestStage(rigid, "synthetic", ["depth"], "mde01")])
-            train_by_plan(cfg, device="cpu")
+            assert cfg.pretrained_weight
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                train_by_plan(cfg, device="cpu")
+            assert f"loaded pretrained backbone from {pre}" in log.getvalue(), log.getvalue()
+            ckpt = Path(cfg.datapath_ckp) / cfg.ckpt_name
+            assert (ckpt / "reconstruction" / "ep000_0.png").is_file()
+            assert (ckpt / "history.png").is_file()
             predict_by_plan(cfg, device="cpu")
             evaluate_by_plan(cfg)
             summary = Path(root, "evaluation", "mde01", "summary_synthetic_latest.csv")
             assert "abs_rel" in summary.read_text()
+            # the debug evaluator and the depth comparison from their scripts
+            from xpt_mde_tpu_torch.scripts import compare_depth_main, evaluate_debug_main
+            train_main.load_user_config = lambda: cfg
+            evaluate_debug_main.main(device="cpu")
+            compare_depth_main.main()
+            debug = Path(root, "evaluation", "mde01", "debug_synthetic_latest")
+            assert (debug / "debug_pose.csv").is_file() and list(debug.glob("worst_*/*.png"))
+            assert Path(root, "evaluation", "mde01", "depth_compare_synthetic",
+                        "compare_00000.png").is_file()
             # the learning chain: the mini plan's nets and evaluation on both
             # worlds, the results ledger, and the check's command line, which
             # refuses to run without a card

@@ -22,7 +22,9 @@ at call time), so a narrower floating tensor on either side fails too. :func:`fl
 maps a params-only tree (gradients, updated parameters) the same way onto
 ``named_parameters()`` names. BatchNorm's
 ``num_batches_tracked`` has no flax counterpart (the momentum is fixed)
-and is set to 0.
+and is set to 0. :func:`state_dict_to_flax` runs the map backwards, so a
+module's weights can be written in the flax layout (a pretrained
+backbone file, ``utils/flax_msgpack.py``).
 """
 
 from __future__ import annotations
@@ -120,6 +122,43 @@ def flax_params_to_torch(params: Mapping[str, Any],
     out = _convert({"params": params}, target)
     _check_complete(out, target)
     return out
+
+
+_STAT_LEAVES = {torch_name: flax_name for flax_name, torch_name in _STAT_NAMES.items()}
+
+
+def state_dict_to_flax(model: torch.nn.Module) -> dict[str, dict]:
+    """The inverse of :func:`flax_to_state_dict`: ``model``'s state_dict as
+    a flax ``{"params", "batch_stats"}`` tree of float32 numpy arrays, with
+    the kernel transposes run backwards (a 4-D ``weight`` is a conv kernel,
+    a 1-D one a BatchNorm scale). ``num_batches_tracked`` has no flax
+    counterpart and is left out; a tensor of another kind raises."""
+    trees: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in model.state_dict().items():
+        *modules, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        value = tensor.detach().cpu().numpy()
+        if name in _STAT_LEAVES:
+            collection, leaf = "batch_stats", _STAT_LEAVES[name]
+        elif name == "weight" and value.ndim == 4:
+            collection, leaf = "params", "kernel"
+            if modules and modules[-1].startswith("ConvTranspose"):
+                value = value.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                value = value.transpose(2, 3, 1, 0)
+        elif name == "weight" and value.ndim == 1:
+            collection, leaf = "params", "scale"
+        elif name == "bias":
+            collection, leaf = "params", "bias"
+        else:
+            raise KeyError(f"no flax leaf for the torch tensor {key} {tuple(value.shape)}")
+        _check_wide(key, value.dtype, tensor.dtype)
+        node = trees[collection]
+        for module in modules:
+            node = node.setdefault(module, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return {name: tree for name, tree in trees.items() if tree or name == "params"}
 
 
 def load_flax_variables(model: torch.nn.Module,

@@ -202,13 +202,35 @@ def snapshot_config(ckpt_dir, config_dict: dict) -> None:
 
 
 def load_pretrained_backbone(model, pretrained_path) -> bool:
-    """ImageNet backbone weights for the depth net. Loading them is not
-    ported (they must be downloaded; ROADMAP "Out of reach"): a missing
-    file loads nothing, as in the JAX package, and a present one raises."""
+    """Graft converted backbone weights into the depth net's backbone, in
+    place: ``<datapath>/pretrained/<net>.msgpack`` as either package's
+    ``scripts/convert_backbone_weights.py`` writes it from keras ImageNet
+    weights (a flax ``{"params", "batch_stats"}`` tree, read without flax
+    by ``utils/flax_msgpack.py``), mapped by ``convert.py`` onto the
+    backbone's parameters and BatchNorm buffers.
+
+    Every key and shape is checked before anything is loaded: a file of
+    another backbone or width loads nothing, as the JAX package's
+    ``from_bytes`` failure does.
+
+    :return: whether the weights were loaded (False for a missing file, a
+        model without a depth-net backbone, or an incompatible file)
+    """
+    from xpt_mde_tpu_torch.convert import flax_to_state_dict
+    from xpt_mde_tpu_torch.utils.flax_msgpack import from_bytes
+
     path = Path(pretrained_path)
-    if not path.is_file():
+    depthnet = getattr(model, "depthnet", None)
+    backbone = getattr(depthnet, "backbone", None)
+    if not path.is_file() or backbone is None:
         return False
-    raise NotImplementedError(
-        f"{path}: loading pretrained backbone weights is not ported yet (ROADMAP: "
-        "'Out of reach, since nothing can be downloaded'); set "
-        "Config.pretrained_weight=False")
+    try:
+        tree = from_bytes(path.read_bytes())
+        variables = {name: tree[name] for name in ("params", "batch_stats") if name in tree}
+        state = flax_to_state_dict(variables, backbone)
+    except (KeyError, ValueError, TypeError) as e:
+        print(f"[ckpt] pretrained backbone incompatible ({e})")
+        return False
+    backbone.load_state_dict(state)
+    print(f"[ckpt] loaded pretrained backbone from {path}")
+    return True

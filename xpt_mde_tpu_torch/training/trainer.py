@@ -14,7 +14,10 @@ row starts from the weights of the nets it shares with the rows before
 Per epoch: train, validate, then the "latest" checkpoint, then the
 ``history.csv`` row, then the midway checkpoint is dropped (in that
 order: history.csv drives resume, so an epoch's weights are on disk
-before the log claims it); "ep{NN}" at a row's end.
+before the log claims it); then, on the main process, one predict step
+on a fixed example batch writes the depth and pose quantiles
+(``scales.txt``) and the reconstruction panels (``reconstruction/``);
+"ep{NN}" at a row's end.
 
 One process on one card, or one per card over a data mesh
 (``parallel.make_mesh``, one rank per card): ``cfg.batch_size`` is then
@@ -58,8 +61,9 @@ from xpt_mde_tpu_torch.training.checkpoint import (CheckpointManager,
                                                    read_previous_epoch, snapshot_config)
 from xpt_mde_tpu_torch.training.logger import TrainingLogger, print_progress
 from xpt_mde_tpu_torch.training.optimizers import optimizer_factory
-from xpt_mde_tpu_torch.training.train_step import (features_to_device, make_eval_step,
-                                                   make_predict_step, make_train_step)
+from xpt_mde_tpu_torch.training.train_step import (decode_image_features, features_to_device,
+                                                   make_eval_step, make_predict_step,
+                                                   make_train_step)
 from xpt_mde_tpu_torch.utils.util_class import DurationTime
 
 
@@ -342,7 +346,10 @@ def train_stage(cfg: Config, stage: TrainStage, stage_idx: int, initial_epoch: i
             ckpt.save(model, optimizer, "latest", stage_idx=stage_idx, step=runtime.step)
             logger.save_log(epoch, train_metrics, val_metrics)
             ckpt.clear_midway()
-            logger.save_scales(epoch, runtime.predict_step(runtime.example))
+            preds = runtime.predict_step(runtime.example)
+            logger.save_scales(epoch, preds)
+            logger.save_reconstruction_samples(epoch, decode_image_features(runtime.example),
+                                               preds)
         barrier()
     if stage.save_ckpt and main:
         ckpt.save(model, optimizer, f"ep{target_epoch:02d}", stage_idx=stage_idx,
