@@ -455,8 +455,21 @@ MINI_PLAN_DEPTH = {"float32": {},
 PRETRAINED_SNIPPETS = {"train": 16, "test": 8}
 # phases 15 and 32: the views stacked in one reconstruction panel per row
 PANEL_VIEWS = {"rigid": 4, "flow": 0, "joint": 6}
-# phase 30: timed bfloat16 data-parallel steps per world and backend
-DDP_TIMED_STEPS = 2
+# phase 30: timed bfloat16 data-parallel steps per world and backend (one:
+# a second one's time went to the spatial mesh's steps)
+DDP_TIMED_STEPS = 1
+# phase 30: the height-sharded mesh of the gloo ranks, its timed bf16 steps
+# (after a warm-up one), and its bf16 rule: the two-band bf16 step's loss
+# within this many times the one-process bf16 step's own distance from
+# float32 (the bands round their sums at other points, by bf16's own ulp),
+# and the bf16 backward held module by module (tools/spatial_check.py's
+# map modules in bf16, bands against the whole map, within its BF16_RTOL):
+# the whole bf16 step's gradients sit as far from the one-process bf16
+# step's (a gradients' median of ~1.4) as a zero gradient would, so no
+# limit on them could fail
+SPATIAL_MESH = {"data": 1, "spatial": 2}
+SPATIAL_TIMED_STEPS = 1
+SPATIAL_BF16_RATIO = 2.0
 # phase 31: an artifact against the live predict step, both on the card,
 # each output's largest difference over its largest value: the same
 # operations in float32 (1e-5); in bfloat16 a few ulps (2^-8 each) where
@@ -729,12 +742,13 @@ def _nchw_grid(src, coords):
 
 def _warp_work(src, coords, mask, g):
     """{kernel: (bytes, flops)} of one K1 and one K1-bwd launch. Bytes:
-    each input read once, each output written once; flops per target
+    each input read once, each output written once (the output and g have
+    the target's pixels: a band's rows on a spatial mesh); flops per target
     pixel and channel: K1 4 products + 3 sums after 4 weight products per
     pixel, K1-bwd 2 lerps, 2 differences and 2 multiply-adds per channel."""
     n_pix, chans = coords.shape[0] * coords.shape[1] * coords.shape[3], src.shape[-1]
     io = src.numel() + coords.numel() + mask.numel()
-    return {"K1": ((io + src.numel()) * 4, n_pix * (4 + 7 * chans)),
+    return {"K1": ((io + n_pix * chans) * 4, n_pix * (4 + 7 * chans)),
             "K1-bwd": ((io + g.numel() + coords.numel()) * 4, n_pix * (2 + 16 * chans))}
 
 
@@ -857,6 +871,76 @@ def _warp_phase(batches, device, rng, tag, phase_no=2):
           f"K1-bwd {stats['K1-bwd']['err']:.3g} <= {K1_BWD_ATOL} (vs the plain backward and "
           f"the plain sampler's autograd; {'; '.join(notes)})", flush=True)
     return stats
+
+
+def _band_work(src, coords, mask, g):
+    """``_warp_work`` of a band launch, the source counted by the rows its
+    valid pixels' neighbours span (a band of the targets reads a band of
+    the source)."""
+    import torch
+
+    work = _warp_work(src, coords, mask, g)
+    height = src.shape[2]
+    v = coords[:, :, 1]
+    valid = (v >= 0) & (v <= height - 1) & (mask.reshape(mask.shape[0], 1, -1) != 0)
+    if not bool(valid.any()):
+        return work
+    lo, hi = int(torch.floor(v[valid].min())), min(int(torch.floor(v[valid].max())) + 1,
+                                                    height - 1)
+    unread = src.numel() * (1 - (hi - lo + 1) / height) * 4
+    return {name: (nbytes - unread, flops) for name, (nbytes, flops) in work.items()}
+
+
+def _band_warp_phase(batches, device, rng, tag) -> str:
+    """Phase 2, the spatial mesh's shapes: K1 and K1-bwd on a band of half
+    the target rows (offsets 0 and h/2) of the whole source, at the four
+    rigid scales of the headline 128x512 frame and of a 256x1024 (high_res)
+    one, against their plain versions (K1_ATOL, K1_BWD_ATOL), each band
+    launch timed by graph replay beside its bound. Returns a summary."""
+    import torch
+
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+    from xpt_mde_tpu_torch.ops.kernels.warp import K1, K1_BWD
+    from xpt_mde_tpu_torch.ops.warp import bilinear_sample_plain, warp_coord_grad_plain
+
+    high = next(iter(SyntheticDataset(batch_size=BATCH, height=2 * HEIGHT, width=2 * WIDTH,
+                                      num_batches=1, seed=2)))
+    worst = {"K1": 0.0, "K1-bwd": 0.0}
+    generator = torch.Generator().manual_seed(2)
+    for frame, batch in (("128x512", batches[0]), ("256x1024", high)):
+        for scale in SCALES:
+            src, coords, mask = _warp_case(batch, scale, device, rng)
+            b, n, h, w, c = src.shape
+            for first in (0, h // 2):
+                rows = h // 2
+                band_coords = coords.reshape(b, n, 2, h, w)[:, :, :, first: first + rows]
+                band_coords = band_coords.reshape(b, n, 2, rows * w).contiguous()
+                band_mask = mask[:, first: first + rows].contiguous()
+                g = (torch.rand((b, n, rows, w, c), generator=generator) * 2 - 1).to(device)
+                got, ref = K1(src, band_coords, band_mask), \
+                    bilinear_sample_plain(src, band_coords, band_mask)
+                d_got = K1_BWD(src, band_coords, band_mask, g)
+                d_ref = warp_coord_grad_plain(src, band_coords, band_mask, g)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                err_bwd = float((d_got - d_ref).abs().max())
+                if tuple(got.shape) != (b, n, rows, w, c) or not (err <= K1_ATOL
+                                                                  and err_bwd <= K1_BWD_ATOL):
+                    raise AssertionError(f"band K1 / K1-bwd differ from plain by {err} / "
+                                         f"{err_bwd} at {frame} 1/{scale} rows {first}+{rows}")
+                worst["K1"], worst["K1-bwd"] = max(worst["K1"], err), \
+                    max(worst["K1-bwd"], err_bwd)
+                work = _band_work(src, band_coords, band_mask, g)
+                for name, fn in (("K1", lambda: K1(src, band_coords, band_mask)),
+                                 ("K1-bwd", lambda: K1_BWD(src, band_coords, band_mask, g))):
+                    bound_ms, _ = _bound(*work[name])
+                    print(f"timing band {name} {frame} 1/{scale} source {tuple(src.shape)} "
+                          f"target rows {first}..{first + rows - 1}: device (graph replay) "
+                          f"{_graph_ms(fn):.4f} ms, bound {bound_ms:.4f} ms "
+                          f"({work[name][0] / 1e6:.1f} MB) {tag}", flush=True)
+    return (f"phase 2 band kernels vs plain (half the target rows at offsets 0 and h/2, "
+            f"the rigid scales of 128x512 and 256x1024): K1 max abs err {worst['K1']:.3g} <= "
+            f"{K1_ATOL}, K1-bwd {worst['K1-bwd']:.3g} <= {K1_BWD_ATOL}")
 
 
 def _check_losses(gpu, cpu, label, tol=LOSS_TOL):
@@ -2260,7 +2344,7 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     from xpt_mde_tpu_torch.config import FLOW_NET, RIGID_NET
     from xpt_mde_tpu_torch.data import SyntheticDataset
     from xpt_mde_tpu_torch.models import ModelFactory
-    from xpt_mde_tpu_torch.tools import ddp_check
+    from xpt_mde_tpu_torch.tools import ddp_check, spatial_check
     from xpt_mde_tpu_torch.tools.profile_steps import uint8_coded
 
     dataset = SyntheticDataset(batch_size=BATCH, height=HEIGHT, width=WIDTH, num_batches=1,
@@ -2282,10 +2366,19 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
              "flow float32": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "float32", **flow),
              "rigid bf16": case(RIGID_NET, RECIPE, _set_pose_twist, "bfloat16"),
              "flow bf16": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "bfloat16", **flow)}
+    # the height-sharded mesh (two bands of each sample's rows), on the gloo
+    # ranks only: the same weights and batch as the rigid cases
+    spatial = {f"{name} spatial": dataclasses.replace(cases[name], mesh_shape=SPATIAL_MESH)
+               for name in ("rigid float32", "rigid bf16")}
     # float32: one checked step; bfloat16: a warm-up step, then the timed ones
     steps = [1 if "float32" in name else DDP_TIMED_STEPS + 1 for name in cases]
     singles = {name: ddp_check.single_step(c, device) if "float32" in name
-               else {"ms": _single_step_ms(c, device)} for name, c in cases.items()}
+               else _single_step_ms(c, device) for name, c in cases.items()}
+    # the bf16 spatial step's rule: its one-process bf16 step (the timed
+    # one-process run's first step) and that step's distance from the
+    # one-process float32 step
+    bf16_single = singles["rigid bf16"]["first"]
+    bf16_scale = ddp_check.compare(singles["rigid float32"], [bf16_single])
     torch.cuda.empty_cache()
 
     launches_by_path, notes = {}, []
@@ -2293,13 +2386,29 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     nccl, plan_launches, note = _under_torchrun(list(cases.values()), steps, tag)
     launches_by_path["data parallel train_main (rank 0, the plan)"] = plan_launches
     notes.append(note)
-    runs = {"nccl": (torch.cuda.device_count(), nccl, time.perf_counter() - t0)}
+    runs = {"nccl": (torch.cuda.device_count(), nccl, time.perf_counter() - t0, cases)}
     t0 = time.perf_counter()
-    gloo = ddp_check.ddp_steps(list(cases.values()), 2, "cuda", "gloo", workdir=_build_dir(),
-                               steps=steps)
-    runs["gloo"] = (2, gloo, time.perf_counter() - t0)
-    for backend, (world, results, seconds) in runs.items():
-        for (name, c), ranks in zip(cases.items(), results):
+    gloo_cases = cases | spatial
+    # in the same two ranks: the steps, then the spatial mesh's map modules
+    # in bf16
+    tasks = [(ddp_check.rank_steps, (list(gloo_cases.values()),
+                                     steps + [1, SPATIAL_TIMED_STEPS + 1])),
+             (spatial_check.rank_modules, (list(spatial_check.MAP_CASES), 0, torch.bfloat16))]
+    ranks = ddp_check.run_ranks(ddp_check.rank_tasks, (tasks,), 2, "cuda", "gloo",
+                                workdir=_build_dir())
+    gloo = [[rank[0][i] for rank in ranks] for i in range(len(gloo_cases))]
+    runs["gloo"] = (2, gloo, time.perf_counter() - t0, gloo_cases)
+    notes.append(_band_modules_note(ranks[0][1], tag))
+    for name in spatial:
+        results = gloo[list(gloo_cases).index(name)]
+        notes.append(_spatial_note(name, results, singles["rigid float32"], bf16_single,
+                                   bf16_scale, tag))
+    for backend, (world, results, seconds, run_cases) in runs.items():
+        for (name, c), ranks in zip(run_cases.items(), results):
+            if name in spatial:
+                launches_by_path[f"data parallel {name} {backend} x{world} (rank 0, a step)"] = \
+                    ranks[0]["launches"]
+                continue
             launches_by_path[f"data parallel {name} {backend} x{world} (rank 0, a step)"] = \
                 ranks[0]["launches"]
             if "float32" in name:
@@ -2323,13 +2432,83 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     return launches_by_path, "\n".join(f"phase 30 {n}" for n in notes)
 
 
-def _single_step_ms(case, device) -> float:
-    """Median ms of DDP_TIMED_STEPS one-process steps of ``case`` after a
-    warm-up one (host clock around a synchronize, as the ranks time)."""
+def _band_modules_note(results, tag) -> str:
+    """Phase 30's check of the spatial mesh's map modules in bf16 on the
+    card (``spatial_check.rank_modules`` in the two gloo ranks): each
+    module's output and gradients from its bands within
+    ``spatial_check.BF16_RTOL`` of the whole map's."""
+    from xpt_mde_tpu_torch.tools import spatial_check
+
+    worst = {name: max(spatial_check.errors(case).values()) for name, case in results.items()}
+    bad = {name: err for name, err in worst.items() if not err <= spatial_check.BF16_RTOL}
+    if bad:
+        raise AssertionError(f"bf16 band modules past {spatial_check.BF16_RTOL}: {bad}")
+    name = max(worst, key=worst.get)
+    return (f"bf16 band modules on the card ({len(worst)}: convolutions k1-k5 s1-s2, "
+            f"depthwise, BatchNorm, squeeze-excite, resizes, pools; 2 gloo ranks), bands "
+            f"vs the whole map, forward and backward: worst {worst[name]:.3g} of the largest "
+            f"value ({name}) <= {spatial_check.BF16_RTOL:.3g} {tag}")
+
+
+def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
+    """Phase 30's check of a step on the spatial mesh (SPATIAL_MESH, two
+    gloo ranks on the card): every rank launched K1 and K1-bwd on its band;
+    float32 within ``ddp_check.within_tolerance`` of the one-process step,
+    the parameters by its spatial rule; bf16: the loss within
+    SPATIAL_BF16_RATIO times the one-process bf16 step's own distance from
+    the one-process float32 step, at least 2^-8 of the loss (one bf16 ulp),
+    with equal replicas (its gradients are read, not held: see
+    SPATIAL_BF16_RATIO); the timed steps' spatial collectives: bytes a step
+    and share of it."""
+    import numpy as np
+
+    from xpt_mde_tpu_torch.tools import ddp_check
+
+    for rank in ranks:
+        if not (rank["launches"]["K1"] and rank["launches"]["K1-bwd"]):
+            raise AssertionError(f"{name}: rank {rank['rank']} launched no K1 or K1-bwd on "
+                                 f"its band: {rank['launches']}")
+    if "float32" in name:
+        d = ddp_check.compare(single_f32, ranks)
+        rule = ddp_check.within_tolerance(d, spatial=True)
+        text = (f"{name} step, 2 gloo ranks on one card vs one process: "
+                + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in d.items()))
+    else:
+        d = ddp_check.compare(single_bf16, ranks)
+        limit = max(SPATIAL_BF16_RATIO * bf16_scale["loss"], 2.0 ** -8)
+        rule = d["loss"] <= limit and d["replicas"] == 0.0 and d["metrics_equal_across_ranks"]
+        text = (f"{name} step, 2 gloo ranks on one card vs the one-process bf16 step: loss "
+                f"{d['loss']:.3g} (limit {limit:.3g}); read, not held: grad_median "
+                f"{d['grad_median']:.3g}, grad {d['grad']:.3g}; the one-process bf16 step vs "
+                f"float32: loss {bf16_scale['loss']:.3g}, grad_median "
+                f"{bf16_scale['grad_median']:.3g}")
+    if not rule:
+        raise AssertionError(f"{text}: {d}")
+    band = ranks[0]["band"]
+    launches = {k: v for k, v in ranks[0]["launches"].items() if v}
+    text += (f"; rank 0's spatial collectives a step: halo {band['halo_bytes'] / 1e6:.2f} MB, "
+             f"gather {band['gather_bytes'] / 1e6:.2f} MB, sums {band['sum_bytes'] / 1e3:.1f} kB "
+             f"in {band['calls']} all-reduces; launches {json.dumps(launches)}")
+    if ranks[0]["timed"]:
+        ms = [1e3 * t for t, _ in ranks[0]["timed"]]
+        share = [b["seconds"] * 1e3 / m for b, m in zip(ranks[0]["timed_band"], ms)]
+        text += (f"; timing: {np.median(ms):.2f} ms a step (median of {len(ms)}, host clock "
+                 f"around a synchronize, rank 0, each spatial all-reduce between two device "
+                 f"synchronizes), spatial collectives {100 * np.median(share):.1f}% of the step, "
+                 f"gradient all-reduce {np.median([r for _, r in ranks[0]['timed']]):.2f} ms")
+    return text + f" {tag}"
+
+
+def _single_step_ms(case, device) -> dict:
+    """``ms``: the median ms of DDP_TIMED_STEPS one-process steps of
+    ``case`` after a warm-up one (host clock around a synchronize, as the
+    ranks time); ``first``: the warm-up step's result, as
+    ``ddp_check.single_step`` gives it."""
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.tools.ddp_check import _build, _generator
+    from xpt_mde_tpu_torch.tools.ddp_check import _build, _generator, _result
     from xpt_mde_tpu_torch.training import make_train_step
     from xpt_mde_tpu_torch.training.train_step import features_to_device
 
@@ -2337,13 +2516,15 @@ def _single_step_ms(case, device) -> float:
     step = make_train_step(model, loss, optimizer, augmenter=augmenter,
                            regularize_net=case.regularize_net)
     features = features_to_device(case.batch, device)
-    times = []
+    times, first = [], None
     for _ in range(DDP_TIMED_STEPS + 1):
         t0 = time.perf_counter()
-        step(features, _generator(case))
+        metrics = step(features, _generator(case))
         torch.cuda.synchronize(device)
         times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times[1:]))
+        if first is None:
+            first = _result(model, metrics, times[0] / 1e3, draws=[])
+    return {"ms": float(np.median(times[1:])), "first": first}
 
 
 SERVING_CHECK = """
@@ -3003,6 +3184,7 @@ def main(argv=()) -> int:
             # 2. the kernels against their plain versions, and their times
             phase = clock("kernels vs plain")
             kstats = _warp_phase(batches, device, np.random.RandomState(0), tag)
+            print(_band_warp_phase(batches, device, np.random.RandomState(3), tag), flush=True)
             n1_errs, n1_times = _cross_warp_check(stereo_batches[0], device,
                                                   np.random.RandomState(1), tag)
 

@@ -43,10 +43,10 @@ from xpt_mde_tpu_torch.convert import flax_to_state_dict, load_flax_variables
 from xpt_mde_tpu_torch.models import ModelFactory
 from xpt_mde_tpu_torch.models import layers as tlayers
 from xpt_mde_tpu_torch.models.backbones import backbone_factory
-from xpt_mde_tpu_torch.models.backbones.efficientnet import BatchNorm2d, EfficientNet, MBConv
+from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet, MBConv
 from xpt_mde_tpu_torch.models.depth_net import DepthNetPretrained
 from xpt_mde_tpu_torch.models.flow_net import PWCNet
-from xpt_mde_tpu_torch.models.layers import activation_factory
+from xpt_mde_tpu_torch.models.layers import BatchNorm2d, activation_factory
 from xpt_mde_tpu_torch.models.pose_net import PoseNetImproved
 from xpt_mde_tpu_torch.utils.precision import compute_dtype, full_f32
 

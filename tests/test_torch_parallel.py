@@ -264,9 +264,11 @@ def test_make_mesh_shapes():
     assert make_mesh({"data": 1, "spatial": 1}, device="cpu").world_size == 1
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         make_mesh({"data": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="halo exchange"):
+    # the spatial axis is ported (test_torch_spatial.py): its product must
+    # still match the ranks; a model axis is not ported
+    with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         make_mesh({"data": 4, "spatial": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         make_mesh({"data": 1, "model": 2}, device="cpu")
 
 

@@ -142,11 +142,16 @@ def test_config_drift_and_unported_modes_raise(tmp_path):
     with pytest.raises(WrongInputError, match="depth_activation"):
         snapshot_config(tmp_path, _cfg(tmp_path, PLAN, depth_activation="Exponential")
                         .to_json_dict())
-    # the data mesh is ported (test_torch_parallel.py, test_torch_multihost.py);
-    # the height-sharded mesh is not, and a global batch must divide by the ranks
-    for shape in ({"data": 1, "spatial": 2}, {"data": 1, "model": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_mesh(_cfg(tmp_path, PLAN, mesh_shape=shape).mesh_shape, device="cpu")
+    # the data and spatial meshes are ported (test_torch_parallel.py,
+    # test_torch_multihost.py, test_torch_spatial.py): a spatial mesh needs its
+    # ranks; a model axis is not ported, and a global batch must divide by
+    # the ranks
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        make_mesh(_cfg(tmp_path, PLAN, mesh_shape={"data": 1, "spatial": 2}).mesh_shape,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_mesh(_cfg(tmp_path, PLAN, mesh_shape={"data": 1, "model": 2}).mesh_shape,
+                  device="cpu")
     with pytest.raises(ValueError, match="must divide by the world size"):
         train_by_plan(_cfg(tmp_path, PLAN), device="cpu",
                       mesh=Mesh(None, 0, 3, torch.device("cpu")))

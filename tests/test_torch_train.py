@@ -29,9 +29,8 @@ from xpt_mde_tpu.utils import se3 as jse3
 from xpt_mde_tpu_torch.convert import flax_params_to_torch, load_flax_variables
 from xpt_mde_tpu_torch.losses import loss_factory
 from xpt_mde_tpu_torch.losses import photometric as tphoto
-from xpt_mde_tpu_torch.models.backbones.efficientnet import BatchNorm2d
 from xpt_mde_tpu_torch.models.depth_net import DepthDecoder
-from xpt_mde_tpu_torch.models.layers import activation_factory
+from xpt_mde_tpu_torch.models.layers import BatchNorm2d, activation_factory
 from xpt_mde_tpu_torch.models.pose_net import PoseNetImproved
 from xpt_mde_tpu_torch.ops import camera as tcam
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale

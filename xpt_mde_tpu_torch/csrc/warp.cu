@@ -53,6 +53,12 @@
 //   the 32x128 and 16x64 scales still spread over the 132 SMs.
 // K1-bwd keeps its first form: one thread per pixel, at two thirds of its
 // bound and ahead of grid_sample's backward.
+//
+// The target may be a band of `target_rows` rows of the source's width (a
+// spatial mesh's band of the target frame): the target's pixels (coords,
+// mask, out, grad_out, dcoords) are target_rows * W per plane, the source's
+// H * W, and the coordinates are the source's global pixel coordinates,
+// clipped to its H and W. target_rows == H is the one-process warp.
 
 #include <cstdint>
 
@@ -111,10 +117,10 @@ warp_const_src_fwd_kernel(const float* __restrict__ image,
                           const float* __restrict__ coords,
                           const float* __restrict__ mask,
                           float* __restrict__ out,
-                          int numsrc, int height, int width, int channels_arg,
-                          int coord_rows) {
+                          int numsrc, int height, int width, int target_rows,
+                          int channels_arg, int coord_rows) {
   const int channels = kChannels > 0 ? kChannels : channels_arg;
-  const int hw = height * width;
+  const int hw = target_rows * width;  // the target's pixels per plane
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int p0 = (blockIdx.x * (blockDim.x >> 5) + warp) * kWarpPixels;
@@ -122,7 +128,7 @@ warp_const_src_fwd_kernel(const float* __restrict__ image,
   const int count = min(kWarpPixels, hw - p0);
   const int bn = blockIdx.y;  // flattened (batch, source)
   const size_t plane = static_cast<size_t>(bn) * hw;
-  const float* img = image + plane * channels;
+  const float* img = image + static_cast<size_t>(bn) * height * width * channels;
   const float* cu = coords + plane * coord_rows + p0;
   const float* cv = cu + hw;
   const float* mk = mask == nullptr ? nullptr
@@ -212,11 +218,11 @@ warp_const_src_bwd_kernel(const float* __restrict__ image,
                           const float* __restrict__ mask,
                           const float* __restrict__ grad_out,
                           float* __restrict__ dcoords,
-                          int numsrc, int height, int width, int channels,
-                          int coord_rows, long long total) {
+                          int numsrc, int height, int width, int target_rows,
+                          int channels, int coord_rows, long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const long long hw = static_cast<long long>(height) * width;
+  const long long hw = static_cast<long long>(target_rows) * width;  // target pixels
   const long long bn = idx / hw;
   const long long p = idx - bn * hw;
 
@@ -229,7 +235,8 @@ warp_const_src_bwd_kernel(const float* __restrict__ image,
   if (nb.valid) {
     // same products, in the same order, as warp_coord_grad_plain
     const float w_u = nb.uc - u, w_v = nb.vc - v;
-    const float* p_ff = floor_neighbor(image, bn, hw, nb, width, channels);
+    const float* p_ff = floor_neighbor(image, bn, static_cast<long long>(height) * width, nb,
+                                       width, channels);
     const float* p_fc = p_ff + static_cast<long long>(width) * channels;
     const float* p_cf = p_ff + channels;
     const float* p_cc = p_fc + channels;
@@ -260,31 +267,31 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 template <int kChannels>
 void launch_fwd(bool vec, dim3 grid, int threads, cudaStream_t stream, const float* image,
                 const float* coords, const float* mask, float* out, int numsrc, int height,
-                int width, int channels, int coord_rows) {
+                int width, int target_rows, int channels, int coord_rows) {
   if (vec) {
     const size_t smem = (threads / 32) * (3 + channels) * kWarpPixels * sizeof(float);
     warp_const_src_fwd_kernel<kChannels, true><<<grid, threads, smem, stream>>>(
-        image, coords, mask, out, numsrc, height, width, channels, coord_rows);
+        image, coords, mask, out, numsrc, height, width, target_rows, channels, coord_rows);
   } else {
     warp_const_src_fwd_kernel<kChannels, false><<<grid, threads, 0, stream>>>(
-        image, coords, mask, out, numsrc, height, width, channels, coord_rows);
+        image, coords, mask, out, numsrc, height, width, target_rows, channels, coord_rows);
   }
 }
 
 }  // namespace
 
-// image [B,N,H,W,C], coords [B,N,coord_rows,H*W] (rows u, v[, 1]),
-// mask [B,H,W,1] or null, out [B,N,H,W,C]; all float32, contiguous, on the
-// current device. `threads` per block: 64, 128 or 256 (the wrapper picks it
-// from the plane size); B*N <= 65535. Launches K1 on `stream`, with the
-// float4 path where H*W % 4 == 0, C <= 8 and coords, mask and out are
-// 16-byte aligned, and returns cudaGetLastError().
+// image [B,N,H,W,C], coords [B,N,coord_rows,T*W] (rows u, v[, 1]) for T =
+// target_rows target rows, mask [B,T,W,1] or null, out [B,N,T,W,C]; all
+// float32, contiguous, on the current device. `threads` per block: 64, 128
+// or 256 (the wrapper picks it from the plane size); B*N <= 65535. Launches
+// K1 on `stream`, with the float4 path where T*W % 4 == 0, C <= 8 and
+// coords, mask and out are 16-byte aligned, and returns cudaGetLastError().
 extern "C" int xpt_warp_const_src_fwd(const float* image, const float* coords,
                                       const float* mask, float* out,
                                       int batch, int numsrc, int height,
-                                      int width, int channels, int coord_rows,
-                                      int threads, void* stream) {
-  const int hw = height * width;
+                                      int width, int target_rows, int channels,
+                                      int coord_rows, int threads, void* stream) {
+  const int hw = target_rows * width;
   const int planes = batch * numsrc;
   if (hw == 0 || planes == 0 || channels == 0) return static_cast<int>(cudaSuccess);
   if (planes > 65535 || (threads != 64 && threads != 128 && threads != 256)) {
@@ -297,27 +304,27 @@ extern "C" int xpt_warp_const_src_fwd(const float* image, const float* coords,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (channels == 3) {
     launch_fwd<3>(vec, grid, threads, s, image, coords, mask, out, numsrc, height, width,
-                  channels, coord_rows);
+                  target_rows, channels, coord_rows);
   } else {
     launch_fwd<0>(vec, grid, threads, s, image, coords, mask, out, numsrc, height, width,
-                  channels, coord_rows);
+                  target_rows, channels, coord_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The inputs of xpt_warp_const_src_fwd plus grad_out [B,N,H,W,C] (the
-// cotangent of its output); writes dcoords [B,N,coord_rows,H*W] (du, dv[, 0]).
+// The inputs of xpt_warp_const_src_fwd plus grad_out [B,N,T,W,C] (the
+// cotangent of its output); writes dcoords [B,N,coord_rows,T*W] (du, dv[, 0]).
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int xpt_warp_const_src_bwd(const float* image, const float* coords,
                                       const float* mask, const float* grad_out,
                                       float* dcoords, int batch, int numsrc,
-                                      int height, int width, int channels,
-                                      int coord_rows, void* stream) {
-  const long long total = static_cast<long long>(batch) * numsrc * height * width;
+                                      int height, int width, int target_rows,
+                                      int channels, int coord_rows, void* stream) {
+  const long long total = static_cast<long long>(batch) * numsrc * target_rows * width;
   if (total == 0) return static_cast<int>(cudaSuccess);
   warp_const_src_bwd_kernel<<<grid_size(total), kBwdThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      image, coords, mask, grad_out, dcoords, numsrc, height, width, channels,
+      image, coords, mask, grad_out, dcoords, numsrc, height, width, target_rows, channels,
       coord_rows, total);
   return static_cast<int>(cudaGetLastError());
 }

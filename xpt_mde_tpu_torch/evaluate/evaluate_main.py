@@ -74,15 +74,22 @@ def save_predictions(results: dict, pred_dir, name: str) -> None:
 
 
 def predict_dataset_chunked(model, loader, predict_step, pred_dir, name: str,
-                            flush_bytes: int) -> list:
+                            flush_bytes: int, write: bool = True) -> list:
     """``predict_dataset`` within a host-memory budget: predictions flush
     to ``{name}.part{K}.npz`` whenever they exceed ``flush_bytes``; a split
     that fits one chunk is one ``{name}.npz``. A part series is complete
     only once its ``{name}.parts.json`` marker (the part count) exists,
     written last; without it the series reads as absent.
 
+    ``write=False`` runs the steps and writes nothing: a spatial mesh's
+    ranks but the main one.
+
     :return: the written paths (the marker last for a part series)
     """
+    if not write:
+        for _ in _predict_batches(model, loader, predict_step):
+            pass
+        return []
     pred_dir = Path(pred_dir)
     outputs: dict[str, list] = {}
     written: list = []
@@ -231,13 +238,18 @@ def merge_eval_results(evl_root) -> Path:
 
 
 def predict_by_plan(cfg: Config, dataset_factory=None,
-                    device: torch.device | str = "cuda") -> None:
+                    device: torch.device | str = "cuda", mesh=None) -> None:
     """Walk the test plan: build the row's nets, load the checkpoint,
     predict the test split, save the npz. Rows whose predictions exist,
     or whose checkpoint has none of the row's nets, are skipped.
 
     :param device: the card by default; ``"cpu"`` where the caller asks
+    :param mesh: a mesh with a ``spatial`` axis, which every one of its
+        ranks passes: each predicts the whole split on its bands of the
+        image rows, and the main process writes the gathered predictions
     """
+    from xpt_mde_tpu_torch.parallel import is_main_process
+    from xpt_mde_tpu_torch.parallel.sharding import make_parallel_predict_step
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training.checkpoint import CheckpointManager
     from xpt_mde_tpu_torch.training.train_step import make_predict_step
@@ -260,9 +272,12 @@ def predict_by_plan(cfg: Config, dataset_factory=None,
         if not ckpt.restore_params(model, stage.weight_suffix):
             print(f"[predict_by_plan] no weights for {stage.ckpt_name}, skip")
             continue
-        predict_dataset_chunked(model, loader, make_predict_step(model), out_dir,
+        predict_step = make_predict_step(model) if mesh is None \
+            else make_parallel_predict_step(model, mesh)
+        predict_dataset_chunked(model, loader, predict_step, out_dir,
                                 f"{stage.dataset}_{stage.weight_suffix}",
-                                flush_bytes=cfg.predict_flush_mb * 1024 * 1024)
+                                flush_bytes=cfg.predict_flush_mb * 1024 * 1024,
+                                write=mesh is None or is_main_process())
 
 
 def evaluate_by_plan(cfg: Config) -> None:

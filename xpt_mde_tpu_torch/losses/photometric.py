@@ -8,13 +8,18 @@
   scores clip((1 - ssim) / 2, 0, 1).
 
 Inputs: synth_target [B, N, H, W, C], orig_target [B, H, W, C]; outputs
-[B] when ``reduce`` else [B, N, H, W, C].
+[B] when ``reduce`` else [B, N, H, W, C]. On a spatial mesh
+(``parallel.spatial``) the inputs are this rank's band of rows, SSIM's
+windows read one row of each neighbouring band, and a reduced loss is the
+band's share of the sample's mean.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from xpt_mde_tpu_torch.parallel import spatial
 
 
 def _error_mask(synth_target: torch.Tensor) -> torch.Tensor:
@@ -27,7 +32,7 @@ def photometric_loss_l1(synth_target: torch.Tensor, orig_target: torch.Tensor,
     err = torch.abs(synth_target - orig_target[:, None])
     err = torch.where(_error_mask(synth_target), torch.zeros_like(err), err)
     if reduce:
-        return torch.mean(err, dim=(1, 2, 3, 4))
+        return spatial.band_mean(err, (1, 2, 3, 4), 2)
     return err
 
 
@@ -36,7 +41,7 @@ def photometric_loss_l2(synth_target: torch.Tensor, orig_target: torch.Tensor,
     err = torch.square(synth_target - orig_target[:, None])
     err = torch.where(_error_mask(synth_target), torch.zeros_like(err), err)
     if reduce:
-        return torch.mean(err, dim=(1, 2, 3, 4))
+        return spatial.band_mean(err, (1, 2, 3, 4), 2)
     return err
 
 
@@ -48,7 +53,12 @@ def avg_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     # the permute gives, avg_pool2d's backward is wrong (torch 2.11 with
     # CUDA 12.8: it disagrees with the CPU's while the forward agrees)
     flat = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).contiguous()
-    pooled = F.avg_pool2d(flat, 3, stride=1, padding=1, count_include_pad=False)
+    if spatial.current() is not None:
+        from xpt_mde_tpu_torch.models.layers import window_sums_and_counts
+        sums, counts = window_sums_and_counts(flat, 3)
+        pooled = sums / counts
+    else:
+        pooled = F.avg_pool2d(flat, 3, stride=1, padding=1, count_include_pad=False)
     return pooled.permute(0, 2, 3, 1).reshape(x.shape)
 
 
@@ -70,7 +80,7 @@ def photometric_loss_ssim(synth_target: torch.Tensor, orig_target: torch.Tensor,
     ssim = torch.clamp((1.0 - ssim_n / ssim_d) / 2.0, 0.0, 1.0)
     ssim = torch.where(_error_mask(synth_target), torch.zeros_like(ssim), ssim)
     if reduce:
-        return torch.mean(ssim, dim=(1, 2, 3, 4))
+        return spatial.band_mean(ssim, (1, 2, 3, 4), 2)
     return ssim
 
 

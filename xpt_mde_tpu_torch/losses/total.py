@@ -28,6 +28,7 @@ import torch.distributed as dist
 from xpt_mde_tpu_torch.losses.photometric import PHOTOMETRIC_FNS
 from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
 from xpt_mde_tpu_torch.ops.synthesize import synthesize_multi_scale
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.parallel.multihost import step_group
 from xpt_mde_tpu_torch.utils import se3
 from xpt_mde_tpu_torch.utils.image import multi_scale_like, resize_image
@@ -194,10 +195,14 @@ class SmoothenessLossMultiScale:
         return _merge_multi_scale(losses, self.scale_weights)
 
     def smootheness_loss(self, disp, image):
+        """On a spatial mesh's band, ``grad_y`` takes the next band's first
+        row, and each mean is the band's share of the sample's."""
         def grad_x(img):
             return img[:, :, :-1] - img[:, :, 1:]
 
         def grad_y(img):
+            if spatial.current() is not None:
+                return spatial.diff_rows(img, 1)[0]
             return img[:, :-1] - img[:, 1:]
 
         disp_gx, disp_gy = grad_x(disp), grad_y(disp)
@@ -206,8 +211,10 @@ class SmoothenessLossMultiScale:
                                    keepdim=True))
         wy = torch.exp(-torch.mean(torch.abs(img_gy * self.grad_factor), 3,
                                    keepdim=True))
-        sx = 0.5 * torch.mean(torch.abs(disp_gx * wx), dim=(1, 2, 3))
-        sy = 0.5 * torch.mean(torch.abs(disp_gy * wy), dim=(1, 2, 3))
+        rows = spatial.global_rows(disp, 1)
+        sx = 0.5 * spatial.band_mean(torch.abs(disp_gx * wx), (1, 2, 3), 1, of=disp)
+        sy = 0.5 * spatial.band_mean(torch.abs(disp_gy * wy), (1, 2, 3), 1, of=disp,
+                                     rows=rows - 1)
         return sx + sy
 
 

@@ -22,11 +22,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xpt_mde_tpu_torch.models.layers import (BatchNorm2d, Conv2dSame, batch_norm,
-                                             fold_statistics_at_end, to_compute)
+from xpt_mde_tpu_torch.models.layers import (Conv2dSame, batch_norm, fold_statistics_at_end,
+                                             to_compute)
+from xpt_mde_tpu_torch.parallel import spatial
 
-__all__ = ["BatchNorm2d", "EfficientNet", "MBConv", "SqueezeExcite", "round_filters",
-           "round_repeats"]
+__all__ = ["EfficientNet", "MBConv", "SqueezeExcite", "round_filters", "round_repeats"]
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0
 _B0_STAGES = [
@@ -67,7 +67,7 @@ class SqueezeExcite(nn.Module):
         self.Conv_1 = Conv2dSame(reduced_ch, channels, 1, dtype=dtype)
 
     def forward(self, x):
-        se = torch.mean(x, dim=(2, 3), keepdim=True)
+        se = spatial.mean_hw(x, keepdim=True)  # the whole map's, on a spatial mesh
         se = self.Conv_1(F.silu(self.Conv_0(se)))
         return x * torch.sigmoid(se)
 

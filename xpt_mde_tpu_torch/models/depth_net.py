@@ -22,6 +22,9 @@ With a bfloat16 compute ``dtype`` the encoder and the decoder convs run
 in bfloat16, each head's conv goes to float32 before its activation (so
 depth is float32), and the chained heads re-enter the decoder cast back
 to bfloat16, where the JAX package casts them.
+
+On a spatial mesh (``parallel.spatial``) the nets cut the target frame to
+this rank's band of rows, and every size below is the global one.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from xpt_mde_tpu_torch.models.layers import (Conv, cast_parameters, frozen_statistics,
                                              to_compute, upsample_2x_nchw)
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.utils.image import resize_nchw
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
@@ -58,7 +62,7 @@ class UpconvBlock(nn.Module):
     def forward(self, x, skip, bef_pred=None):
         x = self.Conv_0(upsample_2x_nchw(x, self.upsample_interp))
         if self.resize_to_skip:
-            x = resize_nchw(x, skip.shape[-2], skip.shape[-1], "bilinear")
+            x = resize_nchw(x, spatial.global_rows(skip), skip.shape[-1], "bilinear")
         parts = [x, skip] if bef_pred is None else [x, skip, bef_pred.to(x.dtype)]
         return self.Conv_1(torch.cat(parts, dim=1))
 
@@ -157,8 +161,9 @@ class DepthNetPretrained(nn.Module):
         return checkpoint(run, target, use_reentrant=False)
 
     def forward(self, image5d: torch.Tensor):
-        target = to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2))
-        height, width = target.shape[-2:]
+        target = spatial.to_band(
+            to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2)))
+        height, width = spatial.global_rows(target), target.shape[-1]
         with cast_parameters(self):
             features_ms = self._encode(target)
             return self.DepthDecoder_0(features_ms, height, width)
@@ -212,8 +217,9 @@ class DepthNetBasic(nn.Module):
         self.DepthDecoder_0 = DepthDecoder([c1, c2, c3, c4, 512], pred_activation, **up)
 
     def forward(self, image5d: torch.Tensor):
-        target = to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2))
-        height, width = target.shape[-2:]
+        target = spatial.to_band(
+            to_compute(self.compute_dtype, image5d[:, -1].permute(0, 3, 1, 2)))
+        height, width = spatial.global_rows(target), target.shape[-1]
         with cast_parameters(self):
             conv1, conv2, conv3, conv4, conv5, conv6, conv7 = self.BasicEncoder_0(target)
             upconv6 = self.UpconvBlock_0(conv7, conv6)

@@ -14,6 +14,12 @@ bfloat16 they cast the input, the weight and the bias to it at call time
 (flax's ``promote_dtype``) and return bfloat16, while the parameters stay
 float32, so autograd hands float32 gradients back to them. In float32
 nothing is cast.
+
+Inside a spatial mesh's step (``parallel.spatial.banded``) the convs, the
+pools and the resizes run on this rank's band of rows: each takes the rows
+its window reads from the neighbouring bands, and the image's own padding
+only at the image's top and bottom (``parallel.spatial.window``). Outside
+one they run the code below unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn as nn
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.parallel.multihost import step_group
 from xpt_mde_tpu_torch.utils.image import resize_image, resize_nchw
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
@@ -173,6 +180,8 @@ class Conv2dSame(ComputeCast, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = to_compute(self.compute_dtype, x)
         weight, bias = self.cast_params()
+        if spatial.current() is not None and (self.kernel_size[0] > 1 or self.stride[0] > 1):
+            return self._banded(x, weight, bias)
         if not self.same:
             return F.conv2d(x, weight, bias, self.stride, 0, self.dilation, self.groups)
         ph = same_padding(x.shape[-2], self.kernel_size[0], self.stride[0],
@@ -185,6 +194,21 @@ class Conv2dSame(ComputeCast, nn.Conv2d):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         return F.conv2d(x, weight, bias, self.stride, 0,
                         self.dilation, self.groups)
+
+    def _banded(self, x, weight, bias):
+        """The conv of a band (or a whole map) under the band context: the
+        SAME padding of the global rows and of the columns."""
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        ph = same_padding(spatial.global_rows(x), k, s, d) if self.same else (0, 0)
+        pw = same_padding(x.shape[-1], self.kernel_size[1], self.stride[1],
+                          self.dilation[1]) if self.same else (0, 0)
+
+        def conv(rows):
+            if any(pw):
+                rows = F.pad(rows, (pw[0], pw[1], 0, 0))
+            return F.conv2d(rows, weight, bias, self.stride, 0, self.dilation, self.groups)
+
+        return spatial.window(x, (k - 1) * d + 1, s, ph, conv)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -407,8 +431,16 @@ def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     """flax ``max_pool(padding="SAME")``: the SAME pads of each axis
     (low = total // 2, the rest high; (0, 1) for k3 s2 at even sizes)
     filled with -inf, then a VALID max pool."""
-    ph = same_padding(x.shape[-2], kernel, stride)
     pw = same_padding(x.shape[-1], kernel, stride)
+    if spatial.current() is not None:
+        def pool(rows):
+            if any(pw):
+                rows = F.pad(rows, (pw[0], pw[1], 0, 0), value=float("-inf"))
+            return F.max_pool2d(rows, kernel, stride)
+        return spatial.window(x, kernel, stride,
+                              same_padding(spatial.global_rows(x), kernel, stride), pool,
+                              float("-inf"))
+    ph = same_padding(x.shape[-2], kernel, stride)
     if any(ph + pw):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, kernel, stride)
@@ -427,10 +459,36 @@ def avg_pool_same_excluding_pad(x: torch.Tensor, kernel: int = 3) -> torch.Tenso
     backward with this padding is wrong (torch 2.11 with CUDA 12.8: half
     the gradient's norm off while the forward agrees), as SSIM's was."""
     pad = kernel // 2
+    if spatial.current() is not None:
+        sums, counts = window_sums_and_counts(at_least_f32(x).contiguous(), kernel)
+        return sums.to(x.dtype).to(sums.dtype) / counts
     sums = F.avg_pool2d(at_least_f32(x).contiguous(), kernel, 1, pad, divisor_override=1)
     ones = torch.ones((1, 1) + x.shape[-2:], dtype=sums.dtype, device=x.device)
     counts = F.avg_pool2d(ones, kernel, 1, pad, divisor_override=1)
     return sums.to(x.dtype).to(sums.dtype) / counts
+
+
+def _in_frame(first: int, rows: int, size: int, kernel: int, like: torch.Tensor):
+    """How many of the ``kernel`` positions centred on each of the rows
+    ``first`` .. ``first + rows - 1`` lie in 0 .. ``size - 1``."""
+    r = torch.arange(first, first + rows, device=like.device)
+    lo = torch.clamp(r - kernel // 2, min=0)
+    hi = torch.clamp(r + kernel // 2, max=size - 1)
+    return (hi - lo + 1).to(like.dtype)
+
+
+def window_sums_and_counts(x: torch.Tensor, kernel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SAME stride-1 window sums of [N, C, H, W] under the band
+    context, and each output's count of in-frame positions: the rows from
+    the neighbouring bands count, the image's padding does not."""
+    pad = kernel // 2
+    sums = spatial.window(x, kernel, 1, (pad, pad),
+                          lambda rows: F.avg_pool2d(rows, kernel, 1, (0, pad),
+                                                    divisor_override=1))
+    rows_in = _in_frame(spatial.first_row(sums), sums.shape[-2], spatial.global_rows(sums),
+                        kernel, sums)
+    cols_in = _in_frame(0, sums.shape[-1], sums.shape[-1], kernel, sums)
+    return sums, rows_in[:, None] * cols_in[None, :]
 
 
 class ConvTranspose(ComputeCast, nn.ConvTranspose2d):
@@ -495,19 +553,19 @@ def _upsample_method(method: str) -> str:
 
 def upsample_2x_nchw(x: torch.Tensor, method: str = "nearest") -> torch.Tensor:
     """2x spatial upsampling of [N, C, H, W] (half-pixel centres)."""
-    return resize_nchw(x, x.shape[-2] * 2, x.shape[-1] * 2,
+    return resize_nchw(x, spatial.global_rows(x) * 2, x.shape[-1] * 2,
                        _upsample_method(method))
 
 
 def upsample_2x(x: torch.Tensor, method: str = "nearest") -> torch.Tensor:
     """2x spatial upsampling of [..., H, W, C]."""
-    return resize_image(x, x.shape[-3] * 2, x.shape[-2] * 2,
+    return resize_image(x, spatial.global_rows(x, -3) * 2, x.shape[-2] * 2,
                         _upsample_method(method))
 
 
 def resize_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Bilinear resize of x's (H, W) to ref's, both [..., H, W, C]."""
-    return resize_image(x, ref.shape[-3], ref.shape[-2], "bilinear")
+    return resize_image(x, spatial.global_rows(ref, -3), ref.shape[-2], "bilinear")
 
 
 def resize_hw(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

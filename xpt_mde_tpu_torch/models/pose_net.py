@@ -13,7 +13,8 @@ numsrc*6 -> spatial mean -> [B, numsrc, 6] target->source twists.
 
 Every net gets one more stride-2 block at high resolution but
 PoseNetBasic. The convs compute in ``dtype``; the mean is taken in
-float32."""
+float32. On a spatial mesh (``parallel.spatial``) the stack runs on this
+rank's band of rows and the mean is the whole map's."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xpt_mde_tpu_torch.models.layers import Conv, cast_parameters, to_compute
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 # (features, kernel, stride) of the conv stacks, in flax's Conv_i order
@@ -68,14 +70,22 @@ class _PoseConvStack(nn.Module):
     def forward(self, image5d: torch.Tensor):
         b, s, h, w, c = image5d.shape
         # channel index s*C + c, as restack_on_channels orders it
-        x = to_compute(self.compute_dtype, image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w))
+        x = spatial.to_band(
+            to_compute(self.compute_dtype, image5d.permute(0, 1, 4, 2, 3).reshape(b, s * c, h, w)))
         with cast_parameters(self):
             if self.backbone is not None:
                 x = self.backbone(x)[-1]  # the stride-32 map
             for layer in self._layers:
-                x = F.max_pool2d(x, 2, 2) if layer is None else layer(x)
-        poses = torch.mean(at_least_f32(x), dim=(2, 3))
+                x = _max_pool_2x2(x) if layer is None else layer(x)
+        poses = spatial.mean_hw(at_least_f32(x))
         return {"pose": poses.reshape(-1, self.numsrc, 6)}
+
+
+def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """flax ``max_pool((2, 2), strides=(2, 2))``, VALID."""
+    if spatial.current() is not None:
+        return spatial.window(x, 2, 2, (0, 0), lambda rows: F.max_pool2d(rows, 2, 2))
+    return F.max_pool2d(x, 2, 2)
 
 
 class PoseNetBasic(_PoseConvStack):

@@ -18,9 +18,11 @@ _Z_EPS = 1e-10
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,
-               device=None) -> torch.Tensor:
-    """Homogeneous pixel grid (u, v, 1), shape [3, height*width]."""
-    v, u = torch.meshgrid(torch.arange(height, dtype=dtype, device=device),
+               device=None, first_row: int = 0) -> torch.Tensor:
+    """Homogeneous pixel grid (u, v, 1), shape [3, height*width]; v runs
+    from ``first_row`` (a band's first global row on a spatial mesh)."""
+    v, u = torch.meshgrid(torch.arange(first_row, first_row + height, dtype=dtype,
+                                       device=device),
                           torch.arange(width, dtype=dtype, device=device),
                           indexing="ij")
     ones = torch.ones(height * width, dtype=dtype, device=device)

@@ -8,6 +8,12 @@ JAX ``mode="exact"`` sampler; the TPU's int8 mode is not reproduced), and
 K1-bwd exactly :func:`xpt_mde_tpu_torch.ops.warp.warp_coord_grad_plain`.
 :class:`WarpConstSrc` joins them into one differentiable op: like the TPU
 kernel it gives the image and the mask no gradient.
+
+The target may be a band of h_t rows of the source's width (a spatial
+mesh's band, ``parallel.spatial``): coords [B,N,2|3,h_t*W] in the source's
+global pixel coordinates, mask [B,h_t,W,1], output [B,N,h_t,W,C]; the
+neighbours are clipped to the source's H and W. h_t = H is the one-process
+warp.
 """
 
 from __future__ import annotations
@@ -39,28 +45,34 @@ def fwd_threads(planes: int, hw: int, num_sms: int) -> int:
     return FWD_THREADS[-1]
 
 
+def target_rows(image: torch.Tensor, pixel_coords: torch.Tensor) -> int:
+    """The target's rows h_t: the coords' pixels over the source's width."""
+    return pixel_coords.shape[-1] // image.shape[3]
+
+
 def _check(image, pixel_coords, valid_mask, grad_out=None):
     """Raise unless the tensors are what the kernels take: image
-    [B,N,H,W,C], coords [B,N,2|3,H*W], mask [B,H,W,1] or None, grad_out
-    like image; all float32, contiguous, on one CUDA device."""
+    [B,N,H,W,C], coords [B,N,2|3,h_t*W] (h_t >= 1 target rows), mask
+    [B,h_t,W,1] or None, grad_out [B,N,h_t,W,C]; all float32, contiguous,
+    on one CUDA device."""
     if image.dim() != 5:
         raise ValueError(f"image must be [B,N,H,W,C], got {tuple(image.shape)}")
-    batch, numsrc, height, width, _ = image.shape
-    hw = height * width
+    batch, numsrc, _, width, channels = image.shape
     if (pixel_coords.dim() != 4 or pixel_coords.shape[2] not in (2, 3)
             or pixel_coords.shape[:2] != (batch, numsrc)
-            or pixel_coords.shape[3] != hw):
-        raise ValueError(f"coords must be [{batch},{numsrc},2|3,{hw}], "
+            or pixel_coords.shape[3] == 0 or pixel_coords.shape[3] % width):
+        raise ValueError(f"coords must be [{batch},{numsrc},2|3,h_t*{width}], "
                          f"got {tuple(pixel_coords.shape)}")
+    rows = target_rows(image, pixel_coords)
     tensors = [("image", image), ("pixel_coords", pixel_coords)]
     if valid_mask is not None:
-        if tuple(valid_mask.shape) != (batch, height, width, 1):
-            raise ValueError(f"valid_mask must be [{batch},{height},{width},1], "
+        if tuple(valid_mask.shape) != (batch, rows, width, 1):
+            raise ValueError(f"valid_mask must be [{batch},{rows},{width},1], "
                              f"got {tuple(valid_mask.shape)}")
         tensors.append(("valid_mask", valid_mask))
     if grad_out is not None:
-        if grad_out.shape != image.shape:
-            raise ValueError(f"grad_out must be {tuple(image.shape)}, "
+        if tuple(grad_out.shape) != (batch, numsrc, rows, width, channels):
+            raise ValueError(f"grad_out must be {(batch, numsrc, rows, width, channels)}, "
                              f"got {tuple(grad_out.shape)}")
         tensors.append(("grad_out", grad_out))
     for name, t in tensors:
@@ -105,8 +117,8 @@ class _WarpEntry:
         with torch.cuda.device(image.device):
             stream = torch.cuda.current_stream(image.device).cuda_stream
             err = fn(image.data_ptr(), pixel_coords.data_ptr(), *pointers,
-                     batch, numsrc, height, width, channels, pixel_coords.shape[2],
-                     *launch, stream)
+                     batch, numsrc, height, width, target_rows(image, pixel_coords),
+                     channels, pixel_coords.shape[2], *launch, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {err}")
         self.launches += 1
@@ -116,25 +128,26 @@ class WarpKernel(_WarpEntry):
     """Launches K1."""
 
     def __init__(self):
-        super().__init__("K1", "xpt_warp_const_src_fwd", 4, 7)
+        super().__init__("K1", "xpt_warp_const_src_fwd", 4, 8)
 
     def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
                  valid_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """:param image: [B,N,H,W,C]; :param pixel_coords: [B,N,2|3,H*W];
-        :param valid_mask: optional [B,H,W,1]. All float32, contiguous,
-        on one CUDA device. :return: [B,N,H,W,C]. Differentiable calls go
+        """:param image: [B,N,H,W,C]; :param pixel_coords: [B,N,2|3,h_t*W];
+        :param valid_mask: optional [B,h_t,W,1]. All float32, contiguous,
+        on one CUDA device. :return: [B,N,h_t,W,C]. Differentiable calls go
         through :class:`WarpConstSrc`."""
         _check(image, pixel_coords, valid_mask)
         if torch.is_grad_enabled() and pixel_coords.requires_grad:
             raise ValueError("K1 called directly drops the coordinate gradient: "
                              "use WarpConstSrc.apply (ops.warp.bilinear_sample)")
-        batch, numsrc, height, width, _ = image.shape
+        batch, numsrc, _, width, channels = image.shape
         if batch * numsrc > 65535:
             raise ValueError(f"K1 takes B*N <= 65535 (one grid row per plane), "
                              f"got {batch * numsrc}")
-        out = torch.empty_like(image)
+        rows = target_rows(image, pixel_coords)
+        out = image.new_empty((batch, numsrc, rows, width, channels))
         num_sms = torch.cuda.get_device_properties(image.device).multi_processor_count
-        threads = fwd_threads(batch * numsrc, height * width, num_sms)
+        threads = fwd_threads(batch * numsrc, rows * width, num_sms)
         self._launch(image, pixel_coords, valid_mask, out, launch=(threads,))
         return out
 
@@ -143,13 +156,13 @@ class WarpBwdKernel(_WarpEntry):
     """Launches K1-bwd."""
 
     def __init__(self):
-        super().__init__("K1-bwd", "xpt_warp_const_src_bwd", 5, 6)
+        super().__init__("K1-bwd", "xpt_warp_const_src_bwd", 5, 7)
 
     def __call__(self, image: torch.Tensor, pixel_coords: torch.Tensor,
                  valid_mask: torch.Tensor | None,
                  grad_out: torch.Tensor) -> torch.Tensor:
-        """K1's inputs plus ``grad_out`` [B,N,H,W,C], the cotangent of its
-        output. :return: dcoords [B,N,2|3,H*W] (du, dv[, 0])."""
+        """K1's inputs plus ``grad_out`` [B,N,h_t,W,C], the cotangent of its
+        output. :return: dcoords [B,N,2|3,h_t*W] (du, dv[, 0])."""
         grad_out = grad_out.contiguous()
         _check(image, pixel_coords, valid_mask, grad_out)
         dcoords = torch.empty_like(pixel_coords)

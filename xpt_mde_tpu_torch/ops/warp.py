@@ -7,7 +7,10 @@ Semantics, shared with kernels K1 and K1-bwd (``ops/kernels/warp.py``):
   INVALID;
 - an optional per-target-pixel ``valid_mask`` (zero depth) also
   invalidates, shared by all sources;
-- invalid pixels come out black (all four weights 0).
+- invalid pixels come out black (all four weights 0);
+- the target may be a band of rows (a spatial mesh's): coords and mask
+  cover h_t rows of the source's width, in the source's global pixel
+  coordinates, and the output has h_t rows.
 
 :func:`bilinear_sample_plain` and :func:`warp_coord_grad_plain` are the
 plain PyTorch versions of K1 and K1-bwd: the CPU path and the oracles the
@@ -64,11 +67,13 @@ def bilinear_sample_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
     :func:`warp_coord_grad_plain` (and, unlike K1, the image one too).
 
     :param image: [B, N, H, W, C]
-    :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
-    :param valid_mask: optional [B, H, W, 1]; zero entries are invalid
-    :return: [B, N, H, W, C]
+    :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, h_t*W], h_t = H but on
+        a band of target rows
+    :param valid_mask: optional [B, h_t, W, 1]; zero entries are invalid
+    :return: [B, N, h_t, W, C]
     """
     batch, numsrc, height, width, channels = image.shape
+    rows = pixel_coords.shape[-1] // width
     u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
     w_uf, w_uc = uc - u, u - uf
     w_vf, w_vc = vc - v, v - vf
@@ -80,7 +85,7 @@ def bilinear_sample_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
                        vf * width + uc, vc * width + uc), weights):
         term = _gather(image, idx) * w[..., None]
         out = term if out is None else out + term
-    return out.reshape(batch, numsrc, height, width, channels)
+    return out.reshape(batch, numsrc, rows, width, channels)
 
 
 def warp_coord_grad_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
@@ -96,12 +101,13 @@ def warp_coord_grad_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
     uf + 1, J = w_u * P_f + (1 - w_u) * P_c and D = P_c - P_f, each at row
     vf (J_f, D_f) and vf + 1 (J_c, D_c).
 
-    :param image: [B, N, H, W, C]; :param pixel_coords: [B, N, 2 or 3, H*W]
-    :param valid_mask: optional [B, H, W, 1]
-    :param grad_out: [B, N, H, W, C], the cotangent of the sample
-    :return: dcoords [B, N, 2 or 3, H*W]; a homogeneous third row gets 0
+    :param image: [B, N, H, W, C]; :param pixel_coords: [B, N, 2 or 3, h_t*W]
+    :param valid_mask: optional [B, h_t, W, 1]
+    :param grad_out: [B, N, h_t, W, C], the cotangent of the sample
+    :return: dcoords [B, N, 2 or 3, h_t*W]; a homogeneous third row gets 0
     """
     batch, numsrc, height, width, channels = image.shape
+    target_hw = pixel_coords.shape[-1]
     u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
     w_u = (uc - u)[..., None]
     w_v = (vc - v)[..., None]
@@ -115,7 +121,7 @@ def warp_coord_grad_plain(image: torch.Tensor, pixel_coords: torch.Tensor,
     j_c = w_u * p_fc + (1.0 - w_u) * p_cc
     d_f = p_cf - p_ff
     d_c = p_cc - p_fc
-    g = grad_out.reshape(batch, numsrc, height * width, channels)
+    g = grad_out.reshape(batch, numsrc, target_hw, channels)
     du = torch.sum(g * (w_v * d_f + (1.0 - w_v) * d_c), dim=-1) * valid
     dv = torch.sum(g * (j_c - j_f), dim=-1) * valid
     rows = [du, dv] + [torch.zeros_like(du)] * (pixel_coords.shape[2] - 2)

@@ -12,7 +12,9 @@ with a ``torch.distributed`` process group, as ``torchrun`` starts them:
   other: a group that cannot form raises;
 - ranks are host-major (all of host 0's cards, then host 1's), which is
   torchrun's own numbering, so ``make_multihost_mesh`` is the mesh over
-  every rank in rank order;
+  every rank in rank order, and its trailing axes (``spatial``) must
+  divide one host's rank count, as JAX's rule keeps them off the network
+  between hosts;
 - each process feeds only its rows of the global batch (the loaders'
   ``process_index``/``process_count`` slice of the shared shuffle order),
   and ``local_view`` of a batch is those rows;
@@ -134,10 +136,27 @@ def step_group():
     return _step_group
 
 
+def local_process_count() -> int:
+    """The processes on this host: torchrun's ``LOCAL_WORLD_SIZE``, else
+    every process."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", process_count()))
+
+
 def make_multihost_mesh(shape: Mapping[str, int] | None = None, device=None):
     """The mesh over every rank of every host, in torchrun's host-major
-    rank order (:func:`~xpt_mde_tpu_torch.parallel.mesh.make_mesh`)."""
+    rank order (:func:`~xpt_mde_tpu_torch.parallel.mesh.make_mesh`). The
+    axes after the first must divide the ranks of one host (ValueError),
+    so a sample's bands sit on one host."""
     from xpt_mde_tpu_torch.parallel.mesh import make_mesh
+
+    if shape is not None and len(shape) > 1:
+        dims = list(shape.values())
+        trailing = 1
+        for n in dims[1:]:
+            trailing *= n
+        if trailing > 1 and local_process_count() % trailing:
+            raise ValueError(f"trailing axes {dict(list(shape.items())[1:])} (size {trailing}) "
+                             f"must divide the per-host process count {local_process_count()}")
     return make_mesh(shape, device=device)
 
 

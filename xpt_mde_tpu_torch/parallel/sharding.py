@@ -26,10 +26,21 @@ the single-process module, so checkpoints keep its state-dict keys (no
 ``module.`` prefix). What it gives up is DDP's overlap of the reduction
 with the backward.
 
-Rows: rank r of W holds rows of the global batch of B such that, cut into
-``grad_accum_steps`` = k contiguous microbatches, its microbatch i is its
-share of JAX's global microbatch i (``rank_rows``); for k = 1 that is the
-contiguous r-th share.
+Rows: the ranks of data index d of D hold rows of the global batch of B
+such that, cut into ``grad_accum_steps`` = k contiguous microbatches, their
+microbatch i is their share of JAX's global microbatch i (``rank_rows``);
+for k = 1 that is the contiguous d-th share.
+
+On a mesh with a ``spatial`` axis (``parallel.spatial``) the S ranks of one
+data index hold the same rows, whole: the augmentation's box and resize,
+the source frames the synthesis samples and the target pyramid read whole
+frames, which are small beside the nets' activations
+(:func:`feature_sharding` names the features JAX splits by height). The
+steps run the step body inside ``spatial.banded``, where the nets cut
+their inputs to the rank's band, and sum the gradients over the whole
+mesh: each rank's loss is its bands' share of the global loss. The
+per-sample metrics come from the gathered predictions, the same on every
+rank of a spatial group, and are averaged as before.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.parallel.mesh import Mesh
 from xpt_mde_tpu_torch.parallel.multihost import reducing_over
 
@@ -63,19 +75,91 @@ def rank_rows(global_batch: int, world_size: int, rank: int,
 
 
 def local_rows(features: Mapping, mesh: Mesh, grad_accum_steps: int = 1) -> dict:
-    """This rank's rows (:func:`rank_rows`) of a global batch that every
-    rank holds whole (numpy arrays or tensors)."""
+    """This rank's rows (:func:`rank_rows` of its data index) of a global
+    batch that every rank holds whole (numpy arrays or tensors)."""
     batch = len(next(iter(features.values())))
-    rows = rank_rows(batch, mesh.world_size, mesh.rank, grad_accum_steps)
+    rows = rank_rows(batch, mesh.data, mesh.data_index, grad_accum_steps)
     return {key: value[torch.from_numpy(rows)] if isinstance(value, torch.Tensor)
             else np.asarray(value)[rows] for key, value in features.items()}
 
 
+# feature-name prefixes whose arrays carry the image (H, W) axes; poses,
+# intrinsics and extrinsics stay data-sharded whatever their rank (pose_gt
+# is [B, numsrc, 4, 4]: its axis 1 is not the height)
+SPATIAL_KEYS = ("image", "depth_gt", "flow_gt")
+
+
+def feature_sharding(mesh: Mesh, ndim: int, name: str = "") -> tuple:
+    """The JAX package's PartitionSpec of one feature, as a tuple: the
+    batch axis on ``data``, and on a mesh with a ``spatial`` axis the
+    height of the image-like features by NAME (``image*``, ``depth_gt*``,
+    ``flow_gt*``): [B, S, H, W, C] -> (data, None, spatial), [B, H, W, C]
+    -> (data, spatial)."""
+    if mesh.spatial > 1 and name.startswith(SPATIAL_KEYS) and ndim >= 4:
+        return ("data", None, "spatial") if ndim >= 5 else ("data", "spatial")
+    return ("data",)
+
+
+def spatial_keys(features: Mapping, mesh: Mesh) -> list:
+    """The features :func:`feature_sharding` splits by height."""
+    return [key for key, value in features.items()
+            if "spatial" in feature_sharding(mesh, np.ndim(value), key)]
+
+
 def shard_batch(features: Mapping, mesh: Mesh) -> dict:
     """The process's rows (a loader's slice of the global batch, or
-    :func:`local_rows`) as tensors on the rank's device."""
+    :func:`local_rows`) as tensors on the rank's device. On a mesh with a
+    ``spatial`` axis every rank of a spatial group holds the whole frames:
+    the nets cut their inputs to the rank's band (``spatial.to_band``) and
+    each rank samples the whole source frames."""
     from xpt_mde_tpu_torch.training.train_step import features_to_device
     return features_to_device(features, mesh.device)
+
+
+# the modules whose every spatial op the band context covers
+_SPATIAL_DEPTH_NETS = ("DepthNetBasic", "DepthNetNoResize", "DepthNetPretrained")
+_SPATIAL_POSE_NETS = ("PoseNetBasic", "PoseNetImproved", "PoseNetDeep")
+_SPATIAL_LOSSES = ("L1", "L2", "SSIM", "smoothe")
+_SPATIAL_TODO = ("the flow, joint and stereo steps on the spatial mesh are ROADMAP "
+                 "queue 1 item 4")
+
+
+def check_spatial(model: torch.nn.Module, total_loss=None) -> None:
+    """Raise NotImplementedError unless ``model`` and ``total_loss`` are the
+    rigid path that runs on bands: no flow net, a depth net on EfficientNet
+    or the basic encoder, a pose net without a backbone, the L1, L2, SSIM
+    and smoothness terms (of the left views: a stereo recipe's terms
+    raise)."""
+    from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
+
+    if getattr(model, "flownet", None) is not None:
+        raise NotImplementedError(f"a flow model: {_SPATIAL_TODO}")
+    depth, pose = getattr(model, "depthnet", None), getattr(model, "posenet", None)
+    backbone = getattr(depth, "backbone", None)
+    if depth is not None and (type(depth).__name__ not in _SPATIAL_DEPTH_NETS or (
+            backbone is not None and not isinstance(backbone, EfficientNet))):
+        raise NotImplementedError(f"{type(depth).__name__} on {type(backbone).__name__}: the "
+                                  "spatial mesh runs EfficientNet and the basic encoder")
+    if pose is not None and (type(pose).__name__ not in _SPATIAL_POSE_NETS
+                             or pose.backbone is not None):
+        raise NotImplementedError(f"{type(pose).__name__}: the spatial mesh runs the "
+                                  "pose nets without a backbone")
+    terms = set(getattr(total_loss, "loss_objects", {})) - set(_SPATIAL_LOSSES)
+    if terms:
+        raise NotImplementedError(f"loss terms {sorted(terms)} on the spatial mesh: "
+                                  f"{_SPATIAL_TODO}")
+
+
+def whole_predictions(preds: Mapping) -> dict:
+    """The predictions of a banded forward with every band of a map
+    gathered (NHWC maps, rows along axis 1)."""
+    def full(value):
+        if isinstance(value, (list, tuple)):
+            return [full(v) for v in value]
+        if isinstance(value, torch.Tensor) and value.dim() == 4:
+            return spatial.whole(value, 1)
+        return value
+    return {key: full(value) for key, value in preds.items()}
 
 
 def _source(mesh: Mesh) -> int:
@@ -144,22 +228,27 @@ def reduce_metrics(metrics: Mapping[str, torch.Tensor], group) -> dict:
 def make_parallel_train_step(model: torch.nn.Module, total_loss,
                              optimizer: torch.optim.Optimizer, mesh: Mesh, augmenter=None,
                              regularize_net: str | None = None, frozen_nets=(),
-                             grad_accum_steps: int = 1) -> Callable:
+                             grad_accum_steps: int = 1, timed: bool = False) -> Callable:
     """The train step over ``mesh``: ``make_train_step``'s body on the
     rank's rows (:func:`rank_rows`), inside ``reducing_over`` the mesh's
-    group, with the gradients summed before the optimizer step and the
-    metrics reduced after it.
+    group (and on a spatial mesh ``spatial.banded``, on the whole frames
+    :func:`shard_batch` gave), with the gradients
+    summed before the optimizer step and the metrics reduced after it.
 
     ``total_loss.batch_size`` must be the GLOBAL batch. ``step(features,
     generator)``: every rank passes a generator seeded alike, so every
     rank draws the same augmentation, as JAX draws one per global batch.
-    ``step.reduce_ms()`` is the last step's gradient all-reduce time.
+    ``step.reduce_ms()`` is the last step's gradient all-reduce time;
+    on a spatial mesh ``step.band_stats`` the last step's
+    ``spatial.BandStats`` (its collectives' seconds with ``timed``).
     """
     from xpt_mde_tpu_torch.training.train_step import make_train_step
 
     if getattr(total_loss, "batch_size", None) is None:
         raise ValueError("a data-parallel step needs total_loss built with batch_size = the "
                          "GLOBAL batch size")
+    if mesh.spatial > 1:
+        check_spatial(model, total_loss)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     timing = {"events": None, "ms": 0.0}
 
@@ -184,8 +273,11 @@ def make_parallel_train_step(model: torch.nn.Module, total_loss,
 
     def step(features: Mapping[str, torch.Tensor],
              generator: torch.Generator | None = None) -> dict:
-        with reducing_over(mesh.group):
+        with reducing_over(mesh.group), spatial.banded(mesh, timed) as band:
+            if band is not None:
+                spatial.register_frames(features, spatial_keys(features, mesh))
             metrics = body(features, generator)
+        step.band_stats = None if band is None else band.stats
         return reduce_metrics(metrics, mesh.group)
 
     def reduce_ms() -> float:
@@ -199,3 +291,44 @@ def make_parallel_train_step(model: torch.nn.Module, total_loss,
 
     step.reduce_ms = reduce_ms
     return step
+
+
+def make_parallel_eval_step(model: torch.nn.Module, total_loss, mesh: Mesh) -> Callable:
+    """The eval step over ``mesh`` on the rank's rows (and bands):
+    ``make_eval_step`` inside ``reducing_over`` the mesh's group, the
+    metrics reduced over it."""
+    from xpt_mde_tpu_torch.training.train_step import make_eval_step
+
+    if mesh.spatial > 1:
+        check_spatial(model, total_loss)
+    body = make_eval_step(model, total_loss)
+
+    def eval_step(features: Mapping[str, torch.Tensor]) -> dict:
+        with reducing_over(mesh.group), spatial.banded(mesh) as band:
+            if band is not None:
+                spatial.register_frames(features, spatial_keys(features, mesh))
+            metrics = body(features)
+        return reduce_metrics(metrics, mesh.group)
+
+    return eval_step
+
+
+def make_parallel_predict_step(model: torch.nn.Module, mesh: Mesh) -> Callable:
+    """The predict step over ``mesh``: on a spatial mesh the nets run on
+    the rank's bands and the predicted maps come back whole on every rank
+    of its spatial group; on the data mesh ``make_predict_step``."""
+    from xpt_mde_tpu_torch.training.train_step import make_predict_step
+
+    body = make_predict_step(model)
+    if mesh.spatial == 1:
+        return body
+    check_spatial(model)
+
+    def predict_step(features: Mapping[str, torch.Tensor]) -> dict:
+        with spatial.banded(mesh):
+            spatial.register_frames(features, spatial_keys(features, mesh))
+            preds = body(features)
+            with torch.inference_mode():
+                return whole_predictions(preds)
+
+    return predict_step

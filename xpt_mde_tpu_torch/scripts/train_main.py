@@ -16,8 +16,12 @@ each process joins the NCCL group (torchrun's ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) on ``cuda:LOCAL_RANK``,
 and the mesh spans every rank. ``cfg.mesh_shape`` must then be
 ``{"data": world size}``, so that ``cfg.batch_size`` is the global batch
-(``per_replica_batch`` rows a card); another shape raises. The test
-plan's predictions are made after training, by the main process alone.
+(``per_replica_batch`` rows a card), or ``{"data": D, "spatial": S}`` with
+D x S the world size: each sample's image rows split over S cards, the
+rigid path only (``parallel.spatial``); a shape of another size raises.
+The test plan's predictions are made after training: by the main process
+alone, or on a spatial mesh by every rank on its bands, the main process
+writing them.
 """
 
 import os
@@ -48,7 +52,7 @@ def main(cfg: Config | None = None, device_type: str = "cuda") -> None:
 
     from xpt_mde_tpu_torch.evaluate.evaluate_main import predict_by_plan
     from xpt_mde_tpu_torch.parallel import (barrier, initialize, is_main_process,
-                                            make_mesh)
+                                            make_multihost_mesh)
     from xpt_mde_tpu_torch.parallel.multihost import local_device
     from xpt_mde_tpu_torch.training.trainer import train_by_plan
 
@@ -57,13 +61,15 @@ def main(cfg: Config | None = None, device_type: str = "cuda") -> None:
     if "WORLD_SIZE" in os.environ:  # started by torchrun
         device = local_device(device_type)
         initialize(device)
-        mesh = make_mesh(cfg.mesh_shape, device=device)
+        mesh = make_multihost_mesh(cfg.mesh_shape, device=device)
         print(f"[train_main] rank {mesh.rank} of {mesh.world_size} on {device}, global "
               f"batch {cfg.batch_size}")
     try:
         device = mesh.device if mesh is not None else torch.device(device_type)
         train_by_plan(cfg, device=device, mesh=mesh)
-        if cfg.test_plan and is_main_process():
+        if cfg.test_plan and mesh is not None and mesh.spatial > 1:
+            predict_by_plan(cfg, device=device, mesh=mesh)
+        elif cfg.test_plan and is_main_process():
             predict_by_plan(cfg, device=device)
         barrier()
     finally:

@@ -16,9 +16,14 @@ repository root, on a machine with a card:
 
     python -m xpt_mde_tpu_torch.tools.ddp_check --world 2 --backend gloo
     python -m xpt_mde_tpu_torch.tools.ddp_check --world 2 --backend nccl   # 2 cards
+    python -m xpt_mde_tpu_torch.tools.ddp_check --world 2 --backend gloo \
+        --depth EfficientNetB5 --size 4 128 512 --spatial --float64
 
-(EfficientNetB0 + PoseNetImproved at 64x128, batch 4: the rigid step;
-prints the distances and exits 1 past the stated tolerances.)
+(EfficientNetB0 + PoseNetImproved at 64x128, batch 4, by default: the
+rigid step; prints the distances and exits 1 past the stated tolerances.
+``--spatial`` adds the step on the height-sharded mesh, ``--float64``
+each float32 step's distance from a float64 step of the same batch on the
+CPU, the exact step's stand-in.)
 """
 
 from __future__ import annotations
@@ -49,6 +54,16 @@ GRAD_MEDIAN_RTOL = 0.03   # the gradient tensors' median distance, relative to n
 GRAD_MAX_RTOL = 0.1       # each gradient tensor (chip_smoke.GRAD_MAX_RTOL)
 STAT_ATOL = 1e-4          # each running statistic (chip_smoke.BN_TOL's atol)
 PARAM_ATOL = 2e-4         # Adam's first step moves a weight by +-lr (1e-4): a sign
+# the height-sharded mesh's float32 step (two bands of every map): the
+# parameters by test_torch_spatial.py's rule, the rest as above. Its
+# convolutions run on half the rows, and on the card its gradients sit
+# farther from the one-process step's than the data-parallel step's (B5:
+# a median 0.023 against 0.007), so more noise-level gradients flip sign:
+# such a weight moves by +-lr either way, 2 lr apart plus the float32
+# rounding of the two moved weights; one whose gradients share a sign
+# moves alike, within lr
+SPATIAL_PARAM_ATOL = 2e-4 + 1e-6
+SPATIAL_SAME_SIGN_ATOL = 1e-4
 
 
 @dataclasses.dataclass
@@ -60,6 +75,9 @@ class StepCase:
         factory's seeded weights
     :ivar generator_seed: the step's augmentation stream (every rank seeds
         it alike); None: no augmentation
+    :ivar mesh_shape: the mesh over the ranks, e.g. ``{"data": 1,
+        "spatial": 2}``; None: the data mesh
+    :ivar scale_weights: the loss's; None: ``SCALE_WEIGHT_T1``
     """
 
     nets: dict
@@ -76,26 +94,39 @@ class StepCase:
     augment_probs: dict | None = None
     generator_seed: int | None = None
     seed: int = 0
+    mesh_shape: dict | None = None
+    scale_weights: tuple | None = None
 
     @property
     def global_batch(self) -> int:
         return len(next(iter(self.batch.values())))
 
 
-def _build(case: StepCase, device: torch.device):
-    """(model, loss, optimizer, augmenter) of ``case`` on ``device``."""
+def _build(case: StepCase, device: torch.device, models: dict | None = None):
+    """(model, loss, optimizer, augmenter) of ``case`` on ``device``. With
+    ``models``, a case that carries its ``state`` takes the model an
+    earlier case of the same nets and dtype built there, reloaded from
+    that state and with no gradients, and leaves its own for later ones."""
     from xpt_mde_tpu_torch.config import SCALE_WEIGHT_T1
     from xpt_mde_tpu_torch.losses import loss_factory
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.training import augmentation_factory, optimizer_factory
 
-    model = ModelFactory(case.keys, case.nets, stereo=case.stereo,
-                         compute_dtype=case.compute_dtype, device=device,
-                         seed=case.seed).get_model()
+    key = (tuple(sorted(case.nets.items())), tuple(case.keys), case.stereo,
+           case.compute_dtype)
+    model = None if models is None or case.state is None else models.get(key)
+    if model is None:
+        model = ModelFactory(case.keys, case.nets, stereo=case.stereo,
+                             compute_dtype=case.compute_dtype, device=device,
+                             seed=case.seed).get_model()
+        if models is not None and case.state is not None:
+            models[key] = model
+    for p in model.parameters():
+        p.grad = None
     if case.state is not None:
         model.load_state_dict(case.state)
-    loss = loss_factory(case.keys, case.recipe, SCALE_WEIGHT_T1, stereo=case.stereo,
-                        batch_size=case.global_batch)
+    loss = loss_factory(case.keys, case.recipe, case.scale_weights or SCALE_WEIGHT_T1,
+                        stereo=case.stereo, batch_size=case.global_batch)
     optimizer = optimizer_factory("adam_constant", case.lr, model,
                                   frozen_nets=case.frozen_nets)
     augmenter = augmentation_factory(case.augment_probs) if case.augment_probs else None
@@ -158,17 +189,35 @@ def single_step(case: StepCase, device: torch.device | str = "cpu",
         return _result(model, metrics, time.perf_counter() - t0, draws=draws)
 
 
-def rank_step(mesh, case: StepCase, steps: int = 1) -> dict:
+def case_mesh(mesh, case: StepCase):
+    """The mesh of ``case`` over the ranks of ``mesh``."""
+    from xpt_mde_tpu_torch.parallel import make_mesh
+
+    if case.mesh_shape is None:
+        return mesh
+    return make_mesh(case.mesh_shape, group=mesh.group, device=mesh.device)
+
+
+def _band_stats(step) -> dict | None:
+    stats = getattr(step, "band_stats", None)
+    return None if stats is None else dataclasses.asdict(stats)
+
+
+def rank_step(mesh, case: StepCase, steps: int = 1, models: dict | None = None) -> dict:
     """``steps`` data-parallel steps of ``case`` in this rank: the first
     one's result with its kernel launches, and with more steps the
-    (seconds, gradient all-reduce ms) of each later one as ``timed``."""
+    (seconds, gradient all-reduce ms) of each later one as ``timed``. On a
+    spatial mesh (``case.mesh_shape``) also each step's
+    ``spatial.BandStats`` (``band``, ``timed_band``; the later steps time
+    their collectives). ``models``: as :func:`_build` takes it."""
     from xpt_mde_tpu_torch.parallel import (local_rows, make_parallel_train_step,
                                             replicate_state, shard_batch)
     from xpt_mde_tpu_torch.tools.check_learns import kernel_launches
     from xpt_mde_tpu_torch.utils.precision import full_f32
 
+    mesh = case_mesh(mesh, case)
     with full_f32():
-        model, loss, optimizer, augmenter = _build(case, mesh.device)
+        model, loss, optimizer, augmenter = _build(case, mesh.device, models)
         replicate_state(model, optimizer, mesh)
         draws = []
         if augmenter is not None:
@@ -186,23 +235,34 @@ def rank_step(mesh, case: StepCase, steps: int = 1) -> dict:
         after = kernel_launches()
         result = _result(model, metrics, time.perf_counter() - t0, draws=draws,
                          reduce_ms=step.reduce_ms(), rank=mesh.rank,
-                         launches={k: after[k] - before[k] for k in after})
-        timed = []
+                         launches={k: after[k] - before[k] for k in after},
+                         band=_band_stats(step))
+        timed, timed_band = [], []
+        if steps > 1 and mesh.spatial > 1:
+            step = make_parallel_train_step(model, loss, optimizer, mesh, augmenter=augmenter,
+                                            regularize_net=case.regularize_net,
+                                            frozen_nets=case.frozen_nets,
+                                            grad_accum_steps=case.grad_accum_steps,
+                                            timed=True)
         for _ in range(steps - 1):
             t0 = time.perf_counter()
             step(features, _generator(case))
             if mesh.device.type == "cuda":
                 torch.cuda.synchronize(mesh.device)
             timed.append((time.perf_counter() - t0, step.reduce_ms()))
+            timed_band.append(_band_stats(step))
         result["timed"] = timed
+        result["timed_band"] = timed_band
         return result
 
 
 def rank_steps(mesh, cases: list, steps=1) -> list:
     """:func:`rank_step` of each case in turn, in one group; ``steps`` for
-    every case, or a list of one count per case."""
+    every case, or a list of one count per case. A case of the nets and
+    dtype of an earlier one reuses its model (:func:`_build`)."""
     counts = steps if isinstance(steps, (list, tuple)) else [steps] * len(cases)
-    return [rank_step(mesh, case, n) for case, n in zip(cases, counts)]
+    models = {}
+    return [rank_step(mesh, case, n, models) for case, n in zip(cases, counts)]
 
 
 def rank_plan(mesh, cfg, runs: int = 1) -> list:
@@ -232,6 +292,56 @@ def rank_plan(mesh, cfg, runs: int = 1) -> list:
         trainer.train_by_plan(cfg, mesh=mesh)
         writes.append(dict(counts))
     return writes
+
+
+def rank_eval_predict(mesh, case: StepCase) -> dict:
+    """The eval and predict steps over the mesh of ``case`` on its rows
+    (and bands): the eval metrics and the predictions (whole, numpy)."""
+    from xpt_mde_tpu_torch.parallel import local_rows, shard_batch
+    from xpt_mde_tpu_torch.parallel.sharding import (make_parallel_eval_step,
+                                                     make_parallel_predict_step)
+
+    mesh = case_mesh(mesh, case)
+    model, loss, _, _ = _build(case, mesh.device)
+    features = shard_batch(local_rows(case.batch, mesh), mesh)
+    metrics = make_parallel_eval_step(model, loss, mesh)(features)
+    preds = make_parallel_predict_step(model, mesh)(features)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "preds": {k: [t.cpu().numpy() for t in v] if isinstance(v, list)
+                      else v.cpu().numpy() for k, v in preds.items()}}
+
+
+def rank_spatial_plan(mesh, cfg) -> dict:
+    """``train_by_plan(cfg)`` over the mesh ``cfg.mesh_shape``, then its
+    test plan's predictions on that mesh (``predict_by_plan``): this
+    rank's writes, as :func:`rank_plan` counts them, and its model's
+    state at the end of each row."""
+    from xpt_mde_tpu_torch.evaluate.evaluate_main import predict_by_plan
+    from xpt_mde_tpu_torch.parallel import make_mesh
+    from xpt_mde_tpu_torch.training import trainer
+
+    mesh = make_mesh(cfg.mesh_shape, group=mesh.group, device=mesh.device)
+    runtimes = []
+    init = trainer.StageRuntime.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        runtimes.append(self)
+    trainer.StageRuntime.__init__ = keep
+    try:
+        writes = rank_plan(mesh, cfg)
+    finally:
+        trainer.StageRuntime.__init__ = init
+    states = [{k: v.detach().cpu().clone() for k, v in rt.model.state_dict().items()}
+              for rt in runtimes]
+    predict_by_plan(cfg, device=mesh.device, mesh=mesh)
+    return {"writes": writes, "states": states}
+
+
+def rank_tasks(mesh, tasks: list) -> list:
+    """Each ``(function, args)`` of ``tasks`` in turn in this rank,
+    ``function(mesh, *args)``: several checks in one group."""
+    return [fn(mesh, *args) for fn, args in tasks]
 
 
 def _rank_main(rank: int, world: int, device_type: str, backend: str | None, workdir: str,
@@ -312,12 +422,21 @@ def _rel(a: torch.Tensor, b: torch.Tensor, floor: float = 1e-6) -> float:
                  / max(float(torch.linalg.norm(b.double())), floor))
 
 
+def _same_sign(result: Mapping, single: Mapping, key: str) -> float:
+    """The largest distance of parameter ``key`` where both steps' gradients
+    have one sign (0 where none has)."""
+    diff = (result["state"][key] - single["state"][key]).abs()
+    diff = diff[torch.sign(result["grads"][key]) == torch.sign(single["grads"][key])]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def compare(single: Mapping, ranks: list) -> dict:
     """The distances of the ranks' step from the single-process step:
     ``loss`` (relative, worst term of the loss family; a term below 1e-4
     of the loss relative to that), ``grad`` (worst
     relative gradient, by tensor norm), ``grad_median``, ``stat`` (worst
     running statistic, absolute), ``param`` (worst parameter, absolute),
+    ``param_same_sign`` (worst parameter whose gradients share a sign),
     ``replicas`` (the largest difference between ranks' states: 0 keeps
     them in step) and ``draws_equal`` (every rank drew the single step's
     augmentation)."""
@@ -340,18 +459,25 @@ def compare(single: Mapping, ranks: list) -> dict:
                      for k in stats), default=0.0),
         "param": max((float((first["state"][k] - single["state"][k]).abs().max())
                       for k in params), default=0.0),
+        "param_same_sign": max((_same_sign(first, single, k) for k in params
+                                if k in first["grads"]), default=0.0),
         "replicas": max(float((r["state"][k].double() - first["state"][k].double())
                               .abs().max()) for r in ranks[1:] for k in first["state"])
         if len(ranks) > 1 else 0.0,
         "draws_equal": all(r["draws"] == single["draws"] for r in ranks)}
 
 
-def within_tolerance(distances: Mapping) -> bool:
+def within_tolerance(distances: Mapping, spatial: bool = False) -> bool:
     """The module's tolerances (LOSS_RTOL, ...) hold, the replicas are
-    equal and every rank drew the single step's augmentation."""
+    equal and every rank drew the single step's augmentation; with
+    ``spatial`` the parameters by SPATIAL_PARAM_ATOL and
+    SPATIAL_SAME_SIGN_ATOL in place of PARAM_ATOL."""
+    params = (distances["param"] <= SPATIAL_PARAM_ATOL
+              and distances["param_same_sign"] <= SPATIAL_SAME_SIGN_ATOL) if spatial \
+        else distances["param"] <= PARAM_ATOL
     return (distances["loss"] <= LOSS_RTOL and distances["grad_median"] <= GRAD_MEDIAN_RTOL
             and distances["grad"] <= GRAD_MAX_RTOL
-            and distances["stat"] <= STAT_ATOL and distances["param"] <= PARAM_ATOL
+            and distances["stat"] <= STAT_ATOL and params
             and distances["replicas"] == 0.0 and distances["grad_keys_equal"]
             and distances["metrics_equal_across_ranks"] and distances["draws_equal"])
 
@@ -362,10 +488,11 @@ def within_tolerance(distances: Mapping) -> bool:
 CHECK_TWIST = [0.3, 0.05, -0.1, 0.01, 0.02, -0.015]
 
 
-def b0_case(batch: int = 4, height: int = 64, width: int = 128, **options) -> StepCase:
-    """EfficientNetB0 + PoseNetImproved, the rigid recipe, on a synthetic
-    uint8 batch (seed 3), from the seeded weights with the pose head's
-    bias at CHECK_TWIST."""
+def b0_case(batch: int = 4, height: int = 64, width: int = 128,
+            depth: str = "EfficientNetB0", **options) -> StepCase:
+    """EfficientNetB0 (or the ``depth`` backbone) + PoseNetImproved, the
+    rigid recipe, on a synthetic uint8 batch (seed 3), from the seeded
+    weights with the pose head's bias at CHECK_TWIST."""
     from xpt_mde_tpu_torch.data import SyntheticDataset
     from xpt_mde_tpu_torch.models import ModelFactory
 
@@ -373,7 +500,7 @@ def b0_case(batch: int = 4, height: int = 64, width: int = 128, **options) -> St
                                seed=3)
     data = next(iter(dataset))
     data["image5d"] = np.round((data["image5d"] + 1.0) * 127.5).astype(np.uint8)
-    nets = {"depth": "EfficientNetB0", "camera": "PoseNetImproved"}
+    nets = {"depth": depth, "camera": "PoseNetImproved"}
     model = ModelFactory(dataset.config_keys(), nets, stereo=False, device="cpu").get_model()
     with torch.no_grad():
         list(model.posenet.children())[-1].Conv_0.bias.copy_(
@@ -382,18 +509,46 @@ def b0_case(batch: int = 4, height: int = 64, width: int = 128, **options) -> St
                     data, state=model.state_dict(), **options)
 
 
+def _distances(d: Mapping) -> str:
+    return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in d.items())
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--world", type=int, default=2)
     parser.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--depth", default="EfficientNetB0", help="the depth net's backbone")
+    parser.add_argument("--size", type=int, nargs=3, default=(4, 64, 128),
+                        metavar=("BATCH", "HEIGHT", "WIDTH"))
+    parser.add_argument("--spatial", action="store_true",
+                        help='also the step on {"data": 1, "spatial": WORLD}')
+    parser.add_argument("--float64", action="store_true",
+                        help="also each step's distance from a float64 one-process step "
+                             "on the CPU")
     args = parser.parse_args(argv)
-    case = b0_case()
+    case = b0_case(*args.size, depth=args.depth)
+    cases = {"data": case}
+    if args.spatial:
+        cases["spatial"] = dataclasses.replace(case, mesh_shape={"data": 1,
+                                                                 "spatial": args.world})
     single = single_step(case, args.device)
-    ranks = ddp_steps([case], args.world, args.device, args.backend)[0]
-    distances = compare(single, ranks)
-    print(f"ddp_check world {args.world} {args.backend} on {args.device}: {distances}")
-    return 0 if within_tolerance(distances) else 1
+    results = dict(zip(cases, ddp_steps(list(cases.values()), args.world, args.device,
+                                        args.backend)))
+    ok = True
+    for name, ranks in results.items():
+        distances = compare(single, ranks)
+        ok = ok and within_tolerance(distances, spatial=name == "spatial")
+        print(f"ddp_check {name} mesh, world {args.world} {args.backend} on {args.device} "
+              f"vs one process: {_distances(distances)}", flush=True)
+    if args.float64:
+        exact = single_step(case, "cpu", dtype=torch.float64)
+        for name, result in [("one process", single)] + [
+                (f"{name} mesh rank 0", ranks[0]) for name, ranks in results.items()]:
+            print(f"ddp_check {name} on {args.device} vs a float64 step on the CPU: "
+                  f"{_distances(compare(exact, [result]))}", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

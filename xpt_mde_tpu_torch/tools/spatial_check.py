@@ -1,0 +1,266 @@
+"""The band modules of a spatial mesh (``parallel.spatial``) against their
+one-process selves: each module runs on its bands in the ranks of a
+spatial group, forward and backward, and on the whole map in one process,
+from the same seeded inputs, weights and cotangents.
+
+``rank_modules`` is the rank side (``tools.ddp_check.run_ranks`` spawns
+it), on the rank's device, the map modules in float32 or bfloat16;
+``errors`` gives each result's distance from the whole map, which
+``tests/test_torch_spatial.py`` and ``chip_smoke.py`` phase 30 hold to
+FLOAT32_RTOL and BF16_RTOL. A module's input is a band of an H-row map
+and its output a band or, where its height does not divide, the whole
+map; the loss terms give each rank its bands' share of every sample's
+value (summed over the ranks here).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# (name, H) of each case's input; W = 12, batch 2
+_HEIGHTS = {"odd": 10, "even": 16}
+WIDTH = 12
+# the bands' result against the whole map's, the largest difference over
+# the largest value: float32, the same sums grouped by band; bfloat16 (the
+# map modules of a bf16 step), each result rounded to bf16 in both runs
+# (2^-8 of a value at most) and the bands' partial sums (a halo row's
+# gradient, a parameter's over the rows, a pool's window) rounded apart
+# before they add: a few such ulps of the largest value. A band that
+# drops or misplaces a halo row, or a collective whose backward loses a
+# rank's share, is off by the size of that contribution, O(0.1-1)
+FLOAT32_RTOL = 4e-6
+BF16_RTOL = 2.0 ** -5
+
+
+def _conv(k, s, groups=1, channels=4):
+    from xpt_mde_tpu_torch.models.layers import Conv2dSame
+
+    def build(gen, dtype):
+        conv = Conv2dSame(channels, 4 if groups == 1 else channels, k, s, groups=groups,
+                          dtype=dtype)
+        conv.init_weights(gen)
+        with torch.no_grad():
+            conv.bias.normal_(generator=gen)
+        return conv, (channels,)
+    return build
+
+
+def _batch_norm(gen, dtype):
+    from xpt_mde_tpu_torch.models.layers import BatchNorm2d
+    norm = BatchNorm2d(4, dtype)
+    with torch.no_grad():
+        norm.weight.normal_(generator=gen)
+        norm.bias.normal_(generator=gen)
+    return norm, (4,)
+
+
+def _squeeze_excite(gen, dtype):
+    from xpt_mde_tpu_torch.models.backbones.efficientnet import SqueezeExcite
+    from xpt_mde_tpu_torch.models.layers import Conv2dSame
+    se = SqueezeExcite(8, 2, dtype)
+    for m in se.modules():
+        if isinstance(m, Conv2dSame):
+            m.init_weights(gen)
+    return se, (8,)
+
+
+def _fn(f, channels=3):
+    def build(gen, dtype):
+        return f, (channels,)
+    return build
+
+
+def _upsample_nearest(x):
+    from xpt_mde_tpu_torch.models.layers import upsample_2x_nchw
+    return upsample_2x_nchw(x, "nearest")
+
+
+def _upsample_bilinear(x):
+    from xpt_mde_tpu_torch.models.layers import upsample_2x_nchw
+    return upsample_2x_nchw(x, "bilinear")
+
+
+def _resize_half(x):
+    from xpt_mde_tpu_torch.parallel import spatial
+    from xpt_mde_tpu_torch.utils.image import resize_nchw
+    return resize_nchw(x, spatial.global_rows(x) // 2, x.shape[-1] // 2, "bilinear")
+
+
+def _max_pool(x):
+    from xpt_mde_tpu_torch.models.layers import max_pool_same
+    return max_pool_same(x, 3, 2)
+
+
+def _avg_pool(x):
+    from xpt_mde_tpu_torch.models.layers import avg_pool_same_excluding_pad
+    return avg_pool_same_excluding_pad(x, 3)
+
+
+# the map modules: name -> (build(generator, compute dtype) -> (module or
+# function, (C,)), height)
+MAP_CASES = {
+    **{f"conv k{k} s{s} {h}": (_conv(k, s), h) for k in (1, 3, 5) for s in (1, 2)
+       for h in _HEIGHTS},
+    "depthwise k3 s1 odd": (_conv(3, 1, groups=4), "odd"),
+    "depthwise k5 s2 even": (_conv(5, 2, groups=4), "even"),
+    "depthwise k5 s1 even": (_conv(5, 1, groups=4), "even"),
+    "batch norm even": (_batch_norm, "even"),
+    "batch norm odd": (_batch_norm, "odd"),
+    "squeeze excite even": (_squeeze_excite, "even"),
+    "upsample nearest even": (_fn(_upsample_nearest), "even"),
+    "upsample bilinear odd": (_fn(_upsample_bilinear), "odd"),
+    "resize half even": (_fn(_resize_half), "even"),
+    "max pool k3 s2 even": (_fn(_max_pool), "even"),
+    "count-excluding pool k3 odd": (_fn(_avg_pool), "odd"),
+}
+# the loss terms, per sample: name -> H
+LOSS_CASES = {"ssim even": "even", "ssim odd": "odd", "smoothness even": "even",
+              "smoothness odd": "odd"}
+
+
+def _whole(t: torch.Tensor, mesh, dim: int) -> np.ndarray:
+    """A band of every rank, gathered along ``dim`` (no autograd), float32."""
+    buf = torch.zeros((mesh.spatial,) + tuple(t.shape), dtype=torch.float32, device=t.device)
+    buf[mesh.spatial_index] = t
+    dist.all_reduce(buf, group=mesh.spatial_group)
+    return torch.cat(buf.unbind(0), dim).cpu().numpy()
+
+
+def _summed(t: torch.Tensor, mesh) -> np.ndarray:
+    t = t.float().clone()
+    dist.all_reduce(t, group=mesh.spatial_group)
+    return t.cpu().numpy()
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _band(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    rows = x.shape[dim] // mesh.spatial
+    return x.narrow(dim, mesh.spatial_index * rows, rows).contiguous()
+
+
+def _map_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
+    from xpt_mde_tpu_torch.parallel import spatial
+    from xpt_mde_tpu_torch.parallel.multihost import reducing_over
+
+    build, height = MAP_CASES[name]
+    rows = _HEIGHTS[height]
+    gen = torch.Generator().manual_seed(seed)
+    module, (channels,) = build(gen, dtype)
+    params = list(module.parameters()) if isinstance(module, torch.nn.Module) else []
+    if isinstance(module, torch.nn.Module):
+        module.to(mesh.device).train()
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.standard_normal((2, channels, rows, WIDTH)).astype(np.float32))
+    x = x.to(mesh.device, dtype)
+
+    # one process
+    xw = x.clone().requires_grad_()
+    out = module(xw)
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32))
+    g = g.to(mesh.device, out.dtype)
+    (out * g).sum().backward()
+    whole = {"out": _numpy(out), "dx": _numpy(xw.grad),
+             "dparams": [_numpy(p.grad) for p in params]}
+    for p in params:
+        p.grad = None
+
+    # on the bands
+    xb = _band(x, mesh, 2).requires_grad_()
+    with reducing_over(mesh.group), spatial.banded(mesh):
+        spatial.register(xb, rows)
+        out_b = module(xb)
+        known = spatial.state(out_b)
+        is_band = known is not None and known[1]
+        share = _band(g, mesh, 2) if is_band else g * float(mesh.spatial_index == 0)
+        (out_b * share).sum().backward()
+    band = {"out": _whole(out_b.detach(), mesh, 2) if is_band else _numpy(out_b),
+            "dx": _whole(xb.grad, mesh, 2),
+            "dparams": [_summed(p.grad, mesh) for p in params],
+            "out_is_band": is_band}
+    return {"whole": whole, "band": band}
+
+
+def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
+    """A loss term in float32 (``dtype`` unused: a bf16 step's depth and
+    frames reach the losses in float32)."""
+    from xpt_mde_tpu_torch.losses.photometric import photometric_loss_ssim
+    from xpt_mde_tpu_torch.losses.total import SmoothenessLossMultiScale
+    from xpt_mde_tpu_torch.parallel import spatial
+
+    rows = _HEIGHTS[LOSS_CASES[name]]
+    rng = np.random.RandomState(seed)
+    if name.startswith("ssim"):
+        pred = rng.uniform(-1, 1, (2, 2, rows, WIDTH, 3)).astype(np.float32)
+        pred[:, :, :2, :3] = 0.0  # black (invalid) pixels
+        other = rng.uniform(-1, 1, (2, rows, WIDTH, 3)).astype(np.float32)
+        dims = (2, 1)
+
+        def fn(p, o):
+            return photometric_loss_ssim(p, o)
+    else:
+        pred = rng.uniform(0.1, 2.0, (2, rows, WIDTH, 1)).astype(np.float32)
+        other = rng.uniform(-1, 1, (2, rows, WIDTH, 3)).astype(np.float32)
+        dims = (1, 1)
+        smooth = SmoothenessLossMultiScale([1.0])
+
+        def fn(p, o):
+            return smooth.smootheness_loss(p, o)
+    g = torch.from_numpy(rng.standard_normal(2).astype(np.float32)).to(mesh.device)
+    pred, other = (torch.from_numpy(a).to(mesh.device) for a in (pred, other))
+
+    pw = pred.clone().requires_grad_()
+    out = fn(pw, other)
+    (out * g).sum().backward()
+    whole = {"out": _numpy(out), "dx": _numpy(pw.grad)}
+
+    pb = _band(pred, mesh, dims[0]).requires_grad_()
+    ob = _band(other, mesh, dims[1])
+    with spatial.banded(mesh):
+        spatial.register(pb, rows, dims[0])
+        spatial.register(ob, rows, dims[1])
+        out_b = fn(pb, ob)
+        (out_b * g).sum().backward()
+    band = {"out": _summed(out_b.detach(), mesh), "dx": _whole(pb.grad, mesh, dims[0])}
+    return {"whole": whole, "band": band}
+
+
+def rank_modules(mesh, names: list, seed: int = 0,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """Each case of ``names`` (MAP_CASES, LOSS_CASES) on this rank's bands
+    of a spatial mesh ``{"data": 1, "spatial": W}`` and in one process, on
+    the rank's device (float32 without TF32), the map modules computing in
+    ``dtype``: {name: {"whole": ..., "band": ...}} with the outputs, the
+    input's gradient and the parameters' gradients (summed over the
+    ranks), float32 numpy."""
+    from xpt_mde_tpu_torch.parallel import make_mesh
+    from xpt_mde_tpu_torch.utils.precision import full_f32
+
+    mesh = make_mesh({"data": 1, "spatial": mesh.world_size}, group=mesh.group,
+                     device=mesh.device)
+    out = {}
+    with full_f32():
+        for i, name in enumerate(names):
+            case = _map_case if name in MAP_CASES else _loss_case
+            out[name] = case(mesh, name, seed + i, dtype)
+    return out
+
+
+def errors(case: dict) -> dict:
+    """{result: the largest difference of the bands' from the whole map's,
+    over the latter's largest value} of one case of :func:`rank_modules`
+    (``out``, ``dx``, ``dparam i``); raises where the shapes differ."""
+    whole, band = case["whole"], case["band"]
+    pairs = [("out", whole["out"], band["out"]), ("dx", whole["dx"], band["dx"])]
+    pairs += [(f"dparam {i}", w, b) for i, (w, b) in enumerate(
+        zip(whole.get("dparams", []), band.get("dparams", [])))]
+    out = {}
+    for label, want, got in pairs:
+        if got.shape != want.shape:
+            raise ValueError(f"{label}: the bands give {got.shape}, the whole map {want.shape}")
+        out[label] = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-6)
+    return out

@@ -17,6 +17,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.training import metrics as tm
 from xpt_mde_tpu_torch.utils.precision import full_f32
 
@@ -46,7 +47,7 @@ def _compute_metrics(preds, features, loss, loss_by_type) -> dict:
     metrics = {"loss": loss}
     metrics.update({f"loss/{k}": v for k, v in loss_by_type.items()})
     if "depth_ms" in preds and "depth_gt" in features:
-        d = preds["depth_ms"][0]
+        d = spatial.whole(preds["depth_ms"][0], 1)  # a spatial mesh's bands gathered
         metrics["depth_abs_rel"] = torch.mean(tm.depth_abs_rel(d, features["depth_gt"]))
         # centre-region mean depth magnitude
         h, w = d.shape[1:3]
@@ -140,7 +141,8 @@ def make_train_step(model: torch.nn.Module, total_loss,
             with full_f32():
                 features = decode_image_features(features)
                 if augmenter is not None:
-                    features = augmenter(features, generator)
+                    with spatial.suspended():  # on a spatial mesh, the whole frames
+                        features = augmenter(features, generator)
                 optimizer.zero_grad(set_to_none=True)
                 if grad_accum_steps == 1:
                     metrics = forward_backward(features)

@@ -26,7 +26,11 @@ the shared shuffle order (a global batch that W does not divide raises),
 the step is ``parallel.make_parallel_train_step`` (BatchNorm statistics,
 md2cmb's count, gradients and metrics over the global batch), and the
 validation metrics are reduced over the ranks too, so every rank logs the
-values a single process would. Only the main process writes the config
+values a single process would. On a mesh with a ``spatial`` axis
+(``{"data": D, "spatial": S}``, the rigid path only) the S ranks of one
+data index read the same rows, and the train and eval steps run on their
+bands of the image rows (``parallel.spatial``); a flow, joint or stereo
+row raises. Only the main process writes the config
 snapshot, the checkpoints and ``history.csv``; every rank reads them at a
 resume, each after a barrier that follows the writes.
 ``grad_accum_steps > 1`` splits each batch into that many microbatches
@@ -52,9 +56,8 @@ from xpt_mde_tpu_torch.data import example_batch
 from xpt_mde_tpu_torch.losses import loss_factory
 from xpt_mde_tpu_torch.models import ModelFactory
 from xpt_mde_tpu_torch.parallel import (barrier, is_main_process, make_parallel_train_step,
-                                        replicate_state)
-from xpt_mde_tpu_torch.parallel.multihost import reducing_over
-from xpt_mde_tpu_torch.parallel.sharding import reduce_metrics
+                                        replicate_state, shard_batch)
+from xpt_mde_tpu_torch.parallel.sharding import make_parallel_eval_step
 from xpt_mde_tpu_torch.training.augmentation import augmentation_factory
 from xpt_mde_tpu_torch.training.checkpoint import (CheckpointManager,
                                                    load_pretrained_backbone,
@@ -109,11 +112,12 @@ def default_dataset_factory(cfg: Config, mesh=None):
     """Shard loaders over ``cfg.datapath_shd/{dataset}_{split}``: the
     native reader behind a prefetch thread, uint8 snippets (the steps
     decode them on the device), shuffled for the train split only. Over a
-    mesh, ``batch_size`` is the rank's and each rank reads its slice of
-    the shared order (its share of each microbatch)."""
+    mesh, ``batch_size`` is the rank's and each rank reads its data
+    index's slice of the shared order (its share of each microbatch): the
+    ranks of one spatial group read the same rows."""
     from xpt_mde_tpu_torch.data.native_loader import make_loader
 
-    rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
+    rank, world = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
 
     def factory(dataset_name: str, split: str, batch_size: int):
         return make_loader(Path(cfg.datapath_shd) / f"{dataset_name}_{split}",
@@ -155,10 +159,10 @@ class StageRuntime:
         self.cfg = cfg
         self.stage = stage
         self.device = device
-        self.group = mesh.group if mesh is not None else None
+        self.mesh = mesh
         # cfg.batch_size is the GLOBAL batch (the loss divides by it); each
-        # rank loads its share
-        world = mesh.world_size if mesh is not None else 1
+        # data index loads its share
+        world = mesh.data if mesh is not None else 1
         if cfg.batch_size % world:
             raise ValueError(f"global batch {cfg.batch_size} must divide by the world size "
                              f"{world}")
@@ -194,7 +198,8 @@ class StageRuntime:
                 self.model, self.total_loss, self.optimizer, augmenter=augmenter,
                 frozen_nets=frozen, regularize_net=reg_net,
                 grad_accum_steps=cfg.grad_accum_steps)
-        self.eval_step = make_eval_step(self.model, self.total_loss)
+        self.eval_step = make_eval_step(self.model, self.total_loss) if mesh is None \
+            else make_parallel_eval_step(self.model, self.total_loss, mesh)
         self.predict_step = make_predict_step(self.model)
         # one fixed batch for the per-epoch scale log; reading it consumes no epoch
         self.example = self.to_device(example_batch(self.train_loader))
@@ -202,6 +207,11 @@ class StageRuntime:
 
     def to_device(self, batch: dict) -> dict:
         return features_to_device(batch, self.device)
+
+    def shard(self, batch: dict) -> dict:
+        """The rank's features for the steps over the mesh (its band of the
+        image rows on a spatial mesh)."""
+        return self.to_device(batch) if self.mesh is None else shard_batch(batch, self.mesh)
 
     def run_train_epoch(self, epoch: int, epoch_in_row: int, log_every: int = 50,
                         start_step: int = 0, metric_sums=None, count: int = 0,
@@ -221,8 +231,7 @@ class StageRuntime:
             batches = itertools.islice(iter(loader), start_step, None)
         with DurationTime() as dt:
             for step_idx, batch in enumerate(batches, start=start_step):
-                features = self.to_device(batch)
-                metrics = self.train_step(features, _step_generator(epoch, step_idx))
+                metrics = self.train_step(self.shard(batch), _step_generator(epoch, step_idx))
                 self.step += 1
                 metric_sums = metrics if metric_sums is None else \
                     {k: metric_sums[k] + v for k, v in metrics.items()}
@@ -236,6 +245,7 @@ class StageRuntime:
                 if self.cfg.inspect_model and steps and is_main_process():
                     stride = max(steps // 3, 1)
                     if step_idx % stride == 0:
+                        features = self.to_device(batch)
                         inspect_model(self.predict_step(features), features, step_idx, steps)
             if count == 0:
                 raise ValueError("train loader yielded no batches -- dataset smaller "
@@ -250,10 +260,9 @@ class StageRuntime:
             return {}
         metric_sums, count = None, 0
         for batch in self.val_loader:
-            # md2cmb's count over the global batch; the metrics over the ranks
-            with reducing_over(self.group):
-                metrics = self.eval_step(self.to_device(batch))
-            metrics = reduce_metrics(metrics, self.group)
+            # over a mesh: md2cmb's count over the global batch, the metrics
+            # over the ranks
+            metrics = self.eval_step(self.shard(batch))
             metric_sums = metrics if metric_sums is None else \
                 {k: metric_sums[k] + v for k, v in metrics.items()}
             count += 1

@@ -4,6 +4,10 @@ Resizes follow ``tf.image.resize``: half-pixel centres and no
 antialiasing. Bilinear is ``F.interpolate(align_corners=False,
 antialias=False)``; nearest is ``"nearest-exact"`` (half-pixel, as
 ``jax.image.resize`` does it), not torch's ``"nearest"``.
+
+Inside a spatial mesh's step (``parallel.spatial.banded``) the target
+height of a resize is the map's global height, and a band is resized by
+``parallel.spatial.resize``.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 
@@ -21,6 +26,12 @@ def resize_nchw(x: torch.Tensor, height: int, width: int,
     """Resize [N, C, H, W] to [N, C, height, width] (the conv modules'
     layout). Bilinear interpolates in float32 (or float64) whatever the
     input dtype."""
+    if spatial.current() is not None:
+        return spatial.resize(x, height, width, method, _resize_nchw)
+    return _resize_nchw(x, height, width, method)
+
+
+def _resize_nchw(x: torch.Tensor, height: int, width: int, method: str) -> torch.Tensor:
     if x.shape[-2:] == (height, width):
         return x
     if method == "nearest":
@@ -36,18 +47,20 @@ def resize_image(image: torch.Tensor, height: int, width: int,
                  method: str = "bilinear") -> torch.Tensor:
     """Resize [..., H, W, C] to [..., height, width, C]."""
     src_h, src_w, chans = image.shape[-3:]
-    if (src_h, src_w) == (height, width):
+    if (spatial.global_rows(image, -3), src_w) == (height, width):
         return image
     lead = image.shape[:-3]
     flat = image.reshape(-1, src_h, src_w, chans).permute(0, 3, 1, 2)
     out = resize_nchw(flat, height, width, method).permute(0, 2, 3, 1)
-    return out.reshape(lead + (height, width, chans))
+    return out.reshape(lead + out.shape[-3:])
 
 
 def multi_scale_like(image: torch.Tensor, pyramid: Sequence[torch.Tensor],
                      method: str = "bilinear") -> list[torch.Tensor]:
-    """Resize ``image`` to the (H, W) of every tensor in ``pyramid``."""
-    return [resize_image(image, p.shape[-3], p.shape[-2], method)
+    """Resize ``image`` to the (H, W) of every tensor in ``pyramid`` (and
+    to its band, where it is one)."""
+    return [spatial.like(resize_image(image, spatial.global_rows(p, -3), p.shape[-2], method),
+                         p, -3)
             for p in pyramid]
 
 
