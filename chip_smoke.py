@@ -67,7 +67,11 @@ per library started together, and prints one line per phase:
    the plain cost volume's autograd) at the five PWC-Net levels of the
    flow stage (32 target/source pairs, [32, C, h, w] from a seeded
    generator), within CORR_RTOL of the largest plain value, and their
-   times;
+   times; then (``_band_corr_phase``) on two bands of each level's rows
+   against the rows of cr a band reads with their row offset (the whole
+   map at 128x512; md rows each side, the halo route, at 256x1024's level
+   2), held to the plain versions with that offset by the same rule,
+   each band launch timed beside the whole frame's;
 9. flow predict: PWC-Net, seeded random weights, batch 8 x 4 sources,
    128x512, on the 3 batches: flow shapes, finiteness, 5 K2 launches
    per forward and no other;
@@ -136,7 +140,8 @@ per library started together, and prints one line per phase:
     aligned (TMA-staged where W % 8 == 0) and offset inputs (staged by
     the kernels' threads), bit-equal; their times per level beside the
     float32 kernel's of phase 8, the earlier checkout's (``--earlier``)
-    and the bfloat16 bound, and per flow step;
+    and the bfloat16 bound, and per flow step; then phase 8's band
+    shapes in bfloat16, by the bfloat16 rule;
 22. the bfloat16 steps at full width: rigid predict, rigid train, flow
     train, joint train and stereo train (MS), each with its launches per
     step checked (the bfloat16 correlation kernels, never the float32
@@ -213,7 +218,15 @@ per library started together, and prints one line per phase:
     rigid row (RIGID_NET, ``Config()``'s bfloat16) of synthetic shards and
     its predictions on rank 0: history.csv and the checkpoints written
     once, K1 and K1-bwd launched; (b) the steps over gloo with two ranks
-    on card 0 (NCCL refuses two ranks on one device);
+    on card 0 (NCCL refuses two ranks on one device), and there the
+    rigid and flow steps in float32 and bfloat16 on SPATIAL_MESH (two
+    bands of each sample's rows; ``_spatial_note``: float32 by
+    ``ddp_check.within_tolerance(spatial=True)``, bfloat16 by
+    SPATIAL_BF16_RATIO, K1 and K1-bwd launched on each rank and a flow
+    step's K2, K3 and K4 or their bf16 forms SPATIAL_FLOW_LAUNCHES times,
+    the halo and gather bytes and the collectives' share of the timed
+    bf16 steps) and the band modules of ``tools/spatial_check.py`` in
+    bfloat16 (``_band_modules_note``, within its BF16_RTOL);
 31. serving (``_serving_phase``): ``serving.export_predictor`` of
     RIGID_NET in bfloat16 on a uint8 batch of 8 at 128x512 and of PWC-Net
     in bfloat16 and float32; each artifact loaded in a fresh interpreter
@@ -470,6 +483,11 @@ DDP_TIMED_STEPS = 1
 SPATIAL_MESH = {"data": 1, "spatial": 2}
 SPATIAL_TIMED_STEPS = 1
 SPATIAL_BF16_RATIO = 2.0
+# phase 30: the flow steps (PWC-Net, FLOW_RECIPE) on SPATIAL_MESH launch
+# the cost volume's kernels (K2, K3, K4, or their bf16 forms) this many
+# times a step on each rank, as one process does: once a PWC level, level
+# 6 computed whole by each rank, levels 5-2 on its band
+SPATIAL_FLOW_LAUNCHES = 5
 # phase 31: an artifact against the live predict step, both on the card,
 # each output's largest difference over its largest value: the same
 # operations in float32 (1e-5); in bfloat16 a few ulps (2^-8 each) where
@@ -2367,18 +2385,20 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
              "rigid bf16": case(RIGID_NET, RECIPE, _set_pose_twist, "bfloat16"),
              "flow bf16": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "bfloat16", **flow)}
     # the height-sharded mesh (two bands of each sample's rows), on the gloo
-    # ranks only: the same weights and batch as the rigid cases
+    # ranks only: the same weights and batch (BATCH snippets of HEIGHT x
+    # WIDTH) as the one-process cases
     spatial = {f"{name} spatial": dataclasses.replace(cases[name], mesh_shape=SPATIAL_MESH)
-               for name in ("rigid float32", "rigid bf16")}
+               for name in ("rigid float32", "rigid bf16", "flow float32", "flow bf16")}
     # float32: one checked step; bfloat16: a warm-up step, then the timed ones
     steps = [1 if "float32" in name else DDP_TIMED_STEPS + 1 for name in cases]
     singles = {name: ddp_check.single_step(c, device) if "float32" in name
                else _single_step_ms(c, device) for name, c in cases.items()}
-    # the bf16 spatial step's rule: its one-process bf16 step (the timed
+    # the bf16 spatial steps' rule: their one-process bf16 step (the timed
     # one-process run's first step) and that step's distance from the
-    # one-process float32 step
-    bf16_single = singles["rigid bf16"]["first"]
-    bf16_scale = ddp_check.compare(singles["rigid float32"], [bf16_single])
+    # one-process float32 step, by stage
+    bf16_singles = {stage: singles[f"{stage} bf16"]["first"] for stage in ("rigid", "flow")}
+    bf16_scales = {stage: ddp_check.compare(singles[f"{stage} float32"], [single])
+                   for stage, single in bf16_singles.items()}
     torch.cuda.empty_cache()
 
     launches_by_path, notes = {}, []
@@ -2391,8 +2411,8 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     gloo_cases = cases | spatial
     # in the same two ranks: the steps, then the spatial mesh's map modules
     # in bf16
-    tasks = [(ddp_check.rank_steps, (list(gloo_cases.values()),
-                                     steps + [1, SPATIAL_TIMED_STEPS + 1])),
+    tasks = [(ddp_check.rank_steps, (list(gloo_cases.values()), steps + [
+        1 if "float32" in name else SPATIAL_TIMED_STEPS + 1 for name in spatial])),
              (spatial_check.rank_modules, (list(spatial_check.MAP_CASES), 0, torch.bfloat16))]
     ranks = ddp_check.run_ranks(ddp_check.rank_tasks, (tasks,), 2, "cuda", "gloo",
                                 workdir=_build_dir())
@@ -2401,8 +2421,9 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     notes.append(_band_modules_note(ranks[0][1], tag))
     for name in spatial:
         results = gloo[list(gloo_cases).index(name)]
-        notes.append(_spatial_note(name, results, singles["rigid float32"], bf16_single,
-                                   bf16_scale, tag))
+        stage = name.split()[0]
+        notes.append(_spatial_note(name, results, singles[f"{stage} float32"],
+                                   bf16_singles[stage], bf16_scales[stage], tag))
     for backend, (world, results, seconds, run_cases) in runs.items():
         for (name, c), ranks in zip(run_cases.items(), results):
             if name in spatial:
@@ -2445,15 +2466,19 @@ def _band_modules_note(results, tag) -> str:
         raise AssertionError(f"bf16 band modules past {spatial_check.BF16_RTOL}: {bad}")
     name = max(worst, key=worst.get)
     return (f"bf16 band modules on the card ({len(worst)}: convolutions k1-k5 s1-s2, "
-            f"depthwise, BatchNorm, squeeze-excite, resizes, pools; 2 gloo ranks), bands "
-            f"vs the whole map, forward and backward: worst {worst[name]:.3g} of the largest "
-            f"value ({name}) <= {spatial_check.BF16_RTOL:.3g} {tag}")
+            f"depthwise, BatchNorm, squeeze-excite, resizes, pools; PWC-Net's transposed and "
+            f"dilated convs, cost volumes on both routes (K2-K4-bf16), feature warp, flow "
+            f"coordinates; 2 gloo ranks), bands vs the whole map, forward and backward: worst "
+            f"{worst[name]:.3g} of the largest value ({name}) <= "
+            f"{spatial_check.BF16_RTOL:.3g}; each: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()) + f" {tag}")
 
 
 def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
     """Phase 30's check of a step on the spatial mesh (SPATIAL_MESH, two
-    gloo ranks on the card): every rank launched K1 and K1-bwd on its band;
-    float32 within ``ddp_check.within_tolerance`` of the one-process step,
+    gloo ranks on the card): every rank launched K1 and K1-bwd on its band,
+    and in a flow step the cost volume's kernels (their bf16 forms in bf16)
+    SPATIAL_FLOW_LAUNCHES times each; float32 within ``ddp_check.within_tolerance`` of the one-process step,
     the parameters by its spatial rule; bf16: the loss within
     SPATIAL_BF16_RATIO times the one-process bf16 step's own distance from
     the one-process float32 step, at least 2^-8 of the loss (one bf16 ulp),
@@ -2464,10 +2489,16 @@ def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
 
     from xpt_mde_tpu_torch.tools import ddp_check
 
+    corr = [f"K{i}{'' if 'float32' in name else '-bf16'}" for i in (2, 3, 4)]
     for rank in ranks:
         if not (rank["launches"]["K1"] and rank["launches"]["K1-bwd"]):
             raise AssertionError(f"{name}: rank {rank['rank']} launched no K1 or K1-bwd on "
                                  f"its band: {rank['launches']}")
+        if name.startswith("flow") and any(rank["launches"][k] != SPATIAL_FLOW_LAUNCHES
+                                           for k in corr):
+            raise AssertionError(f"{name}: rank {rank['rank']} launched {corr} "
+                                 f"{[rank['launches'][k] for k in corr]} times, not "
+                                 f"{SPATIAL_FLOW_LAUNCHES}: {rank['launches']}")
     if "float32" in name:
         d = ddp_check.compare(single_f32, ranks)
         rule = ddp_check.within_tolerance(d, spatial=True)
@@ -2486,10 +2517,11 @@ def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
     if not rule:
         raise AssertionError(f"{text}: {d}")
     band = ranks[0]["band"]
-    launches = {k: v for k, v in ranks[0]["launches"].items() if v}
+    launches = [json.dumps({k: v for k, v in rank["launches"].items() if v}) for rank in ranks]
     text += (f"; rank 0's spatial collectives a step: halo {band['halo_bytes'] / 1e6:.2f} MB, "
              f"gather {band['gather_bytes'] / 1e6:.2f} MB, sums {band['sum_bytes'] / 1e3:.1f} kB "
-             f"in {band['calls']} all-reduces; launches {json.dumps(launches)}")
+             f"in {band['calls']} all-reduces; launches by rank {'; '.join(launches)}; rank 0's "
+             f"first step {ranks[0]['seconds']:.2f} s, the case {ranks[0]['wall']:.1f} s")
     if ranks[0]["timed"]:
         ms = [1e3 * t for t, _ in ranks[0]["timed"]]
         share = [b["seconds"] * 1e3 / m for b, m in zip(ranks[0]["timed_band"], ms)]
@@ -2805,6 +2837,103 @@ def _corr_phase(device, tag, dtype=None, f32=None, earlier=None, size=None, phas
           f"max |plain| (K3, K4 also vs the plain cost volume's autograd; err / max |plain|: "
           f"{'; '.join(notes)})", flush=True)
     return stats
+
+
+def _band_corr_phase(device, tag, dtype, stats) -> str:
+    """Phases 8 and 21, the spatial mesh's shapes: K2, K3 and K4 of
+    ``dtype`` on two bands (rows 0..h/2 - 1 and h/2..h - 1) of each PWC
+    level of the headline 128x512 frame, against the rows of cr that
+    ``spatial.correlation_rows`` gives a band (the whole map and the band's
+    first row as the row offset where md exceeds the band's rows: every
+    level here), and on its halo route at level 2 of a 256x1024 frame
+    (the band's rows with md rows beyond each side, zeros outside the
+    frame, row offset md), each held to its plain twin with that row offset
+    (float32 within CORR_RTOL of the largest plain value; bfloat16 within
+    one bfloat16 ulp + BF16_CORR_ATOL x max, ``bf16_ulp_excess``) and timed
+    by graph replay beside the whole frame's launch (``stats``: the whole
+    128x512 levels', from ``_corr_phase``). Returns a summary."""
+    import torch
+    import torch.nn.functional as F
+
+    from xpt_mde_tpu_torch.config import NUM_SRC
+    from xpt_mde_tpu_torch.models.flow_net import ENCODER_CHANNELS, level_displacement
+    from xpt_mde_tpu_torch.ops.correlation import (correlation_channels,
+                                                   correlation_cost_plain,
+                                                   correlation_grad_cl_plain,
+                                                   correlation_grad_cr_plain)
+    from xpt_mde_tpu_torch.ops.kernels.correlation import kernels_for
+
+    bf16 = dtype == torch.bfloat16
+    k2, k3, k4 = kernels_for(dtype)
+    generator = torch.Generator().manual_seed(7)
+    pairs = BATCH * NUM_SRC
+    worst = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    routes = set()
+    cases = [(f"{HEIGHT}x{WIDTH}", HEIGHT, WIDTH, level) for level in (6, 5, 4, 3, 2)]
+    cases.append((f"{2 * HEIGHT}x{2 * WIDTH}", 2 * HEIGHT, 2 * WIDTH, 2))
+    for frame, height, width, level in cases:
+        md, stride = level_displacement(level)
+        chans, h, w = ENCODER_CHANNELS[level - 1], height >> level, width >> level
+        n2 = correlation_channels(md, stride)
+        cl, cr = ((torch.rand((pairs, chans, h, w), generator=generator) * 2 - 1).to(
+            device, dtype) for _ in range(2))
+        g = (torch.rand((pairs, n2, h, w), generator=generator) * 2 - 1).to(device, dtype)
+        if height == HEIGHT:
+            whole = {name: stats[name]["levels"][level] for name in worst}
+        else:
+            whole = {"K2": _graph_ms(lambda: k2(cl, cr, md, stride)),
+                     "K3": _graph_ms(lambda: k3(g, cr, md, stride)),
+                     "K4": _graph_ms(lambda: k4(g, cl, md, stride))}
+        rows = h // 2
+        for first in (0, rows):
+            if md <= rows:  # the halo route
+                top, bottom = max(0, md - first), max(0, first + rows + md - h)
+                cr_rows = F.pad(cr, (0, 0, top, bottom))[:, :, first - md + top:
+                                                         first + rows + md + top].contiguous()
+                offset, route = md, "halo"
+            else:
+                cr_rows, offset, route = cr, first, "gathered"
+            routes.add(f"{frame} L{level} {route}")
+            cl_b = cl[:, :, first: first + rows].contiguous()
+            g_b = g[:, :, first: first + rows].contiguous()
+            runs = {"K2": (lambda: k2(cl_b, cr_rows, md, stride, offset),
+                           lambda: correlation_cost_plain(cl_b, cr_rows, md, stride, offset)),
+                    "K3": (lambda: k3(g_b, cr_rows, md, stride, offset),
+                           lambda: correlation_grad_cl_plain(g_b, cr_rows, md, stride, offset)),
+                    "K4": (lambda: k4(g_b, cl_b, md, stride, offset, cr_rows.shape[2]),
+                           lambda: correlation_grad_cr_plain(g_b, cl_b, md, stride, offset,
+                                                             cr_rows.shape[2]))}
+            line = []
+            for name, (kernel, plain) in runs.items():
+                got, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or got.dtype != dtype:
+                    raise AssertionError(f"band {name} gave {tuple(got.shape)} {got.dtype}, "
+                                         f"want {tuple(ref.shape)} {dtype}")
+                if bf16:
+                    err, ulps = bf16_ulp_excess(got, ref)
+                    ok, measure = ulps <= 1.0, ulps
+                else:
+                    err = float((got - ref).abs().max())
+                    measure = err / max(float(ref.abs().max()), 1e-30)
+                    ok = err <= CORR_RTOL * float(ref.abs().max())
+                if not ok:
+                    raise AssertionError(f"band {name}{'-bf16' if bf16 else ''} differs from "
+                                         f"plain by {err:.3g} ({measure:.3g}) at {frame} L{level} "
+                                         f"rows {first}+{rows}, {route} route")
+                worst[name] = max(worst[name], measure)
+                line.append(f"{name}{'-bf16' if bf16 else ''} {_graph_ms(kernel):.4f} ms "
+                            f"(whole frame {whole[name]:.4f})")
+            print(f"timing band L{level} of {frame} [{pairs},{chans},{rows} of {h},{w}] rows "
+                  f"{first}..{first + rows - 1}, {route} route (cr {cr_rows.shape[2]} rows, "
+                  f"row offset {offset}): device (graph replay) {'; '.join(line)} {tag}",
+                  flush=True)
+    rule = "1 bfloat16 ulp + " + f"{BF16_CORR_ATOL} x max" if bf16 else f"{CORR_RTOL} x max"
+    return (f"band {'bfloat16' if bf16 else 'float32'} correlation kernels vs plain with a row "
+            f"offset (two bands of each PWC level of 128x512, gathered route; 256x1024 L2, halo "
+            f"route): worst K2 {worst['K2']:.3g}, K3 {worst['K3']:.3g}, K4 {worst['K4']:.3g} "
+            f"({'of the bound' if bf16 else 'of the largest plain value'}, rule {rule}); routes "
+            f"{sorted(routes)}")
 
 
 def _bf16_edge_checks(device, kernels) -> str:
@@ -3292,6 +3421,7 @@ def main(argv=()) -> int:
             # 8. the correlation kernels against their plain versions
             phase = clock("correlation kernels vs plain")
             cstats = _corr_phase(device, tag)
+            print(f"phase 8 {_band_corr_phase(device, tag, torch.float32, cstats)}", flush=True)
 
             # 9. flow predict: its counts read from zero
             phase = clock("flow predict")
@@ -3599,6 +3729,8 @@ def main(argv=()) -> int:
             # 21. the bfloat16 correlation kernels against their plain versions
             phase = clock("bf16 correlation kernels vs plain")
             cstats16 = _corr_phase(device, tag, torch.bfloat16, cstats, earlier_levels)
+            print(f"phase 21 {_band_corr_phase(device, tag, torch.bfloat16, cstats16)}",
+                  flush=True)
             print("timing bf16 vs float32 correlation kernels, device ms per flow train step "
                   "(5 levels, graph replay, this call): " + "; ".join(
                       f"{k}-bf16 {cstats16[k]['ms']:.4f} (float32 {cstats[k]['ms']:.4f}"

@@ -633,6 +633,47 @@ def test_correlation_kernels_match_plain_at_pwc_levels(cuda, level):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("md,stride,first", [(4, 2, 0), (4, 2, 8), (12, 4, 0), (12, 4, 8)])
+def test_correlation_kernels_on_a_band_match_plain(cuda, dtype, md, stride, first):
+    """A spatial mesh's band: 8 of a 16-row map's rows from ``first``,
+    against the rows of cr that ``spatial.correlation_rows`` gives it (md
+    rows beyond each side, zeros outside the frame, where md fits the
+    band; else the whole map) with their row offset: K2, K3 and K4 (their
+    bf16 forms in bf16) against the plain versions with that offset,
+    float32 within 1e-5 of the largest value, bf16 within one ulp."""
+    import torch.nn.functional as F
+
+    rows, height = 8, 16
+    generator = torch.Generator().manual_seed(md + first)
+    cl, cr = ((torch.rand((4, 24, height, 40), generator=generator) * 2 - 1).to(cuda, dtype)
+              for _ in range(2))
+    g = (torch.rand((4, corr.correlation_channels(md, stride), rows, 40),
+                    generator=generator) * 2 - 1).to(cuda, dtype)
+    if md <= rows:
+        top, bottom = max(0, md - first), max(0, first + rows + md - height)
+        cr_rows = F.pad(cr, (0, 0, top, bottom))[:, :, first - md + top:
+                                                 first + rows + md + top].contiguous()
+        offset = md
+    else:
+        cr_rows, offset = cr, first
+    cl_band = cl[:, :, first: first + rows].contiguous()
+    k2, k3, k4 = kcorr.kernels_for(dtype)
+    got = [k2(cl_band, cr_rows, md, stride, offset), k3(g, cr_rows, md, stride, offset),
+           k4(g, cl_band, md, stride, offset, cr_rows.shape[2])]
+    ref = [corr.correlation_cost_plain(cl_band, cr_rows, md, stride, offset),
+           corr.correlation_grad_cl_plain(g, cr_rows, md, stride, offset),
+           corr.correlation_grad_cr_plain(g, cl_band, md, stride, offset, cr_rows.shape[2])]
+    torch.cuda.synchronize()
+    for name, x, r in zip(("K2", "K3", "K4"), got, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        if dtype == torch.bfloat16:
+            assert chip_smoke.bf16_ulp_excess(x, r)[1] <= 1.0, name
+        else:
+            assert float((x - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+
+
+@pytest.mark.gpu
 def test_correlation_routing_and_refusals(cuda):
     rng = np.random.RandomState(5)
     cl, cr = (torch.from_numpy(rng.uniform(-1, 1, (2, 8, 6, 10)).astype(np.float32)).to(cuda)

@@ -22,8 +22,11 @@ image rows of their data index's samples:
   and a one-row plan (``train_by_plan``, then ``predict_by_plan`` on the
   mesh) against one process;
 - each band module, forward and backward, its bands gathered against the
-  whole map (``tools/spatial_check.py``), and K1's and K1-bwd's plain
-  twins on a band of target rows.
+  whole map (``tools/spatial_check.py``: the rigid path's and, since the
+  flow stage runs on the mesh, PWC-Net's), and K1's and K1-bwd's plain
+  twins on a band of target rows; ``check_spatial`` admitting the rigid
+  path and the flow stage and refusing the rest (the flow stage's steps
+  are ``tests/test_torch_spatial_flow.py``'s).
 """
 
 import math
@@ -417,9 +420,29 @@ def test_multihost_mesh_keeps_the_trailing_axes_on_one_host(monkeypatch):
 
 
 def test_flow_rows_on_a_spatial_mesh_raise():
+    """``check_spatial`` admits the flow stage (PWC-Net alone, flowL2 and
+    flow_reg) and the rigid path, and still raises, naming ROADMAP queue 1
+    item 4, for a flownet beside a depth and pose net (the joint step), a
+    stereo recipe's terms, and the cmb, md2, md2cmb and moa terms."""
+    from types import SimpleNamespace
+
     from xpt_mde_tpu_torch.config import FLOW_NET
     from xpt_mde_tpu_torch.parallel.sharding import check_spatial
-    model = ModelFactory(["image", "intrinsic"], FLOW_NET, stereo=False,
+
+    def recipe(*terms):
+        return SimpleNamespace(loss_objects=dict.fromkeys(terms))
+
+    keys = ["image", "intrinsic"]
+    flow = ModelFactory(keys, FLOW_NET, stereo=False, device="cpu").get_model()
+    rigid = ModelFactory(keys, NETS_BASIC, stereo=False, device="cpu").get_model()
+    joint = ModelFactory(keys, dict(NETS_BASIC, **FLOW_NET), stereo=False,
                          device="cpu").get_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        check_spatial(model)
+    check_spatial(flow)
+    check_spatial(flow, recipe("flowL2", "flow_reg"))
+    check_spatial(rigid, recipe("L1", "SSIM", "smoothe"))
+    for model, terms in ((joint, ("cmbL1", "cmbSSIM", "smoothe")), (joint, ()),
+                         (rigid, ("L1", "L1_R", "stereoL1", "stereoPose")),
+                         (flow, ("flowL2", "flowL2_R")), (flow, ("flowL2", "cmbL1")),
+                         (rigid, ("md2L1",)), (rigid, ("md2cmbL1",)), (rigid, ("moaSSIM",))):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+            check_spatial(model, recipe(*terms))

@@ -13,8 +13,12 @@
 //   K3  dcl[b,c,y,x]   = (1/C) sum_k g[b,k,y,x] * cr[b,c,y+dy,x+dx]
 //   K4  dcr[b,c,y',x'] = (1/C) sum_k g[b,k,y'-dy,x'-dx] * cl[b,c,y'-dy,x'-dx]
 //
-// where a term whose shifted position lies outside the frame is zero. They
-// compute exactly the plain PyTorch version
+// where a term whose shifted position lies outside the frame is zero. On a
+// spatial mesh's band cl and g hold h rows and cr its own H_r rows (the rows
+// the band reads), row_offset = cl's first global row minus cr's: cl's row y
+// meets cr's row y + row_offset + dy, and the frame is cr's [0, H_r); K4 then
+// writes dcr over cr's H_r rows. row_offset 0 with h = H_r is the whole frame.
+// They compute exactly the plain PyTorch version
 // xpt_mde_tpu_torch/ops/correlation.py::correlation_cost_plain and its
 // autograd, up to the order of the float32 sums; every sum has a fixed order
 // and nothing is added atomically, so a result is the same bits every run.
@@ -174,6 +178,14 @@ __device__ __forceinline__ void stage_rows(SrcRow src_row, DstRow dst_row, Cols 
   }
 }
 
+// The displacement rows i whose shifted row r0 + i * stride (r0 = the block's
+// row minus md, in the rows read) lies in [0, rows): lo .. hi (hi < lo: none).
+__device__ __forceinline__ int2 rows_in_frame(int r0, int rows, int stride, int n) {
+  const int lo = r0 < 0 ? (-r0 + stride - 1) / stride : 0;
+  const int last = rows - 1 - r0;  // the largest i * stride in the frame
+  return make_int2(lo, last < 0 ? -1 : min(n - 1, last / stride));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int kPending>
@@ -220,9 +232,9 @@ __host__ __device__ inline FwdLayout fwd_layout(int tile_x, int n, int stride, i
 template <bool kVec, bool kVecOut>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
-                float* __restrict__ out, int channels, int height, int width, int md,
-                int stride, int n, int tile_x, int rows_per_stage, int chan_groups, int skew,
-                int slot_skew) {
+                float* __restrict__ out, int channels, int height, int width, int cr_height,
+                int row_offset, int md, int stride, int n, int tile_x, int rows_per_stage,
+                int chan_groups, int skew, int slot_skew) {
   constexpr int kUnit = kVec ? 4 : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -233,9 +245,10 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   const int b = blockIdx.z;
   const int y = blockIdx.y;
   const int xt = blockIdx.x * tile_x;
-  const int hw = height * width;
+  const int hw = height * width, hw_r = cr_height * width;
   const float* clb = cl + static_cast<size_t>(b) * channels * hw + y * width + xt;
-  const float* crb = cr + static_cast<size_t>(b) * channels * hw;
+  const float* crb = cr + static_cast<size_t>(b) * channels * hw_r;
+  const int y0 = y + row_offset - md;  // cr's row of displacement row 0
   float* outb = out + static_cast<size_t>(b) * n * n * hw + y * width + xt;
   float* s_cl = smem;
   float* s_buf = smem + lay.cl_area;
@@ -243,9 +256,9 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   const int cl_pitch = lay.cl_pitch, cr_pitch = lay.cr_pitch, slot = lay.slot;
   const int part_pitch = lay.part_pitch;
 
-  // the displacement rows i whose row y - md + i * s lies in the frame
-  const int i_lo = md > y ? (md - y + s - 1) / s : 0;
-  const int i_hi = min(n - 1, (height - 1 - y + md) / s);
+  // the displacement rows i whose cr row y0 + i * s lies in cr's frame
+  const int2 in_rows = rows_in_frame(y0, cr_height, s, n);
+  const int i_lo = in_rows.x, i_hi = in_rows.y;
   const int in_frame = max(0, i_hi - i_lo + 1);
   // staged cr column l is frame column xt - md + l; on the kVec path l_lo,
   // l_hi and x_hi are multiples of 4
@@ -271,9 +284,9 @@ corr_fwd_kernel(const float* __restrict__ cl, const float* __restrict__ cr,
   // stage displacement rows i0 .. i0 + count - 1, one slot each
   auto stage = [&](int i0, int count) {
     for (int k = 0; k < count; ++k) {
-      const float* cr_k = crb + ((y + (i0 + k) * s - md) * width + xt - md + l_lo);
+      const float* cr_k = crb + ((y0 + (i0 + k) * s) * width + xt - md + l_lo);
       float* slot_k = s_buf + k * slot;
-      stage_rows<kUnit>([=](int r) { return cr_k + static_cast<size_t>(r) * hw; },
+      stage_rows<kUnit>([=](int r) { return cr_k + static_cast<size_t>(r) * hw_r; },
                         [=](int r) { return slot_k + r * cr_pitch; },
                         [=](int) { return make_int2(l_lo, (l_hi - l_lo) / kUnit); }, channels,
                         (l_hi - l_lo) / kUnit, s);
@@ -453,9 +466,9 @@ __host__ __device__ inline BwdLayout bwd_layout(int tile_x, int chan_blocks, int
 template <bool kVec, bool kDcr>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
-                float* __restrict__ dfeat, int channels, int height, int width, int md,
-                int stride, int n, int tile_x, int chan_blocks, int cb_skew,
-                int rows_per_stage, int buffers) {
+                float* __restrict__ dfeat, int channels, int height, int width,
+                int cr_height, int row_offset, int md, int stride, int n, int tile_x,
+                int chan_blocks, int cb_skew, int rows_per_stage, int buffers) {
   constexpr int kUnit = kVec ? 4 : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -465,11 +478,13 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   const int chunks = (channels + chans - 1) / chans;
   const int b = blockIdx.z / chunks;
   const int c0 = (blockIdx.z - b * chunks) * chans;
-  const int y = blockIdx.y;
+  const int y = blockIdx.y;  // K3: a row of cl and g; K4: a row of cr
   const int xt = blockIdx.x * tile_x;
-  const int hw = height * width;
+  const int hw = height * width, hw_r = cr_height * width;
+  // the feature rows (K3: cr's, K4: cl's) and the output rows (K3: dcl's, K4: dcr's)
+  const int hw_f = kDcr ? hw : hw_r, hw_o = kDcr ? hw_r : hw;
   const float* gb = g + static_cast<size_t>(b) * n * n * hw + xt;
-  const float* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw;
+  const float* fb = feat + (static_cast<size_t>(b) * channels + c0) * hw_f;
 
   // Zero the buffers once. Staging then writes only in-frame columns and
   // real channels, the same set for every displacement row, so the frame's
@@ -479,17 +494,13 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   }
   __syncthreads();
 
-  // the displacement rows i whose feature row (K3: y + dy_i, K4: y - dy_i)
-  // lies in the frame
-  int i_lo, i_hi;
-  if (kDcr) {
-    const int over = y + md - (height - 1);
-    i_lo = over > 0 ? (over + s - 1) / s : 0;
-    i_hi = min(n - 1, (y + md) / s);
-  } else {
-    i_lo = md > y ? (md - y + s - 1) / s : 0;
-    i_hi = min(n - 1, (height - 1 - y + md) / s);
-  }
+  // the displacement rows i whose feature row lies in its frame: K3's cr row
+  // y + row_offset - md + i * s in [0, cr_height); K4's cl row
+  // y - row_offset + md - i * s in [0, height), i.e. the row
+  // (height - 1) - that, y1 + i * s with y1 as below, in [0, height)
+  const int y1 = kDcr ? height - 1 - (y - row_offset + md) : y + row_offset - md;
+  const int2 in_rows = rows_in_frame(y1, kDcr ? height : cr_height, s, n);
+  const int i_lo = in_rows.x, i_hi = in_rows.y;
   // staged feature column l is frame column xt - lead + l: K3's pixel x
   // reads x + o_j from x + o_0 on (lead md), K4's pixel x' reads x' - o_j
   // from x' - o_{n-1} on (lead o_{n-1}); on the kVec path lead, l_lo, l_hi
@@ -506,12 +517,12 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   auto stage = [&](int i0, int count, float* buffer) {
     for (int k = 0; k < count; ++k) {
       const int i = i0 + k;
-      const int row = kDcr ? y + md - i * s : y - md + i * s;
+      const int row = kDcr ? y - row_offset + md - i * s : y1 + i * s;
       const float* f_k = fb + (row * width + xt - lead + l_lo);
       float* slot_k = buffer + k * slot;
       float* g_slot = slot_k + chan_blocks * cb_pitch;
       stage_rows<kUnit>(
-          [=](int r) { return f_k + static_cast<size_t>(r) * hw; },
+          [=](int r) { return f_k + static_cast<size_t>(r) * hw_f; },
           [=](int r) { return slot_k + (r / kChan) * cb_pitch + (r % kChan) * feat_pitch; },
           [=](int) { return make_int2(l_lo, (l_hi - l_lo) / kUnit); }, c_hi,
           (l_hi - l_lo) / kUnit, s);
@@ -626,10 +637,10 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   __syncthreads();
   const RowLanes rl = row_lanes(x_hi);
   if (!rl.on) return;
-  float* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw + y * width + xt;
+  float* out = dfeat + (static_cast<size_t>(b) * channels + c0) * hw_o + y * width + xt;
   for (int r = rl.first; r < c_hi; r += rl.next) {
     for (int x = rl.u0; x < x_hi; x += rl.step) {
-      out[static_cast<size_t>(r) * hw + x] =
+      out[static_cast<size_t>(r) * hw_o + x] =
           smem[r * g_pitch + padded(x, s)] / static_cast<float>(channels);
     }
   }
@@ -656,13 +667,16 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, void* stream, 
 // launches.
 template <bool kDcr>
 int corr_bwd(const float* g, const float* feat, float* dfeat, int batch, int channels,
-             int height, int width, int md, int stride, int tile_x, int chan_blocks,
-             int cb_skew, int rows_per_stage, int buffers, int threads, int smem_bytes,
-             void* stream) {
-  if (static_cast<long long>(batch) * channels * height * width == 0) {
+             int height, int width, int cr_height, int row_offset, int md, int stride,
+             int tile_x, int chan_blocks, int cb_skew, int rows_per_stage, int buffers,
+             int threads, int smem_bytes, void* stream) {
+  // the output's rows: K3 dcl's (height), K4 dcr's (cr_height)
+  const int out_rows = kDcr ? cr_height : height;
+  if (static_cast<long long>(batch) * channels * out_rows * width == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (tile_x <= 0 || stride <= 0 || md < 0 || chan_blocks <= 0) {
+  if (tile_x <= 0 || stride <= 0 || md < 0 || chan_blocks <= 0 || height < 0
+      || cr_height < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
@@ -676,25 +690,27 @@ int corr_bwd(const float* g, const float* feat, float* dfeat, int batch, int cha
   if (tile_x % (kPix * stride) != 0 || cb_skew < 0 || cb_skew >= 32
       || (stride % 4 == 0 && cb_skew % 4 != 0) || threads % 32 != 0 || threads > kMaxThreads
       || threads < chan_blocks * (tile_x / kPix) || smem_bytes != want
-      || smem_bytes > kSmemLimit || height > 65535
+      || smem_bytes > kSmemLimit || out_rows > 65535
       || static_cast<long long>(batch) * chunks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = stride % 4 == 0 && md % 4 == 0 && width % 4 == 0 && aligned4(g)
                    && aligned4(feat);
   const auto kernel = vec ? corr_bwd_kernel<true, kDcr> : corr_bwd_kernel<false, kDcr>;
-  const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
+  const dim3 grid((width + tile_x - 1) / tile_x, out_rows, batch * chunks);
   return launch(kernel, grid, threads, smem_bytes, stream, g, feat, dfeat, channels, height,
-                width, md, stride, n, tile_x, chan_blocks, cb_skew, rows_per_stage, buffers);
+                width, cr_height, row_offset, md, stride, n, tile_x, chan_blocks, cb_skew,
+                rows_per_stage, buffers);
 }
 
 // K2: checks the plan, picks the staging and store widths and launches.
 int corr_fwd(const float* cl, const float* cr, float* out, int batch, int channels, int height,
-             int width, int md, int stride, int tile_x, int rows_per_stage, int chan_groups,
-             int skew, int slot_skew, int threads, int smem_bytes, void* stream) {
+             int width, int cr_height, int row_offset, int md, int stride, int tile_x,
+             int rows_per_stage, int chan_groups, int skew, int slot_skew, int threads,
+             int smem_bytes, void* stream) {
   if (static_cast<long long>(batch) * height * width == 0) return static_cast<int>(cudaSuccess);
   if (tile_x <= 0 || stride <= 0 || md < 0 || channels <= 0 || chan_groups <= 0
-      || chan_groups > channels) {
+      || chan_groups > channels || cr_height < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
@@ -721,13 +737,16 @@ int corr_fwd(const float* cl, const float* cr, float* out, int batch, int channe
                                      : corr_fwd_kernel<false, false>);
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch);
   return launch(kernel, grid, threads, smem_bytes, stream, cl, cr, out, channels, height, width,
-                md, stride, n, tile_x, rows_per_stage, chan_groups, skew, slot_skew);
+                cr_height, row_offset, md, stride, n, tile_x, rows_per_stage, chan_groups, skew,
+                slot_skew);
 }
 
 }  // namespace
 
-// cl, cr [B,C,H,W]; writes out [B,n^2,H,W] with n = 2 * md / stride + 1;
-// all float32, contiguous, on the current device. The tiling comes from the
+// cl [B,C,H,W], cr [B,C,H_r,W] (H_r = cr_height; row_offset: cl's first
+// global row minus cr's, 0 with H_r = H for the whole frame); writes out
+// [B,n^2,H,W] with n = 2 * md / stride + 1; all float32, contiguous, on the
+// current device. The tiling comes from the
 // wrapper's plan (ops/kernels/correlation.py::fwd_plan): tile_x (a multiple
 // of 4 * stride), rows_per_stage (1..n), chan_groups (1..C, none empty),
 // skew and slot_skew (0-31; multiples of 4 where stride is), threads (a
@@ -738,16 +757,17 @@ int corr_fwd(const float* cl, const float* cr, float* out, int batch, int channe
 // 16-byte aligned. Launches K2 on `stream` and returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a plan that does not match.
 extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
-                            int batch, int channels, int height, int width,
-                            int md, int stride, int tile_x, int rows_per_stage,
+                            int batch, int channels, int height, int width, int cr_height,
+                            int row_offset, int md, int stride, int tile_x, int rows_per_stage,
                             int chan_groups, int skew, int slot_skew, int threads,
                             int smem_bytes, void* stream) {
-  return corr_fwd(cl, cr, out, batch, channels, height, width, md, stride, tile_x, rows_per_stage,
-                  chan_groups, skew, slot_skew, threads, smem_bytes, stream);
+  return corr_fwd(cl, cr, out, batch, channels, height, width, cr_height, row_offset, md, stride,
+                  tile_x, rows_per_stage, chan_groups, skew, slot_skew, threads, smem_bytes,
+                  stream);
 }
 
-// g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H,W]; writes
-// dcl [B,C,H,W]. The tiling comes from the wrapper's plan
+// g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H_r,W] (cr_height
+// and row_offset as for xpt_corr_fwd); writes dcl [B,C,H,W]. The tiling comes from the wrapper's plan
 // (ops/kernels/correlation.py::bwd_plan): tile_x (a multiple of
 // 4 * stride), chan_blocks (blocks of 8 channels per CUDA block), cb_skew
 // (0-31; a multiple of 4 where stride is), rows_per_stage (1..n), buffers
@@ -758,23 +778,25 @@ extern "C" int xpt_corr_fwd(const float* cl, const float* cr, float* out,
 // cudaGetLastError(), or cudaErrorInvalidValue for a plan that does not
 // match.
 extern "C" int xpt_corr_bwd_cl(const float* g, const float* cr, float* dcl,
-                               int batch, int channels, int height, int width,
-                               int md, int stride, int tile_x, int chan_blocks,
+                               int batch, int channels, int height, int width, int cr_height,
+                               int row_offset, int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<false>(g, cr, dcl, batch, channels, height, width, md, stride, tile_x,
-                         chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
-                         stream);
+  return corr_bwd<false>(g, cr, dcl, batch, channels, height, width, cr_height, row_offset, md,
+                         stride, tile_x, chan_blocks, cb_skew, rows_per_stage, buffers, threads,
+                         smem_bytes, stream);
 }
 
-// g [B,n^2,H,W], cl [B,C,H,W]; writes dcr [B,C,H,W]. The same plan and
-// checks as xpt_corr_bwd_cl (one plan serves both). Launches K4 on `stream`.
+// g [B,n^2,H,W], cl [B,C,H,W]; writes dcr [B,C,H_r,W] (cr_height and
+// row_offset as for xpt_corr_fwd: on a band, this band's share of the
+// gradient of cr's H_r rows). The same plan and checks as xpt_corr_bwd_cl
+// (one plan serves both). Launches K4 on `stream`.
 extern "C" int xpt_corr_bwd_cr(const float* g, const float* cl, float* dcr,
-                               int batch, int channels, int height, int width,
-                               int md, int stride, int tile_x, int chan_blocks,
+                               int batch, int channels, int height, int width, int cr_height,
+                               int row_offset, int md, int stride, int tile_x, int chan_blocks,
                                int cb_skew, int rows_per_stage, int buffers, int threads,
                                int smem_bytes, void* stream) {
-  return corr_bwd<true>(g, cl, dcr, batch, channels, height, width, md, stride, tile_x,
-                        chan_blocks, cb_skew, rows_per_stage, buffers, threads, smem_bytes,
-                        stream);
+  return corr_bwd<true>(g, cl, dcr, batch, channels, height, width, cr_height, row_offset, md,
+                        stride, tile_x, chan_blocks, cb_skew, rows_per_stage, buffers, threads,
+                        smem_bytes, stream);
 }

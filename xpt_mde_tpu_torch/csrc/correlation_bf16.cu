@@ -16,8 +16,13 @@
 //   K4  dcr[b,c,y',x']    = bf16((sum_{i,j} g[b,i*n+j,y'-o_i,x'-o_j]
 //                                           * cl[b,c,y'-o_i,x'-o_j]) / C)
 //
-// where a term whose shifted position lies outside the frame is zero: the
-// plain versions xpt_mde_tpu_torch/ops/correlation.py::correlation_cost_plain,
+// where a term whose shifted position lies outside the frame is zero. On a
+// spatial mesh's band cl and g hold h rows and cr its own H_r rows,
+// row_offset = cl's first global row minus cr's: cl's row y meets cr's row
+// y + row_offset + o_i, the frame is cr's [0, H_r) (cr's tensor map has H_r
+// rows, so TMA's zero fill is that frame's outside, above it too), and K4
+// writes dcr over cr's H_r rows. row_offset 0 with H_r = h is the whole
+// frame. The plain versions xpt_mde_tpu_torch/ops/correlation.py::correlation_cost_plain,
 // correlation_grad_cl_plain and correlation_grad_cr_plain, up to the order
 // of the float32 sums. Every sum has a fixed order and nothing is added
 // atomically: the same inputs give the same bits on every run and on every
@@ -135,6 +140,15 @@ __host__ __device__ inline int lead8(int col) { return ((col % 8) + 8) % 8; }
 __host__ __device__ inline int rows_max(int n, int stride, int height) {
   const int h = (height + stride - 1) / stride;
   return n < h ? n : h;
+}
+
+// The displacement rows i whose shifted row r0 + i * stride (r0 = the
+// block's row minus md, in the rows read) lies in [0, rows): lo .. hi (hi <
+// lo: none). At most rows_max(n, stride, rows) of them.
+__device__ __forceinline__ int2 rows_in_frame(int r0, int rows, int stride, int n) {
+  const int lo = r0 < 0 ? (-r0 + stride - 1) / stride : 0;
+  const int last = rows - 1 - r0;  // the largest i * stride in the frame
+  return make_int2(lo, last < 0 ? -1 : min(n - 1, last / stride));
 }
 
 // K2 stages all channels of a row, rounded up to 16, as `count` boxes of
@@ -441,7 +455,8 @@ __device__ __forceinline__ void store_sums(const BwdAcc& acc, bool working, int 
 // ---------------------------------------------------------------- K2-bf16
 
 // grid (x tiles, H, B * groups); block: one warp per (class tile, chunk of
-// kJ displacements), tile_x / 16 class tiles. Group grp computes the
+// kJ displacements), tile_x / 16 class tiles; the layout's rows from cr's
+// height. Group grp computes the
 // in-frame displacement rows lo + grp * rows .. (rows = the layout's) and
 // writes the zero planes of the out-of-frame rows i with i % groups == grp.
 // `tma`: cl and cr staged by TMA boxes (map_cl, map_cr), else by the
@@ -450,12 +465,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 3)
 corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
                      const __grid_constant__ CUtensorMap map_cr, const u16* __restrict__ cl,
                      const u16* __restrict__ cr, u16* __restrict__ out, int channels, int height,
-                     int width, int md, int s, int n, int tile_x, int groups, int tma,
-                     int vec_out) {
+                     int width, int cr_height, int row_offset, int md, int s, int n, int tile_x,
+                     int groups, int tma, int vec_out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  const FwdLayout lay = fwd_layout(channels, height, s, n, tile_x, groups);
+  const FwdLayout lay = fwd_layout(channels, cr_height, s, n, tile_x, groups);
   const ChanBoxes boxes = chan_boxes(channels);
   const int cl_pitch = lay.cl_pitch, row_pitch = lay.row_pitch, row_elems = lay.row_bytes / 2;
   u16* s_cl = reinterpret_cast<u16*>(smem);
@@ -465,10 +480,12 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
   const int b = blockIdx.z / groups, grp = blockIdx.z - b * groups;
   const int y = blockIdx.y, xt = blockIdx.x * tile_x;
   const size_t hw = static_cast<size_t>(height) * width;
-  // the displacement rows i whose row y - md + i * s lies in the frame, and
+  const size_t hw_r = static_cast<size_t>(cr_height) * width;
+  // the displacement rows i whose cr row y0 + i * s lies in cr's frame, and
   // this group's share of them
-  const int lo_y = md > y ? (md - y + s - 1) / s : 0;
-  const int hi_y = min(n - 1, (height - 1 - y + md) / s);
+  const int y0 = y + row_offset - md;
+  const int2 in_rows = rows_in_frame(y0, cr_height, s, n);
+  const int lo_y = in_rows.x, hi_y = in_rows.y;
   const int c_lo = lo_y + grp * lay.rows;
   const int rows = max(0, min(hi_y, c_lo + lay.rows - 1) - c_lo + 1);
   // the cr rows' window starts at frame column xt - md, staged column sh
@@ -486,7 +503,7 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
         for (int k = 0; k < rows; ++k) {
           for (int q = 0; q < boxes.count; ++q) {
             tma_load(s_rows + k * row_elems + q * boxes.box * row_pitch, &map_cr, xt - md - sh,
-                     y - md + (c_lo + k) * s, q * boxes.box, b, &bar);
+                     y0 + (c_lo + k) * s, q * boxes.box, b, &bar);
           }
         }
       }
@@ -495,9 +512,9 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
       const u16* clb = cl + static_cast<size_t>(b) * channels * hw + static_cast<size_t>(y) * width;
       stage_plain(s_cl, clb, hw, lay.chans, channels, cl_pitch, xt, width);
       for (int k = 0; k < rows; ++k) {
-        const u16* crb = cr + static_cast<size_t>(b) * channels * hw
-                         + static_cast<size_t>(y - md + (c_lo + k) * s) * width;
-        stage_plain(s_rows + k * row_elems, crb, hw, lay.chans, channels, row_pitch,
+        const u16* crb = cr + static_cast<size_t>(b) * channels * hw_r
+                         + static_cast<size_t>(y0 + (c_lo + k) * s) * width;
+        stage_plain(s_rows + k * row_elems, crb, hw_r, lay.chans, channels, row_pitch,
                     xt - md - sh, width);
       }
       __syncthreads();
@@ -598,21 +615,23 @@ corr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_cl,
 // group of up to kGroupBlocks 16-channel blocks), as K4-bf16. The block
 // stages its g tile once, on a barrier of its own: the g rows (i, j) of
 // image row y from its first in-frame displacement row i_lo on, frame
-// columns xt .. (g of an out-of-frame row is never read). Its in-frame
-// rows' cr rows y - md + i * s go through `rows_per_stage` slots, one
+// columns xt .. (g of an out-of-frame row is never read; the tile holds
+// rows_max of cr's height). Its in-frame rows' cr rows
+// y + row_offset - md + i * s go through `rows_per_stage` slots, one
 // mbarrier each, from frame column xt - md on: pixel x = xt + X of term j
 // reads window column X + s * j of the cr row and column X of g row (i, j).
 __global__ void __launch_bounds__(kMaxWarps * 32, 3)
 corr_bwd_cl_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
                         const __grid_constant__ CUtensorMap map_cr, const u16* __restrict__ g,
                         const u16* __restrict__ cr, u16* __restrict__ dcl, int channels,
-                        int height, int width, int md, int s, int n, int tile_x,
-                        int chan_blocks, int rows_per_stage, int tma, int vec_out) {
+                        int height, int width, int cr_height, int row_offset, int md, int s,
+                        int n, int tile_x, int chan_blocks, int rows_per_stage, int tma,
+                        int vec_out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kRowsPerStage + 1];  // the slots', then the g tile's
   uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  const BwdClLayout lay = bwd_cl_layout(s, n, tile_x, chan_blocks, rows_per_stage, height);
-  const ChanBoxes planes = plane_boxes(rows_max(n, s, height) * n);
+  const BwdClLayout lay = bwd_cl_layout(s, n, tile_x, chan_blocks, rows_per_stage, cr_height);
+  const ChanBoxes planes = plane_boxes(rows_max(n, s, cr_height) * n);
   const int pitch = lay.pitch, g_pitch = lay.g_pitch, row_elems = lay.row_bytes / 2;
   u16* s_g = reinterpret_cast<u16*>(smem);
   u16* s_rows = reinterpret_cast<u16*>(smem + lay.g_bytes);
@@ -623,9 +642,11 @@ corr_bwd_cl_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
   const int b = blockIdx.z / chunks_c, c0 = (blockIdx.z - b * chunks_c) * lay.chans;
   const int y = blockIdx.y, xt = blockIdx.x * tile_x;
   const size_t hw = static_cast<size_t>(height) * width;
-  // the displacement rows i whose cr row y - md + i * s lies in the frame
-  const int i_lo = md > y ? (md - y + s - 1) / s : 0;
-  const int i_hi = min(n - 1, (height - 1 - y + md) / s);
+  const size_t hw_r = static_cast<size_t>(cr_height) * width;
+  // the displacement rows i whose cr row y0 + i * s lies in cr's frame
+  const int y0 = y + row_offset - md;
+  const int2 in_rows = rows_in_frame(y0, cr_height, s, n);
+  const int i_lo = in_rows.x, i_hi = in_rows.y;
   const int in_frame = max(0, i_hi - i_lo + 1);
   const int stages = (in_frame + rows_per_stage - 1) / rows_per_stage;
   // the cr window starts at frame column col0, staged column sh
@@ -673,16 +694,16 @@ corr_bwd_cl_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
         fence_proxy_async();
         for (int k = 0; k < count; ++k) {
           mbar_expect(&bars[k], lay.row_bytes);
-          tma_load(s_rows + k * row_elems, &map_cr, col0 - sh, y - md + (i0 + k) * s, c0, b,
+          tma_load(s_rows + k * row_elems, &map_cr, col0 - sh, y0 + (i0 + k) * s, c0, b,
                    &bars[k]);
         }
       }
     } else {
       for (int k = 0; k < count; ++k) {
         stage_plain(s_rows + k * row_elems,
-                    cr + (static_cast<size_t>(b) * channels + c0) * hw
-                        + static_cast<size_t>(y - md + (i0 + k) * s) * width,
-                    hw, lay.chans, channels - c0, pitch, col0 - sh, width);
+                    cr + (static_cast<size_t>(b) * channels + c0) * hw_r
+                        + static_cast<size_t>(y0 + (i0 + k) * s) * width,
+                    hw_r, lay.chans, channels - c0, pitch, col0 - sh, width);
       }
       __syncthreads();
     }
@@ -726,8 +747,9 @@ corr_bwd_cl_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
 
 // grid (x tiles, H, B * channel chunks); block: one warp per (class tile,
 // group of up to kGroupBlocks 16-channel blocks), tile_x / 16 class tiles,
-// chan_blocks blocks of 16 channels a chunk. The in-frame displacement rows
-// i (cl row y' + md - i * s) go through `rows_per_stage` slots, one
+// chan_blocks blocks of 16 channels a chunk; y' a row of cr (grid rows
+// H_r), cl and g of h rows. The in-frame displacement rows i (cl row
+// y' - row_offset + md - i * s) go through `rows_per_stage` slots, one
 // mbarrier each. A row's cl and g are staged from frame column
 // xt - ((n - 1) * s - md) on: pixel x' = xt + X of term j reads window
 // column X + s * (n - 1 - j).
@@ -735,8 +757,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 3)
 corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
                         const __grid_constant__ CUtensorMap map_cl, const u16* __restrict__ g,
                         const u16* __restrict__ cl, u16* __restrict__ dcr, int channels,
-                        int height, int width, int md, int s, int n, int tile_x,
-                        int chan_blocks, int rows_per_stage, int tma, int vec_out) {
+                        int height, int width, int cr_height, int row_offset, int md, int s,
+                        int n, int tile_x, int chan_blocks, int rows_per_stage, int tma,
+                        int vec_out) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kRowsPerStage];
   uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
@@ -749,9 +772,12 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
   const int b = blockIdx.z / chunks_c, c0 = (blockIdx.z - b * chunks_c) * lay.chans;
   const int y = blockIdx.y, xt = blockIdx.x * tile_x;
   const size_t hw = static_cast<size_t>(height) * width;
-  const int over = y + md - (height - 1);
-  const int i_lo = over > 0 ? (over + s - 1) / s : 0;
-  const int i_hi = min(n - 1, (y + md) / s);
+  const size_t hw_r = static_cast<size_t>(cr_height) * width;
+  // the displacement rows i whose cl row yc - i * s lies in [0, height): the
+  // row height - 1 - (yc - i * s) = y1 + i * s in it
+  const int yc = y - row_offset + md, y1 = height - 1 - yc;
+  const int2 in_rows = rows_in_frame(y1, height, s, n);
+  const int i_lo = in_rows.x, i_hi = in_rows.y;
   const int in_frame = max(0, i_hi - i_lo + 1);
   const int stages = (in_frame + rows_per_stage - 1) / rows_per_stage;
   // the window starts at frame column col0, staged column sh
@@ -780,7 +806,7 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
       if (threadIdx.x == 0) {
         fence_proxy_async();
         for (int k = 0; k < count; ++k) {
-          const int row = y + md - (i0 + k) * s;
+          const int row = yc - (i0 + k) * s;
           u16* slot = s_slots + k * slot_elems;
           mbar_expect(&bars[k], (lay.chans + n) * pitch * 2);
           tma_load(slot, &map_cl, col0 - sh, row, c0, b, &bars[k]);
@@ -789,7 +815,7 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
       }
     } else {
       for (int k = 0; k < count; ++k) {
-        const int row = y + md - (i0 + k) * s;
+        const int row = yc - (i0 + k) * s;
         u16* slot = s_slots + k * slot_elems;
         stage_plain(slot, cl + (static_cast<size_t>(b) * channels + c0) * hw
                               + static_cast<size_t>(row) * width,
@@ -831,9 +857,9 @@ corr_bwd_cr_bf16_kernel(const __grid_constant__ CUtensorMap map_g,
     }
   }
   store_sums(acc, working, grp, blocks, cls, ct, s, s_part, lay.part_pitch,
-             dcr + (static_cast<size_t>(b) * channels + c0) * hw + static_cast<size_t>(y) * width
-                 + xt,
-             hw, min(lay.chans, channels - c0), min(tile_x, width - xt), vec_out, channels);
+             dcr + (static_cast<size_t>(b) * channels + c0) * hw_r
+                 + static_cast<size_t>(y) * width + xt,
+             hw_r, min(lay.chans, channels - c0), min(tile_x, width - xt), vec_out, channels);
 }
 
 // ------------------------------------------------------------------- host
@@ -906,8 +932,10 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, void* stream, 
 
 }  // namespace
 
-// cl, cr [B,C,H,W] bfloat16; writes out [B,n^2,H,W] bfloat16, n = 2 * md /
-// stride + 1; contiguous, on the current device. The plan comes from
+// cl [B,C,H,W], cr [B,C,H_r,W] bfloat16 (H_r = cr_height; row_offset: cl's
+// first global row minus cr's, 0 with H_r = H for the whole frame); writes
+// out [B,n^2,H,W] bfloat16, n = 2 * md / stride + 1; contiguous, on the
+// current device. The plan comes from
 // ops/kernels/correlation.py::fwd_plan_bf16: tile_x (a multiple of 16 *
 // stride, at most kMaxWarps / ceil(n / 9) class tiles), groups (1..n, at
 // most kFwdRows in-frame rows each), threads (32 a class tile and chunk)
@@ -918,15 +946,15 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem_bytes, void* stream, 
 // cudaErrorInvalidValue for a plan that does not match, or
 // cudaErrorNotSupported where no tensor map can be made.
 extern "C" int xpt_corr_fwd_bf16(const void* cl, const void* cr, void* out, int batch,
-                                 int channels, int height, int width, int md, int stride,
-                                 int tile_x, int groups, int threads, int smem_bytes,
-                                 void* stream) {
+                                 int channels, int height, int width, int cr_height,
+                                 int row_offset, int md, int stride, int tile_x, int groups,
+                                 int threads, int smem_bytes, void* stream) {
   if (static_cast<long long>(batch) * height * width == 0) return static_cast<int>(cudaSuccess);
-  if (channels <= 0 || stride <= 0 || md < 0 || tile_x <= 0 || groups <= 0) {
+  if (channels <= 0 || stride <= 0 || md < 0 || tile_x <= 0 || groups <= 0 || cr_height <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
-  const FwdLayout lay = fwd_layout(channels, height, stride, n, tile_x, groups);
+  const FwdLayout lay = fwd_layout(channels, cr_height, stride, n, tile_x, groups);
   const int warps = tile_x / kTileP * disp_chunks(n);
   if (tile_x % (kTileP * stride) != 0 || groups > n || lay.rows > kFwdRows || warps > kMaxWarps
       || threads != 32 * warps || smem_bytes != lay.total || smem_bytes > kSmemLimit
@@ -938,19 +966,21 @@ extern "C" int xpt_corr_fwd_bf16(const void* cl, const void* cr, void* out, int 
                    && lay.row_pitch <= kBoxMax;
   const int box = chan_boxes(channels).box;
   if (tma && !(encode_map(&map_cl, cl, batch, channels, height, width, lay.cl_pitch, box)
-               && encode_map(&map_cr, cr, batch, channels, height, width, lay.row_pitch, box))) {
+               && encode_map(&map_cr, cr, batch, channels, cr_height, width, lay.row_pitch,
+                             box))) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   const bool vec_out = width % 8 == 0 && aligned16(out);
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch * groups);
   return launch(corr_fwd_bf16_kernel, grid, threads, smem_bytes, stream, map_cl, map_cr,
                 static_cast<const u16*>(cl), static_cast<const u16*>(cr), static_cast<u16*>(out),
-                channels, height, width, md, stride, n, tile_x, groups, tma ? 1 : 0,
-                vec_out ? 1 : 0);
+                channels, height, width, cr_height, row_offset, md, stride, n, tile_x, groups,
+                tma ? 1 : 0, vec_out ? 1 : 0);
 }
 
-// g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H,W], bfloat16;
-// writes dcl [B,C,H,W] bfloat16. The plan comes from ops/kernels/
+// g [B,n^2,H,W] (the cotangent of K2's output), cr [B,C,H_r,W], bfloat16
+// (cr_height and row_offset as for xpt_corr_fwd_bf16); writes dcl [B,C,H,W]
+// bfloat16. The plan comes from ops/kernels/
 // correlation.py::bwd_cl_plan_bf16: tile_x (a multiple of 16 * stride),
 // chan_blocks (16-channel blocks a CUDA block, at most 16, one warp per
 // class tile and group of 4), rows_per_stage (1..4), threads and
@@ -958,18 +988,19 @@ extern "C" int xpt_corr_fwd_bf16(const void* cl, const void* cr, void* out, int 
 // where W % 8 == 0, g and cr are 16-byte aligned and a cr row fits one
 // box. Launches K3-bf16 on `stream`; returns as xpt_corr_fwd_bf16.
 extern "C" int xpt_corr_bwd_cl_bf16(const void* g, const void* cr, void* dcl, int batch,
-                                    int channels, int height, int width, int md, int stride,
-                                    int tile_x, int chan_blocks, int rows_per_stage, int threads,
+                                    int channels, int height, int width, int cr_height,
+                                    int row_offset, int md, int stride, int tile_x,
+                                    int chan_blocks, int rows_per_stage, int threads,
                                     int smem_bytes, void* stream) {
   if (static_cast<long long>(batch) * channels * height * width == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (stride <= 0 || md < 0 || tile_x <= 0 || chan_blocks <= 0) {
+  if (stride <= 0 || md < 0 || tile_x <= 0 || chan_blocks <= 0 || cr_height <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
   const BwdClLayout lay = bwd_cl_layout(stride, n, tile_x, chan_blocks, rows_per_stage,
-                                        height);
+                                        cr_height);
   if (!bwd_plan_holds(batch, channels, height, stride, tile_x, chan_blocks, rows_per_stage,
                       threads, smem_bytes, lay.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -977,8 +1008,9 @@ extern "C" int xpt_corr_bwd_cl_bf16(const void* g, const void* cr, void* dcl, in
   CUtensorMap map_g{}, map_cr{};
   const bool tma = width % 8 == 0 && aligned16(g) && aligned16(cr) && lay.pitch <= kBoxMax;
   if (tma && !(encode_map(&map_g, g, batch, n * n, height, width, lay.g_pitch,
-                          plane_boxes(rows_max(n, stride, height) * n).box)
-               && encode_map(&map_cr, cr, batch, channels, height, width, lay.pitch, lay.chans))) {
+                          plane_boxes(rows_max(n, stride, cr_height) * n).box)
+               && encode_map(&map_cr, cr, batch, channels, cr_height, width, lay.pitch,
+                             lay.chans))) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   const bool vec_out = width % 8 == 0 && aligned16(dcl);
@@ -986,28 +1018,31 @@ extern "C" int xpt_corr_bwd_cl_bf16(const void* g, const void* cr, void* dcl, in
   const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
   return launch(corr_bwd_cl_bf16_kernel, grid, threads, smem_bytes, stream, map_g, map_cr,
                 static_cast<const u16*>(g), static_cast<const u16*>(cr), static_cast<u16*>(dcl),
-                channels, height, width, md, stride, n, tile_x, chan_blocks, rows_per_stage,
-                tma ? 1 : 0, vec_out ? 1 : 0);
+                channels, height, width, cr_height, row_offset, md, stride, n, tile_x,
+                chan_blocks, rows_per_stage, tma ? 1 : 0, vec_out ? 1 : 0);
 }
 
-// g [B,n^2,H,W], cl [B,C,H,W], bfloat16; writes dcr [B,C,H,W] bfloat16.
+// g [B,n^2,H,W], cl [B,C,H,W], bfloat16; writes dcr [B,C,H_r,W] bfloat16
+// (cr_height and row_offset as for xpt_corr_fwd_bf16; the grid's rows are
+// cr's).
 // The plan comes from ops/kernels/correlation.py::bwd_cr_plan_bf16, with
 // the keys and limits of xpt_corr_bwd_cl_bf16's, for this layout. Stages by
 // TMA where W % 8 == 0, g and cl are 16-byte aligned and a row fits one
 // box. Launches K4-bf16 on `stream`; returns as xpt_corr_fwd_bf16.
 extern "C" int xpt_corr_bwd_cr_bf16(const void* g, const void* cl, void* dcr, int batch,
-                                    int channels, int height, int width, int md, int stride,
-                                    int tile_x, int chan_blocks, int rows_per_stage, int threads,
+                                    int channels, int height, int width, int cr_height,
+                                    int row_offset, int md, int stride, int tile_x,
+                                    int chan_blocks, int rows_per_stage, int threads,
                                     int smem_bytes, void* stream) {
-  if (static_cast<long long>(batch) * channels * height * width == 0) {
+  if (static_cast<long long>(batch) * channels * cr_height * width == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (stride <= 0 || md < 0 || tile_x <= 0 || chan_blocks <= 0) {
+  if (stride <= 0 || md < 0 || tile_x <= 0 || chan_blocks <= 0 || height <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = displacements(md, stride);
   const BwdLayout lay = bwd_layout(stride, n, tile_x, chan_blocks, rows_per_stage);
-  if (!bwd_plan_holds(batch, channels, height, stride, tile_x, chan_blocks, rows_per_stage,
+  if (!bwd_plan_holds(batch, channels, cr_height, stride, tile_x, chan_blocks, rows_per_stage,
                       threads, smem_bytes, lay.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1020,9 +1055,9 @@ extern "C" int xpt_corr_bwd_cr_bf16(const void* g, const void* cl, void* dcr, in
   }
   const bool vec_out = width % 8 == 0 && aligned16(dcr);
   const int chunks = ((channels + 15) / 16 + chan_blocks - 1) / chan_blocks;
-  const dim3 grid((width + tile_x - 1) / tile_x, height, batch * chunks);
+  const dim3 grid((width + tile_x - 1) / tile_x, cr_height, batch * chunks);
   return launch(corr_bwd_cr_bf16_kernel, grid, threads, smem_bytes, stream, map_g, map_cl,
                 static_cast<const u16*>(g), static_cast<const u16*>(cl), static_cast<u16*>(dcr),
-                channels, height, width, md, stride, n, tile_x, chan_blocks, rows_per_stage,
-                tma ? 1 : 0, vec_out ? 1 : 0);
+                channels, height, width, cr_height, row_offset, md, stride, n, tile_x,
+                chan_blocks, rows_per_stage, tma ? 1 : 0, vec_out ? 1 : 0);
 }

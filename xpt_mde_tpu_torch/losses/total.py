@@ -266,7 +266,10 @@ class FlowWarpLossMultiScale:
 class L2Regularizer:
     """0.5 * sum(w^2) over the tensors in ``predictions["regularize_weights"]``
     (the train step puts a net's parameters there, kernels and biases),
-    the same value for every sample; zeros without it."""
+    the same value for every sample; zeros without it. On a spatial mesh
+    every rank of a group holds the weights whole, so the group's first
+    rank alone counts it (``spatial.first_rank_share``), as ``band_mean``
+    counts a whole map: the step sums the gradients over the mesh."""
 
     def __call__(self, features, predictions, augm_data):
         weights = predictions.get("regularize_weights")
@@ -274,7 +277,7 @@ class L2Regularizer:
         if weights is None:
             return torch.zeros(image5d.shape[0], dtype=image5d.dtype, device=image5d.device)
         loss = sum(0.5 * torch.sum(torch.square(w)) for w in weights)
-        return loss.expand(image5d.shape[0])
+        return spatial.first_rank_share(loss).expand(image5d.shape[0])
 
 
 class TotalLoss:

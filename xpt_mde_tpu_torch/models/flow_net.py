@@ -26,6 +26,14 @@ transpose conv, are cast up), the upsampled features stay bfloat16; the
 feature warp multiplies bfloat16 features by float32 weights and gives
 float32, which is cast to bfloat16 with the left features for the cost
 volume, so K2, K3 and K4 take and give bfloat16.
+
+On a spatial mesh (``parallel.spatial``) the encoders, predictors and
+context network run on this rank's band of each level's rows (a level
+too short to cut, as level 6, is computed whole by every rank); a level's
+feature warp samples the whole right features at the band's pixels, and
+its cost volume reads the warped features' rows ``md`` beyond the band
+(their halo, or the whole map where md exceeds the band:
+``spatial.correlation_rows``), K2, K3 and K4 taking the rows' offset.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from xpt_mde_tpu_torch.config import MAX_DISPLACEMENT
 from xpt_mde_tpu_torch.models.layers import Conv, ConvTranspose, cast_parameters, to_compute
 from xpt_mde_tpu_torch.ops.correlation import correlation_channels, correlation_cost
 from xpt_mde_tpu_torch.ops.flow_warp import flow_bilinear_sample
+from xpt_mde_tpu_torch.parallel import spatial
 from xpt_mde_tpu_torch.utils.precision import at_least_f32
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
@@ -154,9 +163,10 @@ class PWCNet(nn.Module):
         batch, snippet, height, width, channels = image5d.shape
         numsrc = snippet - 1
         cast = self.compute_dtype
-        target = to_compute(cast, image5d[:, -1].permute(0, 3, 1, 2)).contiguous()
-        sources = to_compute(cast, image5d[:, :-1].reshape(batch * numsrc, height, width,
-                                                           channels).permute(0, 3, 1, 2))
+        target = to_compute(cast, spatial.to_band(image5d[:, -1].permute(0, 3, 1, 2)))
+        target = target.contiguous()
+        sources = to_compute(cast, spatial.to_band(image5d[:, :-1].reshape(
+            batch * numsrc, height, width, channels).permute(0, 3, 1, 2)))
         sources = sources.contiguous()
         feats_l = [torch.repeat_interleave(f, numsrc, dim=0)
                    for f in self.encoder_l(target)]
@@ -171,8 +181,10 @@ class PWCNet(nn.Module):
                                              (3, c3l, c3r), (2, c2l, c2r)), start=1):
             cr_warp = flow_bilinear_sample(_to_nhwc(cr),
                                            _to_nhwc(up_flow) * WARP_SCALES[level])
-            corr = correlation_cost(cl, to_compute(cast, cr_warp.permute(0, 3, 1, 2)),
-                                    *level_displacement(level))
+            md, stride = level_displacement(level)
+            cr_rows, row_offset = spatial.correlation_rows(
+                to_compute(cast, cr_warp.permute(0, 3, 1, 2)), md)
+            corr = correlation_cost(cl, cr_rows, md, stride, row_offset)
             outputs = getattr(self, f"FlowPredictor_{i}")(
                 torch.cat([corr, cl, to_compute(cast, up_flow), up_feat], dim=1))
             if level > 2:

@@ -503,7 +503,9 @@ class ConvTranspose(ComputeCast, nn.ConvTranspose2d):
     ``weight[i, o, y, x] = kernel[3 - y, 3 - x, i, o]``. The output is
     (2H, 2W). Init: flax's ``lecun_normal`` over the kernel's fan-in
     (in * 4 * 4), zero bias. ``dtype`` is the compute dtype
-    (:func:`to_compute`)."""
+    (:func:`to_compute`). Under the band context a band of h rows takes a
+    row from each neighbour and gives its 2h output rows
+    (``parallel.spatial.transpose_window``)."""
 
     def __init__(self, in_channels: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -513,6 +515,11 @@ class ConvTranspose(ComputeCast, nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = to_compute(self.compute_dtype, x)
         weight, bias = self.cast_params()
+        if spatial.current() is not None:
+            return spatial.transpose_window(
+                x, self.kernel_size[0], self.stride[0], self.padding[0],
+                lambda rows: F.conv_transpose2d(rows, weight, bias, self.stride,
+                                                (0, self.padding[1])))
         return F.conv_transpose2d(x, weight, bias, self.stride, self.padding)
 
     @torch.no_grad()

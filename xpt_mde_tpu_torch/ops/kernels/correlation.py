@@ -61,6 +61,14 @@ products (``mma.sync`` m16n8k16, float32 accumulators):
 Each C entry recomputes its plan's layout and refuses a plan that does
 not match; a shape that no plan fits raises ``ValueError`` here, before
 any launch.
+
+On a spatial mesh's band (``parallel.spatial``) every kernel takes
+``row_offset`` and cr's own height H_r (:func:`xpt_mde_tpu_torch.ops.
+correlation.correlation_cost_plain`): cl, g and dcl hold the band's h
+rows, cr and dcr H_r rows, and a displaced row is in the frame where it
+lies in cr's [0, H_r). K2's and K3's grids run over h rows and K4's over
+H_r; the plans take ``cr_height`` and bound a row's in-frame displacement
+rows by the rows each kernel reads (K2, K3: cr's; K4: cl's).
 """
 
 from __future__ import annotations
@@ -195,7 +203,8 @@ def bwd_bank_conflicts(tile_x: int, chan_blocks: int, n: int, stride: int,
 
 
 def bwd_plan(batch: int, channels: int, height: int, width: int,
-             max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+             max_displacement: int, stride: int, num_sms: int = H100_SMS,
+             cr_height: int | None = None) -> dict:
     """K3's and K4's launch for these shapes: ``tile_x`` (a multiple of
     4 * stride covering up to 128 columns), ``chan_blocks`` (blocks of 8
     channels per CUDA block: as many as 256 threads and 227 KB allow, fewer
@@ -207,18 +216,22 @@ def bwd_plan(batch: int, channels: int, height: int, width: int,
     The two kernels read the same layout, so one plan serves both. Narrows
     the channels, then the tile, until one row per stage fits 227 KB;
     raises ValueError where even one cluster of one channel block does not,
-    or the grid is too large. Computed once per shape: the wrappers ask
+    or the grid is too large. ``height``: the rows of cl and g (K3's
+    grid); ``cr_height``: cr's (K4's grid; ``height`` by default); a row's
+    in-frame displacement rows are bounded by the larger, as K3 reads cr
+    and K4 cl. ``grid`` is K3's. Computed once per shape: the wrappers ask
     at every launch."""
-    return dict(_bwd_plan(batch, channels, height, width, max_displacement, stride, num_sms))
+    return dict(_bwd_plan(batch, channels, height, width, max_displacement, stride, num_sms,
+                          height if cr_height is None else cr_height))
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_plan(batch: int, channels: int, height: int, width: int, max_displacement: int,
-              stride: int, num_sms: int) -> tuple:
+              stride: int, num_sms: int, cr_height: int) -> tuple:
     n = num_displacements(max_displacement, stride)
     cluster, tile_x = _cluster_tile(width, stride)
     all_blocks = -(-channels // BWD_CHAN)
-    most_rows = rows_max(n, stride, height)
+    most_rows = rows_max(n, stride, max(height, cr_height))
 
     def smem(chan_blocks, cb_skew=31, rows=1):  # skew 31: room for any skew
         buffers = 1 if rows >= most_rows else 2
@@ -251,7 +264,7 @@ def _bwd_plan(batch: int, channels: int, height: int, width: int, max_displaceme
         raise ValueError(f"K3/K4 need {threads} threads per block at stride {stride}, "
                          f"more than {MAX_THREADS}")
     grid = (-(-width // tile_x), height, batch * -(-all_blocks // chan_blocks))
-    if grid[1] > 65535 or grid[2] > 65535:
+    if max(height, cr_height) > 65535 or grid[2] > 65535:
         raise ValueError(f"K3/K4's grid {grid} exceeds 65535 rows or chunks")
     return (("tile_x", tile_x), ("chan_blocks", chan_blocks), ("cb_skew", cb_skew),
             ("rows_per_stage", rows_per_stage), ("buffers", buffers), ("threads", threads),
@@ -306,13 +319,13 @@ def fwd_bank_conflicts(tile_x: int, n: int, stride: int, chan_groups: int,
 
 @functools.lru_cache(maxsize=None)
 def _fwd_plan(batch: int, channels: int, height: int, width: int, max_displacement: int,
-              stride: int) -> tuple:
+              stride: int, cr_height: int) -> tuple:
     if min(channels, width) < 1:
         raise ValueError(f"K2 needs at least one channel and one column, got {channels} "
                          f"and {width}")
     n = num_displacements(max_displacement, stride)
     cluster, tile_x = _cluster_tile(width, stride)
-    most_rows = rows_max(n, stride, height)
+    most_rows = rows_max(n, stride, cr_height)
 
     def smem(rows, chan_groups):
         return fwd_smem_bytes(tile_x, n, stride, chan_groups, -(-channels // chan_groups),
@@ -379,7 +392,7 @@ def fwd_launch(channels: int, height: int, width: int, max_displacement: int, st
 
 
 def fwd_plan(batch: int, channels: int, height: int, width: int,
-             max_displacement: int, stride: int) -> dict:
+             max_displacement: int, stride: int, cr_height: int | None = None) -> dict:
     """K2's launch for these shapes: ``tile_x`` (a multiple of 4 * stride
     covering up to 128 columns, narrower where the cl tile and one cr row
     would not fit 227 KB), ``rows_per_stage`` (every in-frame
@@ -391,9 +404,12 @@ def fwd_plan(batch: int, channels: int, height: int, width: int,
     ``slot_skew`` (padding of the channel rows and of the stage slots with
     the fewest bank conflicts), ``threads``, ``smem_bytes`` and ``grid``.
     Raises ValueError where even one cluster of columns does not fit, or
-    the grid is too large. Computed once per shape: the wrapper asks at
-    every launch."""
-    return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride))
+    the grid is too large. ``height``: cl's rows (the grid's);
+    ``cr_height``: cr's (``height`` by default), which bound a row's
+    in-frame displacement rows. Computed once per shape: the wrapper asks
+    at every launch."""
+    return dict(_fwd_plan(batch, channels, height, width, max_displacement, stride,
+                          height if cr_height is None else cr_height))
 
 
 # The bfloat16 K2, K3 and K4 (csrc/correlation_bf16.cu): a warp owns one
@@ -551,14 +567,14 @@ def _bf16_tile(width: int, stride: int, per_tile: int, what: str) -> tuple[int, 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displacement: int,
-                   stride: int, num_sms: int) -> tuple:
+                   stride: int, num_sms: int, cr_height: int) -> tuple:
     if min(channels, width) < 1:
         raise ValueError(f"K2-bf16 needs at least one channel and one column, got {channels} "
                          f"and {width}")
     n = num_displacements(max_displacement, stride)
     chunks = -(-n // BF16_DISP)
     span, tile_x = _bf16_tile(width, stride, chunks, "K2-bf16")
-    most_rows = rows_max(n, stride, height)
+    most_rows = rows_max(n, stride, cr_height)
 
     def groups_for(tile):
         image_rows = -(-width // tile) * height * batch
@@ -566,7 +582,7 @@ def _fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displ
 
     groups = groups_for(tile_x)
     while True:
-        lay = fwd_bf16_layout(channels, height, stride, n, tile_x, groups)
+        lay = fwd_bf16_layout(channels, cr_height, stride, n, tile_x, groups)
         if lay["total"] <= SMEM_LIMIT:
             break
         if tile_x > span:
@@ -581,7 +597,7 @@ def _fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displ
     threads = 32 * tile_x // BF16_TILE_P * chunks
     while lay["rows"] > 1 and resident_warps(threads, lay["total"]) < BF16_FWD_WARPS_PER_SM:
         groups += 1
-        lay = fwd_bf16_layout(channels, height, stride, n, tile_x, groups)
+        lay = fwd_bf16_layout(channels, cr_height, stride, n, tile_x, groups)
     grid = (-(-width // tile_x), height, batch * groups)
     if grid[1] > 65535 or grid[2] > 65535:
         raise ValueError(f"K2-bf16's grid {grid} exceeds 65535 rows or images x groups")
@@ -592,7 +608,7 @@ def _fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displ
 
 
 def fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displacement: int,
-                  stride: int, num_sms: int = H100_SMS) -> dict:
+                  stride: int, num_sms: int = H100_SMS, cr_height: int | None = None) -> dict:
     """K2-bf16's launch for these shapes: ``tile_x`` (a multiple of 16 *
     stride covering up to 128 columns, one warp per class tile and chunk
     of 9 displacements, at most 8), ``groups`` (the displacement rows'
@@ -603,29 +619,33 @@ def fwd_plan_bf16(batch: int, channels: int, height: int, width: int, max_displa
     staged by TMA, given aligned operands) for the record. Narrows the
     tile, then the groups, until 227 KB fit; raises ValueError where even
     one class tile and one row do not, where one class tile needs more
-    than 8 warps, or the grid is too large."""
+    than 8 warps, or the grid is too large. ``height``: cl's rows (the
+    grid's); ``cr_height``: cr's (``height`` by default), which set the
+    layout's rows (the C entry computes it from them)."""
     return dict(_fwd_plan_bf16(batch, channels, height, width, max_displacement, stride,
-                               num_sms))
+                               num_sms, height if cr_height is None else cr_height))
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_plan_bf16(kernel: str, kernel_layout, rows_first: bool, batch: int, channels: int,
                    height: int, width: int, max_displacement: int, stride: int,
-                   num_sms: int) -> tuple:
+                   num_sms: int, read_rows: int) -> tuple:
     """The plan of ``kernel`` (K3-bf16 or K4-bf16, named in errors): one
     search over its layout ``kernel_layout`` (:func:`bwd_cl_bf16_layout` or
     :func:`bwd_cr_bf16_layout`), as both take the same launch. Where an SM
     would hold too few warps, it stages fewer rows at a time before it
     splits the channels further where ``rows_first``, else only splits the
-    channels."""
+    channels. ``height``: the grid's rows; ``read_rows``: those of the map
+    read at the displaced rows, which bound a row's in-frame displacement
+    rows (and K3's layout)."""
     n = num_displacements(max_displacement, stride)
 
     def layout(tile, blocks, stage_rows):
-        return kernel_layout(stride, n, tile, blocks, stage_rows, height)
+        return kernel_layout(stride, n, tile, blocks, stage_rows, read_rows)
 
     span, tile_x = _bf16_tile(width, stride, 1, kernel)
     all_blocks = -(-channels // 16)
-    rows = min(rows_max(n, stride, height), BF16_ROWS_PER_STAGE)
+    rows = min(rows_max(n, stride, read_rows), BF16_ROWS_PER_STAGE)
 
     def blocks_for(tile):
         most = BF16_GROUP_BLOCKS * (BF16_MAX_WARPS // (tile // BF16_TILE_P))
@@ -668,7 +688,8 @@ def _bwd_plan_bf16(kernel: str, kernel_layout, rows_first: bool, batch: int, cha
 
 
 def bwd_cl_plan_bf16(batch: int, channels: int, height: int, width: int,
-                     max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+                     max_displacement: int, stride: int, num_sms: int = H100_SMS,
+                     cr_height: int | None = None) -> dict:
     """K3-bf16's launch for these shapes, chosen as :func:`bwd_cr_plan_bf16`
     chooses K4-bf16's, for K3's layout (:func:`bwd_cl_bf16_layout`), but
     with fewer rows a stage before fewer channels a block where an SM would
@@ -680,13 +701,17 @@ def bwd_cl_plan_bf16(batch: int, channels: int, height: int, width: int,
     after the first find g in L2. Levels 2 and 3 take all channels in one
     chunk; at level 3 fewer rows a stage let the grid's 512 one-chunk
     blocks be resident at once (``tools/corr_sweep.py``). Raises as
-    :func:`bwd_cr_plan_bf16` does."""
+    :func:`bwd_cr_plan_bf16` does. ``height``: the rows of g and cl (the
+    grid's); ``cr_height``: cr's, which it reads (``height`` by
+    default)."""
     return dict(_bwd_plan_bf16("K3-bf16", bwd_cl_bf16_layout, True, batch, channels, height, width,
-                               max_displacement, stride, num_sms))
+                               max_displacement, stride, num_sms,
+                               height if cr_height is None else cr_height))
 
 
 def bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
-                     max_displacement: int, stride: int, num_sms: int = H100_SMS) -> dict:
+                     max_displacement: int, stride: int, num_sms: int = H100_SMS,
+                     cr_height: int | None = None) -> dict:
     """K4-bf16's launch for these shapes: ``tile_x`` (a multiple of 16 *
     stride covering up to 128 columns), ``chan_blocks`` (16-channel blocks
     a CUDA block: as many as 8 warps of 4 blocks allow, fewer, evened out,
@@ -697,19 +722,23 @@ def bwd_cr_plan_bf16(batch: int, channels: int, height: int, width: int,
     ``grid``; ``tma`` for the record. Narrows the stage, the channels and
     the tile until 227 KB fit; raises ValueError where one row of one
     block does not, where one class tile needs more than 8 warps, or the
-    grid is too large."""
-    return dict(_bwd_plan_bf16("K4-bf16", bwd_cr_bf16_layout, False, batch, channels, height, width,
-                               max_displacement, stride, num_sms))
+    grid is too large. ``height``: the rows of g and cl, which it reads;
+    ``cr_height``: dcr's (the grid's; ``height`` by default)."""
+    return dict(_bwd_plan_bf16("K4-bf16", bwd_cr_bf16_layout, False, batch, channels,
+                               height if cr_height is None else cr_height, width,
+                               max_displacement, stride, num_sms, height))
 
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(feats, other, max_displacement, stride, grad_out=None, dtype=None):
-    """Raise unless the kernels take these: two feature maps [B,C,H,W] of
-    one shape, ``grad_out`` [B,n^2,H,W] or None, an int md >= 0 and an int
-    stride >= 1; all float32 or all bfloat16 (``dtype`` where given),
-    contiguous, on one CUDA device."""
+def _check(feats, other, max_displacement, stride, grad_out=None, dtype=None, row_offset=0,
+           grad_rows=None):
+    """Raise unless the kernels take these: two feature maps [B,C,*,W] that
+    agree but in their rows (a band's cl and the rows of cr it reads),
+    ``grad_out`` [B,n^2,``grad_rows``,W] or None, an int md >= 0, an int
+    stride >= 1 and an int ``row_offset``; all float32 or all bfloat16
+    (``dtype`` where given), contiguous, on one CUDA device."""
     dtype = feats.dtype if dtype is None else dtype
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"the correlation kernels take float32 or bfloat16, got {dtype}")
@@ -717,15 +746,18 @@ def _check(feats, other, max_displacement, stride, grad_out=None, dtype=None):
         raise ValueError(f"max_displacement must be an int >= 0, got {max_displacement!r}")
     if not (isinstance(stride, int) and stride >= 1):
         raise ValueError(f"stride must be an int >= 1, got {stride!r}")
-    if feats.dim() != 4 or other.shape != feats.shape:
-        raise ValueError(f"feature maps must be two [B,C,H,W] of one shape, got "
+    if not isinstance(row_offset, int) or abs(row_offset) >= 2 ** 30:
+        raise ValueError(f"row_offset must be an int, got {row_offset!r}")
+    if feats.dim() != 4 or other.dim() != 4 or (
+            other.shape[:2] + other.shape[3:]) != (feats.shape[:2] + feats.shape[3:]):
+        raise ValueError(f"feature maps must be two [B,C,H,W] of one shape but their rows, got "
                          f"{tuple(feats.shape)} and {tuple(other.shape)}")
     tensors = [("features", feats), ("features", other)]
     if grad_out is not None:
         n = num_displacements(max_displacement, stride)
-        batch, _, height, width = feats.shape
-        if tuple(grad_out.shape) != (batch, n * n, height, width):
-            raise ValueError(f"grad_out must be {(batch, n * n, height, width)}, "
+        batch, _, _, width = feats.shape
+        if tuple(grad_out.shape) != (batch, n * n, grad_rows, width):
+            raise ValueError(f"grad_out must be {(batch, n * n, grad_rows, width)}, "
                              f"got {tuple(grad_out.shape)}")
         tensors.append(("grad_out", grad_out))
     for name, t in tensors:
@@ -766,24 +798,27 @@ class _CorrEntry:
             lib, self.build_log = load_library("correlation", LIBRARY_SOURCES)
             self.library_path = lib._name
             fn = getattr(lib, self._entry)
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + len(self.launch_keys))
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (8 + len(self.launch_keys))
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def _launch(self, first, second, out, feats_shape, max_displacement, stride, plan):
-        """Call the entry with the three pointers, the feature maps' shape,
-        md, stride, the ``plan``'s launch ints and the current stream;
-        raise on a CUDA error."""
+    def _launch(self, first, second, out, feats_shape, max_displacement, stride, plan,
+                cr_height=None, row_offset=0):
+        """Call the entry with the three pointers, the shape of cl (and g),
+        cr's rows (``cr_height``, cl's by default) and ``row_offset``, md,
+        stride, the ``plan``'s launch ints and the current stream; raise on
+        a CUDA error."""
         fn = self.build()
         batch, channels, height, width = feats_shape
+        cr_height = height if cr_height is None else cr_height
         launch = tuple(plan[k] for k in self.launch_keys)
         with torch.cuda.device(out.device):
             stream = torch.cuda.current_stream(out.device).cuda_stream
             err = fn(first.data_ptr(), second.data_ptr(), out.data_ptr(),
-                     batch, channels, height, width, max_displacement, stride, *launch,
-                     stream)
+                     batch, channels, height, width, cr_height, row_offset, max_displacement,
+                     stride, *launch, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error {err}")
         self.launches += 1
@@ -795,16 +830,18 @@ class CorrKernel(_CorrEntry):
 
     launch_keys = FWD_LAUNCH_KEYS
 
-    def plan(self, shape, max_displacement, stride, device) -> dict:
-        """The launch plan for feature maps of ``shape`` on ``device``."""
-        return fwd_plan(*shape, max_displacement, stride)
+    def plan(self, shape, max_displacement, stride, device, cr_height=None) -> dict:
+        """The launch plan for cl of ``shape`` and cr of ``cr_height`` rows
+        (cl's by default) on ``device``."""
+        return fwd_plan(*shape, max_displacement, stride, cr_height)
 
     def __call__(self, cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
-                 stride: int) -> torch.Tensor:
-        """:param cl, cr: [B,C,H,W] in the kernel's dtype, contiguous, on one
-        CUDA device. :return: [B,n^2,H,W]. Differentiable calls go through
-        :class:`Correlation`."""
-        _check(cl, cr, max_displacement, stride, dtype=self.dtype)
+                 stride: int, row_offset: int = 0) -> torch.Tensor:
+        """:param cl, cr: [B,C,h,W] and [B,C,H_r,W] in the kernel's dtype,
+        contiguous, on one CUDA device; ``row_offset``: cl's first global row
+        minus cr's (0 with h = H_r: the whole frame). :return: [B,n^2,h,W].
+        Differentiable calls go through :class:`Correlation`."""
+        _check(cl, cr, max_displacement, stride, dtype=self.dtype, row_offset=row_offset)
         if torch.is_grad_enabled() and (cl.requires_grad or cr.requires_grad):
             raise ValueError("K2 called directly drops the gradient: use "
                              "Correlation.apply (ops.correlation.correlation_cost)")
@@ -813,13 +850,16 @@ class CorrKernel(_CorrEntry):
         out = torch.empty((batch, n * n, height, width), dtype=cl.dtype, device=cl.device)
         if out.numel() == 0:
             return out
-        plan = self.plan(cl.shape, max_displacement, stride, cl.device)
-        return self.launch(cl, cr, out, max_displacement, stride, plan)
+        if cr.numel() == 0:  # no row of cr: every term lies outside the frame
+            return out.zero_()
+        plan = self.plan(cl.shape, max_displacement, stride, cl.device, cr.shape[2])
+        return self.launch(cl, cr, out, max_displacement, stride, plan, row_offset)
 
-    def launch(self, cl, cr, out, max_displacement, stride, plan):
+    def launch(self, cl, cr, out, max_displacement, stride, plan, row_offset=0):
         """Launch with ``plan`` (the plan's keys, or for the float32 K2
         :func:`fwd_launch`'s) on checked inputs and ``out``."""
-        return self._launch(cl, cr, out, cl.shape, max_displacement, stride, plan)
+        return self._launch(cl, cr, out, cl.shape, max_displacement, stride, plan, cr.shape[2],
+                            row_offset)
 
 
 class CorrKernelBf16(CorrKernel):
@@ -828,38 +868,68 @@ class CorrKernelBf16(CorrKernel):
 
     launch_keys = FWD_BF16_LAUNCH_KEYS
 
-    def plan(self, shape, max_displacement, stride, device) -> dict:
-        return fwd_plan_bf16(*shape, max_displacement, stride, _num_sms(device.index or 0))
+    def plan(self, shape, max_displacement, stride, device, cr_height=None) -> dict:
+        return fwd_plan_bf16(*shape, max_displacement, stride, _num_sms(device.index or 0),
+                             cr_height)
 
 
 class CorrGradKernel(_CorrEntry):
     """Launches K3 (the gradient of the left features, from the right
-    ones) or K4 (the gradient of the right features, from the left ones),
-    both tiled by :func:`bwd_plan`, for operands of ``dtype``."""
+    ones) or K4 (``dcr``: the gradient of the right features, from the
+    left ones), both tiled by :func:`bwd_plan`, for operands of
+    ``dtype``."""
 
     launch_keys = BWD_LAUNCH_KEYS
 
-    def plan(self, shape, max_displacement, stride, device) -> dict:
-        """The launch plan for feature maps of ``shape`` on ``device``."""
-        return bwd_plan(*shape, max_displacement, stride, _num_sms(device.index or 0))
+    def __init__(self, name: str, entry: str, dtype: torch.dtype, source: str = SOURCE,
+                 dcr: bool = False):
+        super().__init__(name, entry, dtype, source)
+        self.dcr = dcr
 
-    def __call__(self, grad_out: torch.Tensor, feats: torch.Tensor,
-                 max_displacement: int, stride: int) -> torch.Tensor:
-        """:param grad_out: [B,n^2,H,W], the cotangent of K2's output;
-        :param feats: [B,C,H,W], cr for K3, cl for K4. :return: dcl (K3) or
-        dcr (K4), [B,C,H,W]."""
+    def plan(self, shape, max_displacement, stride, device, cr_height=None) -> dict:
+        """The launch plan for g and cl of ``shape`` and cr of
+        ``cr_height`` rows (cl's by default) on ``device``."""
+        return bwd_plan(*shape, max_displacement, stride, _num_sms(device.index or 0),
+                        cr_height=cr_height)
+
+    def __call__(self, grad_out: torch.Tensor, feats: torch.Tensor, max_displacement: int,
+                 stride: int, row_offset: int = 0, cr_height: int | None = None) -> torch.Tensor:
+        """:param grad_out: [B,n^2,h,W], the cotangent of K2's output;
+        :param feats: cr [B,C,H_r,W] for K3, cl [B,C,h,W] for K4;
+        ``row_offset`` as for K2; ``cr_height``: K4's H_r (h by default).
+        :return: dcl [B,C,h,W] (K3) or dcr [B,C,H_r,W] (K4)."""
         grad_out = grad_out.contiguous()
-        _check(feats, feats, max_displacement, stride, grad_out, dtype=self.dtype)
-        if feats.numel() == 0:
-            return torch.empty_like(feats)
-        plan = self.plan(feats.shape, max_displacement, stride, feats.device)
-        return self.launch(grad_out, feats, torch.empty_like(feats), max_displacement, stride,
-                           plan)
+        batch, channels, _, width = feats.shape
+        height = grad_out.shape[2] if grad_out.dim() == 4 else -1
+        if not self.dcr:
+            cr_height = feats.shape[2]
+        elif cr_height is None:
+            cr_height = height
+        _check(feats, feats, max_displacement, stride, grad_out, dtype=self.dtype,
+               row_offset=row_offset, grad_rows=feats.shape[2] if self.dcr else height)
+        if not (isinstance(cr_height, int) and cr_height >= 0):
+            raise ValueError(f"cr_height must be an int >= 0, got {cr_height!r}")
+        out = torch.empty((batch, channels, cr_height if self.dcr else height, width),
+                          dtype=feats.dtype, device=feats.device)
+        if out.numel() == 0:
+            return out
+        if feats.numel() == 0:  # no row to read: every term lies outside the frame
+            return out.zero_()
+        shape = (batch, channels, height, width)
+        plan = self.plan(shape, max_displacement, stride, feats.device, cr_height)
+        return self.launch(grad_out, feats, out, max_displacement, stride, plan, row_offset,
+                           cr_height)
 
-    def launch(self, grad_out, feats, out, max_displacement, stride, plan):
+    def launch(self, grad_out, feats, out, max_displacement, stride, plan, row_offset=0,
+               cr_height=None):
         """Launch with ``plan`` (the plan's keys) on checked inputs and
-        ``out``."""
-        return self._launch(grad_out, feats, out, feats.shape, max_displacement, stride, plan)
+        ``out`` (``cr_height``: K4's; K3 takes cr's rows)."""
+        height = grad_out.shape[2]
+        if not self.dcr:
+            cr_height = feats.shape[2]
+        return self._launch(grad_out, feats, out, (feats.shape[0], feats.shape[1], height,
+                                                   feats.shape[3]),
+                            max_displacement, stride, plan, cr_height, row_offset)
 
 
 class CorrGradKernelBf16(CorrGradKernel):
@@ -868,20 +938,21 @@ class CorrGradKernelBf16(CorrGradKernel):
 
     launch_keys = BWD_BF16_LAUNCH_KEYS
 
-    def __init__(self, name: str, entry: str, plan_fn):
-        super().__init__(name, entry, torch.bfloat16, BF16_SOURCE)
+    def __init__(self, name: str, entry: str, plan_fn, dcr: bool = False):
+        super().__init__(name, entry, torch.bfloat16, BF16_SOURCE, dcr)
         self._plan_fn = plan_fn
 
-    def plan(self, shape, max_displacement, stride, device) -> dict:
-        return self._plan_fn(*shape, max_displacement, stride, _num_sms(device.index or 0))
+    def plan(self, shape, max_displacement, stride, device, cr_height=None) -> dict:
+        return self._plan_fn(*shape, max_displacement, stride, _num_sms(device.index or 0),
+                             cr_height)
 
 
 K2 = CorrKernel("K2", "xpt_corr_fwd", torch.float32)
 K3 = CorrGradKernel("K3", "xpt_corr_bwd_cl", torch.float32)
-K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr", torch.float32)
+K4 = CorrGradKernel("K4", "xpt_corr_bwd_cr", torch.float32, dcr=True)
 K2_BF16 = CorrKernelBf16("K2-bf16", "xpt_corr_fwd_bf16", torch.bfloat16, BF16_SOURCE)
 K3_BF16 = CorrGradKernelBf16("K3-bf16", "xpt_corr_bwd_cl_bf16", bwd_cl_plan_bf16)
-K4_BF16 = CorrGradKernelBf16("K4-bf16", "xpt_corr_bwd_cr_bf16", bwd_cr_plan_bf16)
+K4_BF16 = CorrGradKernelBf16("K4-bf16", "xpt_corr_bwd_cr_bf16", bwd_cr_plan_bf16, dcr=True)
 
 
 def kernels_for(dtype: torch.dtype) -> tuple:
@@ -895,19 +966,21 @@ def kernels_for(dtype: torch.dtype) -> tuple:
 
 @torch.library.custom_op("xpt_mde::correlation_cost", mutates_args=())
 def correlation_cost_op(cl: torch.Tensor, cr: torch.Tensor, max_displacement: int,
-                        stride: int) -> torch.Tensor:
+                        stride: int, row_offset: int = 0) -> torch.Tensor:
     """K2, or K2-bf16 on bfloat16 operands, as the registered operator
     ``torch.ops.xpt_mde.correlation_cost``: ``torch.export`` records it in
     a graph (a ctypes launch cannot be traced), and a loaded artifact calls
     it, so its launches count as any other's. Forward only: the gradients
-    are :class:`Correlation`'s. Registered when this module is imported;
-    nothing is built until the first call."""
+    are :class:`Correlation`'s. ``row_offset`` (0 by default, the whole
+    frame; an artifact's calls leave it out): a band's, as K2 takes it.
+    Registered when this module is imported; nothing is built until the
+    first call."""
     with torch.no_grad():
-        return kernels_for(cl.dtype)[0](cl, cr, max_displacement, stride)
+        return kernels_for(cl.dtype)[0](cl, cr, max_displacement, stride, row_offset)
 
 
 @correlation_cost_op.register_fake
-def _correlation_cost_shape(cl, cr, max_displacement, stride):
+def _correlation_cost_shape(cl, cr, max_displacement, stride, row_offset=0):
     n = num_displacements(max_displacement, stride)
     return cl.new_empty((cl.shape[0], n * n, cl.shape[2], cl.shape[3]))
 
@@ -916,25 +989,27 @@ class Correlation(torch.autograd.Function):
     """K2 forward (through :func:`correlation_cost_op`); K3 and K4
     backward, each only for an input that needs its gradient: the float32
     kernels on float32 operands, the bfloat16 ones on bfloat16 operands;
-    other or mixed dtypes raise."""
+    other or mixed dtypes raise. ``apply(cl, cr, md, stride,
+    row_offset)``: cl a band of h rows, cr its H_r rows (K4's dcr covers
+    them)."""
 
     @staticmethod
-    def forward(ctx, cl, cr, max_displacement, stride):
+    def forward(ctx, cl, cr, max_displacement, stride, row_offset=0):
         if cr.dtype != cl.dtype:
             raise ValueError(f"the correlation kernels take two feature maps of one dtype, "
                              f"got {cl.dtype} and {cr.dtype}")
         ctx.save_for_backward(cl, cr)
-        ctx.md_stride = (max_displacement, stride)
-        return torch.ops.xpt_mde.correlation_cost(cl, cr, max_displacement, stride)
+        ctx.md_stride = (max_displacement, stride, row_offset)
+        return torch.ops.xpt_mde.correlation_cost(cl, cr, max_displacement, stride, row_offset)
 
     @staticmethod
     def backward(ctx, grad_out):
         cl, cr = ctx.saved_tensors
-        md, stride = ctx.md_stride
+        md, stride, row_offset = ctx.md_stride
         _, k3, k4 = kernels_for(cl.dtype)
         dcl = dcr = None
         if ctx.needs_input_grad[0]:
-            dcl = k3(grad_out, cr, md, stride)
+            dcl = k3(grad_out, cr, md, stride, row_offset)
         if ctx.needs_input_grad[1]:
-            dcr = k4(grad_out, cl, md, stride)
-        return dcl, dcr, None, None
+            dcr = k4(grad_out, cl, md, stride, row_offset, cr.shape[2])
+        return dcl, dcr, None, None, None

@@ -138,12 +138,16 @@ def sample_patch_gather(image: torch.Tensor, pixel_coords: torch.Tensor,
     scatter-add, whose summation order on the card varies from run to
     run).
 
-    :param image: [B, N, H, W, C]
-    :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, H*W]
-    :param valid_mask: optional [B, H, W, 1]; zero entries are invalid
-    :return: [B, N, H, W, C]
+    :param image: [B, N, H, W, C], the whole map (on a spatial mesh
+        gathered from its bands, ``parallel.spatial.whole``, whose backward
+        sums the ranks' shares of the image's gradient to the owners)
+    :param pixel_coords: (u, v[, 1]) [B, N, 2 or 3, h_t*W] in the image's
+        global pixel coordinates, h_t = H but on a band of target rows
+    :param valid_mask: optional [B, h_t, W, 1]; zero entries are invalid
+    :return: [B, N, h_t, W, C]
     """
     batch, numsrc, height, width, channels = image.shape
+    rows = pixel_coords.shape[-1] // width
     u, v, uf, uc, vf, vc, valid = _clipped_neighbors(image, pixel_coords, valid_mask)
     w_uf, w_uc = uc - u, u - uf
     w_vf, w_vc = vc - v, v - vf
@@ -154,14 +158,14 @@ def sample_patch_gather(image: torch.Tensor, pixel_coords: torch.Tensor,
                          padded[:, :, 1:height + 1, 1:width + 1]], dim=-1)
     index = (vf.long() * width + uf.long())[..., None].expand(-1, -1, -1, 4 * channels)
     picked = torch.gather(patches.reshape(batch, numsrc, height * width, 4 * channels),
-                          2, index).reshape(batch, numsrc, height * width, 4, channels)
+                          2, index).reshape(batch, numsrc, rows * width, 4, channels)
     # wherever a weight is non-zero, validity guarantees uc == uf + 1 and
     # vc == vf + 1, so the packed corners are the four neighbours
     out = (picked[:, :, :, 0] * (w_uf * w_vf * valid)[..., None]
            + picked[:, :, :, 1] * (w_uf * w_vc * valid)[..., None]
            + picked[:, :, :, 2] * (w_uc * w_vf * valid)[..., None]
            + picked[:, :, :, 3] * (w_uc * w_vc * valid)[..., None])
-    return out.reshape(batch, numsrc, height, width, channels)
+    return out.reshape(batch, numsrc, rows, width, channels)
 
 
 def bilinear_sample(image: torch.Tensor, pixel_coords: torch.Tensor,

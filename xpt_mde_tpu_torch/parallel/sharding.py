@@ -120,21 +120,30 @@ def shard_batch(features: Mapping, mesh: Mesh) -> dict:
 _SPATIAL_DEPTH_NETS = ("DepthNetBasic", "DepthNetNoResize", "DepthNetPretrained")
 _SPATIAL_POSE_NETS = ("PoseNetBasic", "PoseNetImproved", "PoseNetDeep")
 _SPATIAL_LOSSES = ("L1", "L2", "SSIM", "smoothe")
-_SPATIAL_TODO = ("the flow, joint and stereo steps on the spatial mesh are ROADMAP "
-                 "queue 1 item 4")
+_SPATIAL_FLOW_LOSSES = ("flowL2", "flow_reg")
+_SPATIAL_TODO = ("the joint step (a flownet beside a depth or pose net; the cmb, md2, "
+                 "md2cmb and moa terms) and then the stereo steps on the spatial mesh are "
+                 "ROADMAP queue 1 item 4")
 
 
 def check_spatial(model: torch.nn.Module, total_loss=None) -> None:
-    """Raise NotImplementedError unless ``model`` and ``total_loss`` are the
-    rigid path that runs on bands: no flow net, a depth net on EfficientNet
-    or the basic encoder, a pose net without a backbone, the L1, L2, SSIM
-    and smoothness terms (of the left views: a stereo recipe's terms
-    raise)."""
+    """Raise NotImplementedError unless ``model`` and ``total_loss`` run on
+    bands: the rigid path (a depth net on EfficientNet or the basic
+    encoder, a pose net without a backbone, the L1, L2, SSIM and
+    smoothness terms) or the flow stage (PWC-Net alone, the flowL2 and
+    flow_reg terms); a flownet beside a depth or pose net (the joint step)
+    and a stereo recipe's terms raise."""
     from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
 
-    if getattr(model, "flownet", None) is not None:
-        raise NotImplementedError(f"a flow model: {_SPATIAL_TODO}")
     depth, pose = getattr(model, "depthnet", None), getattr(model, "posenet", None)
+    if getattr(model, "flownet", None) is not None:
+        if depth is not None or pose is not None:
+            raise NotImplementedError(f"a flownet beside a depth or pose net: {_SPATIAL_TODO}")
+        terms = set(getattr(total_loss, "loss_objects", {})) - set(_SPATIAL_FLOW_LOSSES)
+        if terms:
+            raise NotImplementedError(f"loss terms {sorted(terms)} on the spatial mesh's flow "
+                                      f"stage: {_SPATIAL_TODO}")
+        return
     backbone = getattr(depth, "backbone", None)
     if depth is not None and (type(depth).__name__ not in _SPATIAL_DEPTH_NETS or (
             backbone is not None and not isinstance(backbone, EfficientNet))):
@@ -152,12 +161,13 @@ def check_spatial(model: torch.nn.Module, total_loss=None) -> None:
 
 def whole_predictions(preds: Mapping) -> dict:
     """The predictions of a banded forward with every band of a map
-    gathered (NHWC maps, rows along axis 1)."""
+    gathered (NHWC maps, rows along axis 1; the flows [B, N, h, W, 2],
+    rows along axis 2)."""
     def full(value):
         if isinstance(value, (list, tuple)):
             return [full(v) for v in value]
-        if isinstance(value, torch.Tensor) and value.dim() == 4:
-            return spatial.whole(value, 1)
+        if isinstance(value, torch.Tensor) and value.dim() in (4, 5):
+            return spatial.whole(value, value.dim() - 3)
         return value
     return {key: full(value) for key, value in preds.items()}
 

@@ -16,8 +16,16 @@ the group. The layers ask this module what to do:
   than the band, an output too small to cut) the map is gathered
   (:class:`GatherRows`), every rank computes it whole, and the output is
   cut again where its height allows (:func:`window`);
+- a transposed convolution (PWC-Net's 2x upsampler) takes one row from
+  each neighbour and keeps its band's output rows (:func:`transpose_window`);
+- a band's cost volume reads the right features ``md`` rows beyond it:
+  their halo, or the whole map where md exceeds the band
+  (:func:`correlation_rows`), and a band's feature warp samples the whole
+  map (:func:`whole`);
 - a mean over the rows sums the bands (:class:`SumOverGroup`), and a loss
-  term divides its band's sum by the global count (:func:`band_mean`);
+  term divides its band's sum by the global count (:func:`band_mean`); a
+  value that every rank holds (a regularizer of the replicated weights)
+  counts on the group's first rank only (:func:`first_rank_share`);
 - every rank holds the batch's frames whole (:func:`register_frames`):
   each samples the source frames at its band's reprojected pixels.
 
@@ -347,6 +355,65 @@ def window(x: torch.Tensor, kernel: int, stride: int, pads: tuple[int, int], op,
     return cut(out) if band.bandable(out_rows) else register(out, out_rows)
 
 
+def transpose_window(x: torch.Tensor, kernel: int, stride: int, padding: int,
+                     op) -> torch.Tensor:
+    """A transposed convolution along the rows (dim -2) of the map ``x``
+    under the band context: ``op`` maps the rows it reads to its output,
+    VALID along the rows (no row padding; it pads the columns itself), for
+    a ``kernel``-row window, ``stride`` and torch's ``padding`` (output row
+    o = i * stride - padding + ky). The output of H rows' map has
+    stride * H rows, and is a band where its height allows.
+
+    A sibling of :func:`window`, whose rules do not fit it: a window op
+    reads rows of its input above and below each output row and keeps
+    1/stride of them, a transposed one spreads each input row over
+    ``kernel`` output rows, so its band of output rows [stride r0, stride
+    (r0 + h)) reads input rows r0 - top .. r0 + h - 1 + bottom (top =
+    ceil((kernel - 1 - padding) / stride), bottom = (stride - 1 + padding)
+    // stride: one each for PWC-Net's 4x4, stride 2, padding 1) and keeps
+    stride * h rows from stride * top + padding of ``op``'s output. The
+    frame's outside is zero rows, which add nothing. A halo taller than
+    the band, or a whole input, takes the gather rule: the whole map, its
+    output computed whole and cut where its height allows."""
+    band = _band
+    known = state(x)
+    if known is None:
+        raise NotImplementedError(
+            f"a {tuple(x.shape)} map reached a transposed convolution on the spatial mesh "
+            "without a known global height")
+    rows, is_band = known
+    local = x.shape[-2]
+    top = -(-(kernel - 1 - padding) // stride)
+    bottom = (stride - 1 + padding) // stride
+    out_rows = stride * rows
+    if is_band and band.bandable(out_rows) and top <= local and bottom <= local:
+        ext = HaloExchange.apply(x, top, bottom, x.dim() - 2, 0.0, band)
+        out = op(ext).narrow(-2, stride * top + padding, stride * local)
+        return register(out, out_rows)
+    xw = whole(x) if is_band else x
+    out = op(F.pad(xw, (0, 0, top, bottom))).narrow(-2, stride * top + padding, out_rows)
+    return cut(out) if band.bandable(out_rows) else register(out, out_rows)
+
+
+def correlation_rows(cr: torch.Tensor, max_displacement: int) -> tuple[torch.Tensor, int]:
+    """The rows of the right features cr [N, C, h, W] that this rank's
+    band of a cost volume reads, and their ``row_offset`` (the band's first
+    global row minus theirs, as ``ops.correlation`` takes it): cr and 0
+    outside a band context or for a whole map. On a band, where md is at
+    most its h rows, the halo route: md rows from each neighbour (zeros
+    beyond the frame's first and last rows, which add nothing) and offset
+    md; else the gathered route: the whole map (:class:`GatherRows`) and
+    the band's first row. Each route's backward sums the band's share of
+    the rows' gradient (kernel K4's partial dcr) back to their owners."""
+    known = state(cr)
+    md = max_displacement
+    if known is None or not known[1] or md == 0:
+        return cr, 0
+    if md <= cr.shape[-2]:
+        return halo(cr, md, md, -2), md
+    return whole(cr), first_row(cr)
+
+
 def resize(x: torch.Tensor, height: int, width: int, method: str, plain):
     """``plain(x, height, width, method)`` on a map under the band
     context, ``height`` the global rows; the output is a band where its
@@ -405,6 +472,16 @@ def band_mean(x: torch.Tensor, dims: tuple, dim: int, of: torch.Tensor | None = 
         if d % x.dim() != dim % x.dim():
             count *= x.shape[d]
     return torch.sum(x, dim=dims) / count
+
+
+def first_rank_share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a value that every rank of the group holds
+    alike (a regularizer of the replicated weights): the value on the
+    group's first rank, zero on the others (so the step's gradient sum
+    over the mesh counts it once a data index); ``x`` outside a band
+    context."""
+    band = _band
+    return x if band is None or band.index == 0 else x * 0.0
 
 
 def halo(x: torch.Tensor, top: int, bottom: int, dim: int, fill: float = 0.0) -> torch.Tensor:

@@ -18,7 +18,8 @@ and the mesh spans every rank. ``cfg.mesh_shape`` must then be
 ``{"data": world size}``, so that ``cfg.batch_size`` is the global batch
 (``per_replica_batch`` rows a card), or ``{"data": D, "spatial": S}`` with
 D x S the world size: each sample's image rows split over S cards, the
-rigid path only (``parallel.spatial``); a shape of another size raises.
+rigid path and the flow stage (``parallel.spatial``; a joint or stereo
+row raises); a shape of another size raises.
 The test plan's predictions are made after training: by the main process
 alone, or on a spatial mesh by every rank on its bands, the main process
 writing them.

@@ -113,7 +113,7 @@ def _entries(path: str):
     k2, k3, k4 = lib.xpt_corr_fwd_bf16, lib.xpt_corr_bwd_cl_bf16, lib.xpt_corr_bwd_cr_bf16
     for fn, keys in ((k2, kcorr.FWD_BF16_LAUNCH_KEYS), (k3, kcorr.BWD_BF16_LAUNCH_KEYS),
                      (k4, kcorr.BWD_BF16_LAUNCH_KEYS)):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + len(keys)) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (8 + len(keys)) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return k2, k3, k4
 
@@ -156,8 +156,10 @@ def main(argv=None) -> int:
 
             def run(fn, first, second, out, plan, keys):
                 # the current stream at each launch: the graph captures on its own
-                err = fn(first.data_ptr(), second.data_ptr(), out.data_ptr(), *cl.shape, md,
-                         stride, *(plan[k] for k in keys), torch.cuda.current_stream().cuda_stream)
+                # the whole frame: cr's rows cl's, row offset 0
+                err = fn(first.data_ptr(), second.data_ptr(), out.data_ptr(), *cl.shape,
+                         cl.shape[2], 0, md, stride, *(plan[k] for k in keys),
+                         torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"variant {name!r} launch failed with CUDA error {err}")
 

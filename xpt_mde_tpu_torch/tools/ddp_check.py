@@ -206,8 +206,9 @@ def _band_stats(step) -> dict | None:
 def rank_step(mesh, case: StepCase, steps: int = 1, models: dict | None = None) -> dict:
     """``steps`` data-parallel steps of ``case`` in this rank: the first
     one's result with its kernel launches, and with more steps the
-    (seconds, gradient all-reduce ms) of each later one as ``timed``. On a
-    spatial mesh (``case.mesh_shape``) also each step's
+    (seconds, gradient all-reduce ms) of each later one as ``timed``, and
+    the host seconds of the whole case, the model's build included
+    (``wall``). On a spatial mesh (``case.mesh_shape``) also each step's
     ``spatial.BandStats`` (``band``, ``timed_band``; the later steps time
     their collectives). ``models``: as :func:`_build` takes it."""
     from xpt_mde_tpu_torch.parallel import (local_rows, make_parallel_train_step,
@@ -215,6 +216,7 @@ def rank_step(mesh, case: StepCase, steps: int = 1, models: dict | None = None) 
     from xpt_mde_tpu_torch.tools.check_learns import kernel_launches
     from xpt_mde_tpu_torch.utils.precision import full_f32
 
+    start = time.perf_counter()
     mesh = case_mesh(mesh, case)
     with full_f32():
         model, loss, optimizer, augmenter = _build(case, mesh.device, models)
@@ -253,6 +255,7 @@ def rank_step(mesh, case: StepCase, steps: int = 1, models: dict | None = None) 
             timed_band.append(_band_stats(step))
         result["timed"] = timed
         result["timed_band"] = timed_band
+        result["wall"] = time.perf_counter() - start
         return result
 
 
@@ -507,6 +510,25 @@ def b0_case(batch: int = 4, height: int = 64, width: int = 128,
             torch.tensor(CHECK_TWIST * model.posenet.numsrc))
     return StepCase(nets, dataset.config_keys(), {"L1": 0.5, "SSIM": 0.5, "smoothe": 20.0},
                     data, state=model.state_dict(), **options)
+
+
+# the flow stage's recipe: LOSS_FLOW without the right views' flowL2_R
+FLOW_RECIPE = {"flowL2": 1.0, "flow_reg": 4e-7}
+
+
+def flow_case(batch: int = 4, height: int = 64, width: int = 128, **options) -> StepCase:
+    """PWC-Net alone under the flow stage's recipe, ``regularize_net=
+    "flownet"``, on a synthetic uint8 batch (seed 3), from the factory's
+    seeded weights."""
+    from xpt_mde_tpu_torch.config import FLOW_NET
+    from xpt_mde_tpu_torch.data import SyntheticDataset
+
+    dataset = SyntheticDataset(batch_size=batch, height=height, width=width, num_batches=1,
+                               seed=3)
+    data = next(iter(dataset))
+    data["image5d"] = np.round((data["image5d"] + 1.0) * 127.5).astype(np.uint8)
+    options.setdefault("regularize_net", "flownet")
+    return StepCase(dict(FLOW_NET), dataset.config_keys(), dict(FLOW_RECIPE), data, **options)
 
 
 def _distances(d: Mapping) -> str:

@@ -66,6 +66,58 @@ def _squeeze_excite(gen, dtype):
     return se, (8,)
 
 
+def _conv_transpose(gen, dtype):
+    from xpt_mde_tpu_torch.models.layers import ConvTranspose
+    up = ConvTranspose(4, 4, dtype)
+    up.init_weights(gen)
+    with torch.no_grad():
+        up.bias.normal_(generator=gen)
+    return up, (4,)
+
+
+def _dilated(dilation):
+    def build(gen, dtype):
+        from xpt_mde_tpu_torch.models.layers import Conv
+        conv = Conv(4, 4, dilation=dilation, dtype=dtype)
+        conv.Conv_0.init_weights(gen)
+        with torch.no_grad():
+            conv.Conv_0.bias.normal_(generator=gen)
+        return conv, (4,)
+    return build
+
+
+def _cost_volume(md, stride):
+    """PWC-Net's cost volume of the input's first 4 channels (cl) against
+    its last 4 (cr): on a band, against cr's rows the band reads
+    (``spatial.correlation_rows``: the halo where md is at most the band's
+    rows, else the whole map)."""
+    def f(x):
+        from xpt_mde_tpu_torch.ops.correlation import correlation_cost
+        from xpt_mde_tpu_torch.parallel import spatial
+        cr, row_offset = spatial.correlation_rows(x[:, 4:].contiguous(), md)
+        return correlation_cost(x[:, :4].contiguous(), cr, md, stride, row_offset)
+    return f
+
+
+def _feature_warp(x):
+    """PWC-Net's feature warp: the input's last 4 channels (the features,
+    gathered whole on a band) sampled at grid - flow, the flow its first 2
+    channels in float32 (pixels of order 1), at the band's target rows."""
+    from xpt_mde_tpu_torch.ops.flow_warp import flow_bilinear_sample
+    from xpt_mde_tpu_torch.utils.precision import at_least_f32
+    feats = x[:, 2:].permute(0, 2, 3, 1)
+    flow = at_least_f32(x[:, :2]).permute(0, 2, 3, 1)
+    return flow_bilinear_sample(feats, flow).permute(0, 3, 1, 2)
+
+
+def _flow_coords(x):
+    """The flow's pixel coordinates (grid - flow) at the band's global rows,
+    as a [N, 2, H, W] map."""
+    from xpt_mde_tpu_torch.ops.flow_warp import flow_to_pixel_coords
+    flow = x.permute(0, 2, 3, 1)[:, None]
+    return flow_to_pixel_coords(flow).reshape(x.shape)
+
+
 def _fn(f, channels=3):
     def build(gen, dtype):
         return f, (channels,)
@@ -114,10 +166,22 @@ MAP_CASES = {
     "resize half even": (_fn(_resize_half), "even"),
     "max pool k3 s2 even": (_fn(_max_pool), "even"),
     "count-excluding pool k3 odd": (_fn(_avg_pool), "odd"),
+    # the flow stage's (PWC-Net's) band modules: the 2x upsampler, a
+    # dilated context conv whose halo fits the band and one (dilation 16)
+    # that takes the gather rule, the cost volume on the halo route (md 4
+    # against 8-row bands) and on the gathered one (md 12), the feature warp
+    # and the flow's pixel coordinates
+    "conv transpose 4x4 s2 even": (_conv_transpose, "even"),
+    "conv k3 dilation 4 even": (_dilated(4), "even"),
+    "conv k3 dilation 16 even": (_dilated(16), "even"),
+    "cost volume halo md 4 s2 even": (_fn(_cost_volume(4, 2), 8), "even"),
+    "cost volume gathered md 12 s4 even": (_fn(_cost_volume(12, 4), 8), "even"),
+    "feature warp even": (_fn(_feature_warp, 6), "even"),
+    "flow coords even": (_fn(_flow_coords, 2), "even"),
 }
 # the loss terms, per sample: name -> H
 LOSS_CASES = {"ssim even": "even", "ssim odd": "odd", "smoothness even": "even",
-              "smoothness odd": "odd"}
+              "smoothness odd": "odd", "flowL2 even": "even", "flow_reg even": "even"}
 
 
 def _whole(t: torch.Tensor, mesh, dim: int) -> np.ndarray:
@@ -187,14 +251,39 @@ def _map_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
 
 def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
     """A loss term in float32 (``dtype`` unused: a bf16 step's depth and
-    frames reach the losses in float32)."""
-    from xpt_mde_tpu_torch.losses.photometric import photometric_loss_ssim
-    from xpt_mde_tpu_torch.losses.total import SmoothenessLossMultiScale
+    frames reach the losses in float32). ``dims``: the rows' axes of the
+    differentiated input and of the other one, each cut to bands, or None
+    for one that every rank holds whole (its gradient then summed over the
+    ranks)."""
+    from xpt_mde_tpu_torch.losses.photometric import (photometric_loss_l2,
+                                                      photometric_loss_ssim)
+    from xpt_mde_tpu_torch.losses.total import L2Regularizer, SmoothenessLossMultiScale
+    from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
     from xpt_mde_tpu_torch.parallel import spatial
+    from xpt_mde_tpu_torch.utils.image import multi_scale_like
 
     rows = _HEIGHTS[LOSS_CASES[name]]
     rng = np.random.RandomState(seed)
-    if name.startswith("ssim"):
+    if name.startswith("flowL2"):
+        # the flow [B, N, H, W, 2] (pixels of order 1) warps the whole
+        # sources; the L2 against the target at the flow's rows
+        pred = rng.uniform(-1.5, 1.5, (2, 2, rows, WIDTH, 2)).astype(np.float32)
+        other = rng.uniform(-1, 1, (2, 3, rows, WIDTH, 3)).astype(np.float32)
+        dims = (2, None)
+
+        def fn(p, o):
+            spatial.register(o, rows, 2)
+            target = multi_scale_like(o[:, -1], [p])[0]
+            return photometric_loss_l2(flow_warp_multi_scale(o[:, :-1], [p])[0], target)
+    elif name.startswith("flow_reg"):
+        # weights that every rank holds whole
+        pred = rng.standard_normal((3, 5)).astype(np.float32)
+        other = rng.uniform(-1, 1, (2, 3, rows, WIDTH, 3)).astype(np.float32)
+        dims = (None, None)
+
+        def fn(p, o):
+            return L2Regularizer()({"image5d": o}, {"regularize_weights": [p]}, {})
+    elif name.startswith("ssim"):
         pred = rng.uniform(-1, 1, (2, 2, rows, WIDTH, 3)).astype(np.float32)
         pred[:, :, :2, :3] = 0.0  # black (invalid) pixels
         other = rng.uniform(-1, 1, (2, rows, WIDTH, 3)).astype(np.float32)
@@ -218,14 +307,16 @@ def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
     (out * g).sum().backward()
     whole = {"out": _numpy(out), "dx": _numpy(pw.grad)}
 
-    pb = _band(pred, mesh, dims[0]).requires_grad_()
-    ob = _band(other, mesh, dims[1])
+    pb = (pred.clone() if dims[0] is None else _band(pred, mesh, dims[0])).requires_grad_()
+    ob = other if dims[1] is None else _band(other, mesh, dims[1])
     with spatial.banded(mesh):
-        spatial.register(pb, rows, dims[0])
-        spatial.register(ob, rows, dims[1])
+        for t, dim in zip((pb, ob), dims):
+            if dim is not None:
+                spatial.register(t, rows, dim)
         out_b = fn(pb, ob)
         (out_b * g).sum().backward()
-    band = {"out": _summed(out_b.detach(), mesh), "dx": _whole(pb.grad, mesh, dims[0])}
+    band = {"out": _summed(out_b.detach(), mesh),
+            "dx": _summed(pb.grad, mesh) if dims[0] is None else _whole(pb.grad, mesh, dims[0])}
     return {"whole": whole, "band": band}
 
 

@@ -6,8 +6,10 @@ to compare two trees in one call).
 
     python -m xpt_mde_tpu_torch.tools.time_phase --phase ddp . ../parent . ../parent
 
-Phases: ``ddp`` (phase 30, ``_ddp_phase``) and ``band_warp`` (phase 2's band
-shapes, ``_band_warp_phase``, where the checkout has it). Each run prints
+Phases: ``ddp`` (phase 30, ``_ddp_phase``), ``band_warp`` (phase 2's band
+shapes, ``_band_warp_phase``, where the checkout has it) and ``band_corr``
+(phases 8 and 21: the correlation kernels at the PWC levels, then on the
+spatial mesh's bands, ``_band_corr_phase``, in float32 and bfloat16). Each run prints
 the phase's own summary, then ``PHASE <name> <checkout> <seconds> s``, the
 host seconds of the call (the checkout's kernels built before it, as the
 whole script builds them in phase 1); exits 1 if a run fails.
@@ -42,6 +44,13 @@ with full_f32():
     t0 = time.perf_counter()
     if phase == "ddp":
         _, note = cs._ddp_phase(device, tag)
+    elif phase == "band_corr":
+        notes = []
+        for dtype in (torch.float32, torch.bfloat16):
+            stats = cs._corr_phase(device, tag, dtype, phase_no=8 if dtype == torch.float32
+                                   else 21)
+            notes.append(cs._band_corr_phase(device, tag, dtype, stats))
+        note = chr(10).join(notes)
     else:
         from xpt_mde_tpu_torch.data import SyntheticDataset
         batches = list(SyntheticDataset(batch_size=cs.BATCH, height=cs.HEIGHT, width=cs.WIDTH,
@@ -55,7 +64,7 @@ print(f"PHASE_SECONDS {seconds:.1f}", flush=True)
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", choices=("ddp", "band_warp"), default="ddp")
+    parser.add_argument("--phase", choices=("ddp", "band_warp", "band_corr"), default="ddp")
     parser.add_argument("checkouts", nargs="+")
     args = parser.parse_args(argv)
     status = 0
