@@ -219,14 +219,17 @@ per library started together, and prints one line per phase:
     its predictions on rank 0: history.csv and the checkpoints written
     once, K1 and K1-bwd launched; (b) the steps over gloo with two ranks
     on card 0 (NCCL refuses two ranks on one device), and there the
-    rigid and flow steps in float32 and bfloat16 on SPATIAL_MESH (two
-    bands of each sample's rows; ``_spatial_note``: float32 by
-    ``ddp_check.within_tolerance(spatial=True)``, bfloat16 by
-    SPATIAL_BF16_RATIO, K1 and K1-bwd launched on each rank and a flow
-    step's K2, K3 and K4 or their bf16 forms SPATIAL_FLOW_LAUNCHES times,
-    the halo and gather bytes and the collectives' share of the timed
-    bf16 steps) and the band modules of ``tools/spatial_check.py`` in
-    bfloat16 (``_band_modules_note``, within its BF16_RTOL);
+    rigid, flow and joint (JOINT_NET, JOINT_RECIPE, the flownet frozen;
+    held to its one-process steps only) steps in float32 and bfloat16 on
+    SPATIAL_MESH (two bands of each sample's rows; ``_spatial_note``:
+    float32 by ``ddp_check.within_tolerance(spatial=True)``, the joint
+    step's with its near-tie allowance, bfloat16 by SPATIAL_BF16_RATIO,
+    K1 and K1-bwd launched on each rank, a flow step's K2, K3 and K4 or
+    their bf16 forms SPATIAL_FLOW_LAUNCHES times, a joint step's kernels
+    as SPATIAL_JOINT_LAUNCHES says with its flownet bit-unchanged, the
+    halo and gather bytes and the collectives' share of the timed bf16
+    steps) and the band modules of ``tools/spatial_check.py`` in bfloat16
+    (``_band_modules_note``, within its BF16_RTOL);
 31. serving (``_serving_phase``): ``serving.export_predictor`` of
     RIGID_NET in bfloat16 on a uint8 batch of 8 at 128x512 and of PWC-Net
     in bfloat16 and float32; each artifact loaded in a fresh interpreter
@@ -488,6 +491,13 @@ SPATIAL_BF16_RATIO = 2.0
 # times a step on each rank, as one process does: once a PWC level, level
 # 6 computed whole by each rank, levels 5-2 on its band
 SPATIAL_FLOW_LAUNCHES = 5
+# phase 30: the joint step (JOINT_NET, JOINT_RECIPE, the flownet frozen) on
+# SPATIAL_MESH launches these a step on each rank (in bf16 the cost
+# volume's bf16 forms), as one process does (JOINT_PER_STEP): K1 at the
+# four scales of the synthesis and of the flow warps, K1-bwd in the
+# synthesis's backward, K2 once a PWC level; the frozen flownet's backward
+# never runs
+SPATIAL_JOINT_LAUNCHES = {"K1": 8, "K1-bwd": 4, "K2": 5, "K3": 0, "K4": 0}
 # phase 31: an artifact against the live predict step, both on the card,
 # each output's largest difference over its largest value: the same
 # operations in float32 (1e-5); in bfloat16 a few ulps (2^-8 each) where
@@ -2359,7 +2369,7 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
     import numpy as np
     import torch
 
-    from xpt_mde_tpu_torch.config import FLOW_NET, RIGID_NET
+    from xpt_mde_tpu_torch.config import FLOW_NET, JOINT_NET, RIGID_NET
     from xpt_mde_tpu_torch.data import SyntheticDataset
     from xpt_mde_tpu_torch.models import ModelFactory
     from xpt_mde_tpu_torch.tools import ddp_check, spatial_check
@@ -2380,23 +2390,34 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
                                   compute_dtype=dtype, **options)
 
     flow = {"regularize_net": "flownet"}
+    joint = {"frozen_nets": ("flownet",)}
     cases = {"rigid float32": case(RIGID_NET, RECIPE, _set_pose_twist, "float32"),
              "flow float32": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "float32", **flow),
              "rigid bf16": case(RIGID_NET, RECIPE, _set_pose_twist, "bfloat16"),
              "flow bf16": case(FLOW_NET, FLOW_RECIPE, _set_flow_heads, "bfloat16", **flow)}
+    # the joint step (the flownet frozen) runs one process and the spatial
+    # mesh only (tests/test_torch_parallel_joint.py holds its data-parallel
+    # step)
+    joint_cases = {f"joint {dtype}": case(JOINT_NET, JOINT_RECIPE, _set_pose_and_flow_heads,
+                                          "float32" if dtype == "float32" else "bfloat16",
+                                          **joint)
+                   for dtype in ("float32", "bf16")}
     # the height-sharded mesh (two bands of each sample's rows), on the gloo
     # ranks only: the same weights and batch (BATCH snippets of HEIGHT x
     # WIDTH) as the one-process cases
-    spatial = {f"{name} spatial": dataclasses.replace(cases[name], mesh_shape=SPATIAL_MESH)
-               for name in ("rigid float32", "rigid bf16", "flow float32", "flow bf16")}
+    spatial = {f"{name} spatial": dataclasses.replace((cases | joint_cases)[name],
+                                                      mesh_shape=SPATIAL_MESH)
+               for name in ("rigid float32", "rigid bf16", "flow float32", "flow bf16",
+                            "joint float32", "joint bf16")}
     # float32: one checked step; bfloat16: a warm-up step, then the timed ones
     steps = [1 if "float32" in name else DDP_TIMED_STEPS + 1 for name in cases]
     singles = {name: ddp_check.single_step(c, device) if "float32" in name
-               else _single_step_ms(c, device) for name, c in cases.items()}
+               else _single_step_ms(c, device) for name, c in (cases | joint_cases).items()}
     # the bf16 spatial steps' rule: their one-process bf16 step (the timed
     # one-process run's first step) and that step's distance from the
     # one-process float32 step, by stage
-    bf16_singles = {stage: singles[f"{stage} bf16"]["first"] for stage in ("rigid", "flow")}
+    bf16_singles = {stage: singles[f"{stage} bf16"]["first"]
+                    for stage in ("rigid", "flow", "joint")}
     bf16_scales = {stage: ddp_check.compare(singles[f"{stage} float32"], [single])
                    for stage, single in bf16_singles.items()}
     torch.cuda.empty_cache()
@@ -2423,7 +2444,8 @@ def _ddp_phase(device, tag) -> tuple[dict, str]:
         results = gloo[list(gloo_cases).index(name)]
         stage = name.split()[0]
         notes.append(_spatial_note(name, results, singles[f"{stage} float32"],
-                                   bf16_singles[stage], bf16_scales[stage], tag))
+                                   bf16_singles[stage], bf16_scales[stage], tag,
+                                   spatial[name].state))
     for backend, (world, results, seconds, run_cases) in runs.items():
         for (name, c), ranks in zip(run_cases.items(), results):
             if name in spatial:
@@ -2474,22 +2496,27 @@ def _band_modules_note(results, tag) -> str:
             + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()) + f" {tag}")
 
 
-def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
+def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag, state) -> str:
     """Phase 30's check of a step on the spatial mesh (SPATIAL_MESH, two
     gloo ranks on the card): every rank launched K1 and K1-bwd on its band,
-    and in a flow step the cost volume's kernels (their bf16 forms in bf16)
-    SPATIAL_FLOW_LAUNCHES times each; float32 within ``ddp_check.within_tolerance`` of the one-process step,
-    the parameters by its spatial rule; bf16: the loss within
-    SPATIAL_BF16_RATIO times the one-process bf16 step's own distance from
-    the one-process float32 step, at least 2^-8 of the loss (one bf16 ulp),
-    with equal replicas (its gradients are read, not held: see
-    SPATIAL_BF16_RATIO); the timed steps' spatial collectives: bytes a step
-    and share of it."""
+    in a flow step the cost volume's kernels (their bf16 forms in bf16)
+    SPATIAL_FLOW_LAUNCHES times each, and a joint step each kernel as
+    SPATIAL_JOINT_LAUNCHES says, its flownet (``state``'s, the case's
+    initial weights) bit-unchanged on every rank; float32 within
+    ``ddp_check.within_tolerance`` of the one-process step, the parameters
+    by its spatial rule (a joint step by its joint rule too); bf16: the
+    loss within SPATIAL_BF16_RATIO times the one-process bf16 step's own
+    distance from the one-process float32 step, at least 2^-8 of the loss
+    (one bf16 ulp), with equal replicas and the entries without a gradient
+    bit-equal (its gradients are read, not held: see SPATIAL_BF16_RATIO);
+    the timed steps' spatial collectives: bytes a step and share of it."""
     import numpy as np
+    import torch
 
     from xpt_mde_tpu_torch.tools import ddp_check
 
-    corr = [f"K{i}{'' if 'float32' in name else '-bf16'}" for i in (2, 3, 4)]
+    bf16 = "float32" not in name
+    corr = [f"K{i}{'-bf16' if bf16 else ''}" for i in (2, 3, 4)]
     for rank in ranks:
         if not (rank["launches"]["K1"] and rank["launches"]["K1-bwd"]):
             raise AssertionError(f"{name}: rank {rank['rank']} launched no K1 or K1-bwd on "
@@ -2499,16 +2526,28 @@ def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
             raise AssertionError(f"{name}: rank {rank['rank']} launched {corr} "
                                  f"{[rank['launches'][k] for k in corr]} times, not "
                                  f"{SPATIAL_FLOW_LAUNCHES}: {rank['launches']}")
-    if "float32" in name:
+        if name.startswith("joint"):
+            want = dict.fromkeys(rank["launches"], 0) | {
+                k: SPATIAL_JOINT_LAUNCHES[k.removesuffix("-bf16")] for k in ("K1", "K1-bwd", *corr)}
+            if rank["launches"] != want:
+                raise AssertionError(f"{name}: rank {rank['rank']} launched "
+                                     f"{rank['launches']}, not {want}")
+            changed = [k for k in state if k.startswith("flownet.")
+                       and not torch.equal(rank["state"][k], state[k])]
+            if changed:
+                raise AssertionError(f"{name}: rank {rank['rank']} changed the frozen "
+                                     f"flownet: {changed[:5]}")
+    if not bf16:
         d = ddp_check.compare(single_f32, ranks)
-        rule = ddp_check.within_tolerance(d, spatial=True)
+        rule = ddp_check.within_tolerance(d, spatial=True, joint=name.startswith("joint"))
         text = (f"{name} step, 2 gloo ranks on one card vs one process: "
                 + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
                             for k, v in d.items()))
     else:
         d = ddp_check.compare(single_bf16, ranks)
         limit = max(SPATIAL_BF16_RATIO * bf16_scale["loss"], 2.0 ** -8)
-        rule = d["loss"] <= limit and d["replicas"] == 0.0 and d["metrics_equal_across_ranks"]
+        rule = (d["loss"] <= limit and d["replicas"] == 0.0 and d["frozen"] == 0.0
+                and d["metrics_equal_across_ranks"])
         text = (f"{name} step, 2 gloo ranks on one card vs the one-process bf16 step: loss "
                 f"{d['loss']:.3g} (limit {limit:.3g}); read, not held: grad_median "
                 f"{d['grad_median']:.3g}, grad {d['grad']:.3g}; the one-process bf16 step vs "
@@ -2519,7 +2558,8 @@ def _spatial_note(name, ranks, single_f32, single_bf16, bf16_scale, tag) -> str:
     band = ranks[0]["band"]
     launches = [json.dumps({k: v for k, v in rank["launches"].items() if v}) for rank in ranks]
     text += (f"; rank 0's spatial collectives a step: halo {band['halo_bytes'] / 1e6:.2f} MB, "
-             f"gather {band['gather_bytes'] / 1e6:.2f} MB, sums {band['sum_bytes'] / 1e3:.1f} kB "
+             f"gather {band['gather_bytes'] / 1e6:.2f} MB, resizes' gathers "
+             f"{band['resize_bytes'] / 1e6:.2f} MB, sums {band['sum_bytes'] / 1e3:.1f} kB "
              f"in {band['calls']} all-reduces; launches by rank {'; '.join(launches)}; rank 0's "
              f"first step {ranks[0]['seconds']:.2f} s, the case {ranks[0]['wall']:.1f} s")
     if ranks[0]["timed"]:
@@ -2546,7 +2586,7 @@ def _single_step_ms(case, device) -> dict:
 
     model, loss, optimizer, augmenter = _build(case, device)
     step = make_train_step(model, loss, optimizer, augmenter=augmenter,
-                           regularize_net=case.regularize_net)
+                           frozen_nets=case.frozen_nets, regularize_net=case.regularize_net)
     features = features_to_device(case.batch, device)
     times, first = [], None
     for _ in range(DDP_TIMED_STEPS + 1):

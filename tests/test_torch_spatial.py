@@ -24,9 +24,11 @@ image rows of their data index's samples:
 - each band module, forward and backward, its bands gathered against the
   whole map (``tools/spatial_check.py``: the rigid path's and, since the
   flow stage runs on the mesh, PWC-Net's), and K1's and K1-bwd's plain
-  twins on a band of target rows; ``check_spatial`` admitting the rigid
-  path and the flow stage and refusing the rest (the flow stage's steps
-  are ``tests/test_torch_spatial_flow.py``'s).
+  twins on a band of target rows; the joint step's full-resolution loss
+  terms (cmb, md2, md2cmb) on bands; ``check_spatial`` admitting the
+  rigid path, the flow stage and the joint step and refusing the rest
+  (the flow stage's steps are ``tests/test_torch_spatial_flow.py``'s, the
+  joint step's ``tests/test_torch_spatial_joint.py``'s).
 """
 
 import math
@@ -420,10 +422,13 @@ def test_multihost_mesh_keeps_the_trailing_axes_on_one_host(monkeypatch):
 
 
 def test_flow_rows_on_a_spatial_mesh_raise():
-    """``check_spatial`` admits the flow stage (PWC-Net alone, flowL2 and
-    flow_reg) and the rigid path, and still raises, naming ROADMAP queue 1
-    item 4, for a flownet beside a depth and pose net (the joint step), a
-    stereo recipe's terms, and the cmb, md2, md2cmb and moa terms."""
+    """``check_spatial`` admits the rigid path (the md2 terms too), the flow
+    stage (PWC-Net alone, flowL2 and flow_reg) and the joint step (PWC-Net
+    frozen beside the depth and pose nets, the cmb, md2 and md2cmb terms;
+    its eval and predict steps), and still raises, naming ROADMAP queue 1
+    item 4, for a stereo recipe's terms, the moa terms, another backbone
+    and ``PoseNetPreTrained``; and for a flownet that a joint train step
+    would train."""
     from types import SimpleNamespace
 
     from xpt_mde_tpu_torch.config import FLOW_NET
@@ -437,12 +442,26 @@ def test_flow_rows_on_a_spatial_mesh_raise():
     rigid = ModelFactory(keys, NETS_BASIC, stereo=False, device="cpu").get_model()
     joint = ModelFactory(keys, dict(NETS_BASIC, **FLOW_NET), stereo=False,
                          device="cpu").get_model()
+    other_backbone = ModelFactory(keys, {"depth": "MobileNetV2", "camera": "PoseNetBasic"},
+                                  stereo=False, device="cpu").get_model()
+    pose_backbone = ModelFactory(keys, {"depth": "DepthNetBasic", "camera": "MobileNetV2"},
+                                 stereo=False, device="cpu").get_model()
+    frozen = {"flownet"}
     check_spatial(flow)
     check_spatial(flow, recipe("flowL2", "flow_reg"))
     check_spatial(rigid, recipe("L1", "SSIM", "smoothe"))
-    for model, terms in ((joint, ("cmbL1", "cmbSSIM", "smoothe")), (joint, ()),
-                         (rigid, ("L1", "L1_R", "stereoL1", "stereoPose")),
-                         (flow, ("flowL2", "flowL2_R")), (flow, ("flowL2", "cmbL1")),
-                         (rigid, ("md2L1",)), (rigid, ("md2cmbL1",)), (rigid, ("moaSSIM",))):
+    check_spatial(rigid, recipe("md2L1", "md2SSIM", "smoothe"), frozen_nets=set())
+    check_spatial(joint)
+    for terms in (("cmbL1", "cmbSSIM", "smoothe"), ("md2cmbL1", "md2cmbSSIM", "smoothe"),
+                  ("md2L1", "md2SSIM", "smoothe"), ()):
+        check_spatial(joint, recipe(*terms))
+        check_spatial(joint, recipe(*terms), frozen_nets=frozen)
+    for model, terms in ((rigid, ("L1", "L1_R", "stereoL1", "stereoPose")),
+                         (joint, ("cmbL1", "cmbL1_R")), (flow, ("flowL2", "flowL2_R")),
+                         (flow, ("flowL2", "cmbL1")), (rigid, ("moaSSIM",)),
+                         (joint, ("cmbL1", "moaL1")), (other_backbone, ("L1",)),
+                         (pose_backbone, ("L1",))):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
             check_spatial(model, recipe(*terms))
+    with pytest.raises(NotImplementedError, match="freezes it"):
+        check_spatial(joint, recipe("cmbL1"), frozen_nets=set())

@@ -46,6 +46,15 @@ def _merge_multi_scale(losses: Sequence[torch.Tensor],
     return torch.tensordot(weights, stacked, dims=1)
 
 
+def _full_resolution(photo, views: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The per-pixel error ([B, N, H, W, C]) of ``views`` resized
+    bilinearly to the target's size against the target. On a spatial
+    mesh's band, the views' band of the full-resolution rows against the
+    same rows of the whole target."""
+    resized = resize_image(views, *target.shape[1:3])
+    return photo(resized, spatial.like(target, resized, -3), reduce=False)
+
+
 class PhotometricLossMultiScale:
     """Per-scale photometric loss against the scaled target."""
 
@@ -64,7 +73,8 @@ class PhotometricLossMultiScale:
 class MonoDepth2LossMultiScale:
     """Monodepth2's per-pixel minimum over the sources: each scale's
     synthesized views resized bilinearly to the target's size, the
-    photometric error's minimum over the sources, averaged."""
+    photometric error's minimum over the sources, averaged (on a spatial
+    mesh's band, its share of the sample's mean)."""
 
     def __init__(self, method: str, scale_weights, key_suffix: str = ""):
         self.photo = PHOTOMETRIC_FNS[method]
@@ -74,12 +84,11 @@ class MonoDepth2LossMultiScale:
     def __call__(self, features, predictions, augm_data):
         synth_ms = augm_data["synth_target_ms" + self.sfx]
         target = augm_data["target" + self.sfx]
-        ho, wo = target.shape[1:3]
         losses = []
         for synth in synth_ms:
-            err = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            err = _full_resolution(self.photo, synth, target)
             # amin splits the gradient among ties, as jnp.min's does
-            losses.append(torch.mean(torch.amin(err, dim=1), dim=(1, 2, 3)))
+            losses.append(spatial.band_mean(torch.amin(err, dim=1), (1, 2, 3), 1))
         return _merge_multi_scale(losses, self.scale_weights)
 
 
@@ -88,7 +97,8 @@ class CombinedLossMultiScale:
     it is not below the optical-flow loss: each scale's synthesized views
     and the finest flow-warped views are resized bilinearly to the
     target's size, and a pixel counts only where its static error is
-    smaller than its flow error."""
+    smaller than its flow error (per pixel, so on a spatial mesh's band
+    with no collective but the resizes' gathers)."""
 
     def __init__(self, method: str, scale_weights, key_suffix: str = ""):
         self.photo = PHOTOMETRIC_FNS[method]
@@ -99,13 +109,12 @@ class CombinedLossMultiScale:
         synth_ms = augm_data["synth_target_ms" + self.sfx]
         warped_ms = augm_data["warped_target_ms" + self.sfx]
         target = augm_data["target" + self.sfx]
-        ho, wo = target.shape[1:3]
-        flow_loss = self.photo(resize_image(warped_ms[0], ho, wo), target, reduce=False)
+        flow_loss = _full_resolution(self.photo, warped_ms[0], target)
         losses = []
         for synth in synth_ms:
-            static = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            static = _full_resolution(self.photo, synth, target)
             static = static * (static < flow_loss).to(static.dtype)
-            losses.append(torch.mean(static, dim=(1, 2, 3, 4)))
+            losses.append(spatial.band_mean(static, (1, 2, 3, 4), 2))
         return _merge_multi_scale(losses, self.scale_weights)
 
 
@@ -151,7 +160,11 @@ class MD2CombLossMultiScale:
     view's error gets 1000 added; pixels whose minimum stays at or above
     1000 are dropped. Each sample's sum is divided by the valid pixels of
     the WHOLE batch (the reference's ``count_nonzero``, kept as is): in a
-    data-parallel step, of the global batch, summed over the ranks."""
+    data-parallel step, of the global batch, summed over the ranks; on a
+    spatial mesh each rank sums and counts its band's pixels, and the count
+    runs over the whole mesh (a map that every rank of a spatial group
+    holds whole, each of them counts in its sums and its count alike, so
+    each rank's term is its share of the sample's)."""
 
     def __init__(self, method: str, scale_weights, key_suffix: str = ""):
         self.photo = PHOTOMETRIC_FNS[method]
@@ -162,11 +175,10 @@ class MD2CombLossMultiScale:
         synth_ms = augm_data["synth_target_ms" + self.sfx]
         warped_ms = augm_data["warped_target_ms" + self.sfx]
         target = augm_data["target" + self.sfx]
-        ho, wo = target.shape[1:3]
-        flow_loss = self.photo(resize_image(warped_ms[0], ho, wo), target, reduce=False)
+        flow_loss = _full_resolution(self.photo, warped_ms[0], target)
         losses = []
         for synth in synth_ms:
-            static = self.photo(resize_image(synth, ho, wo), target, reduce=False)
+            static = _full_resolution(self.photo, synth, target)
             outlier = (static > flow_loss * 2.0).to(static.dtype)
             static = torch.amin(static + outlier * 1000.0, dim=1)  # [B, H, W, C]
             keep = (static < 1000.0).to(static.dtype)

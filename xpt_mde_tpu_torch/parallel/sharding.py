@@ -119,41 +119,56 @@ def shard_batch(features: Mapping, mesh: Mesh) -> dict:
 # the modules whose every spatial op the band context covers
 _SPATIAL_DEPTH_NETS = ("DepthNetBasic", "DepthNetNoResize", "DepthNetPretrained")
 _SPATIAL_POSE_NETS = ("PoseNetBasic", "PoseNetImproved", "PoseNetDeep")
-_SPATIAL_LOSSES = ("L1", "L2", "SSIM", "smoothe")
+# the depth and pose nets' terms (cmb and md2cmb need the flownet's views)
+_SPATIAL_LOSSES = ("L1", "L2", "SSIM", "smoothe", "md2L1", "md2SSIM", "cmbL1", "cmbSSIM",
+                   "md2cmbL1", "md2cmbSSIM")
 _SPATIAL_FLOW_LOSSES = ("flowL2", "flow_reg")
-_SPATIAL_TODO = ("the joint step (a flownet beside a depth or pose net; the cmb, md2, "
-                 "md2cmb and moa terms) and then the stereo steps on the spatial mesh are "
-                 "ROADMAP queue 1 item 4")
+_SPATIAL_TODO = ("the stereo steps on the spatial mesh (the _R views and terms, the "
+                 "left<->right cross-synthesis, stereoPose, the moa terms) and then the other "
+                 "backbones and PoseNetPreTrained are ROADMAP queue 1 item 4")
 
 
-def check_spatial(model: torch.nn.Module, total_loss=None) -> None:
+def check_spatial(model: torch.nn.Module, total_loss=None, frozen_nets=None) -> None:
     """Raise NotImplementedError unless ``model`` and ``total_loss`` run on
     bands: the rigid path (a depth net on EfficientNet or the basic
-    encoder, a pose net without a backbone, the L1, L2, SSIM and
-    smoothness terms) or the flow stage (PWC-Net alone, the flowL2 and
-    flow_reg terms); a flownet beside a depth or pose net (the joint step)
-    and a stereo recipe's terms raise."""
+    encoder, a pose net without a backbone, the L1, L2, SSIM, md2 and
+    smoothness terms), the flow stage (PWC-Net alone, the flowL2 and
+    flow_reg terms) or the joint step (those depth and pose nets beside
+    PWC-Net, the cmb and md2cmb terms too). A stereo recipe's terms, moa,
+    and the other backbones and pose backbones raise, naming ROADMAP.
+
+    In a train step (``frozen_nets`` given) the joint step's flownet must
+    be frozen: the JAX trainer and the port's freeze it in every row that
+    trains depth and flow together (``training/trainer.py``), and a
+    gradient into PWC-Net through the flow-warped views of the cmb terms
+    has no test on bands, so it raises. The eval and predict steps
+    (``frozen_nets`` None) take no gradient."""
     from xpt_mde_tpu_torch.models.backbones.efficientnet import EfficientNet
 
     depth, pose = getattr(model, "depthnet", None), getattr(model, "posenet", None)
-    if getattr(model, "flownet", None) is not None:
-        if depth is not None or pose is not None:
-            raise NotImplementedError(f"a flownet beside a depth or pose net: {_SPATIAL_TODO}")
-        terms = set(getattr(total_loss, "loss_objects", {})) - set(_SPATIAL_FLOW_LOSSES)
+    flow = getattr(model, "flownet", None)
+    terms = set(getattr(total_loss, "loss_objects", {}))
+    if flow is not None and depth is None and pose is None:
+        terms -= set(_SPATIAL_FLOW_LOSSES)
         if terms:
             raise NotImplementedError(f"loss terms {sorted(terms)} on the spatial mesh's flow "
                                       f"stage: {_SPATIAL_TODO}")
         return
+    if flow is not None and frozen_nets is not None and "flownet" not in frozen_nets:
+        raise NotImplementedError("a flownet that trains beside a depth or pose net on the "
+                                  "spatial mesh: the joint step freezes it, as every plan "
+                                  "row does")
     backbone = getattr(depth, "backbone", None)
     if depth is not None and (type(depth).__name__ not in _SPATIAL_DEPTH_NETS or (
             backbone is not None and not isinstance(backbone, EfficientNet))):
         raise NotImplementedError(f"{type(depth).__name__} on {type(backbone).__name__}: the "
-                                  "spatial mesh runs EfficientNet and the basic encoder")
+                                  "spatial mesh runs EfficientNet and the basic encoder; "
+                                  f"{_SPATIAL_TODO}")
     if pose is not None and (type(pose).__name__ not in _SPATIAL_POSE_NETS
                              or pose.backbone is not None):
         raise NotImplementedError(f"{type(pose).__name__}: the spatial mesh runs the "
-                                  "pose nets without a backbone")
-    terms = set(getattr(total_loss, "loss_objects", {})) - set(_SPATIAL_LOSSES)
+                                  f"pose nets without a backbone; {_SPATIAL_TODO}")
+    terms -= set(_SPATIAL_LOSSES)
     if terms:
         raise NotImplementedError(f"loss terms {sorted(terms)} on the spatial mesh: "
                                   f"{_SPATIAL_TODO}")
@@ -258,7 +273,7 @@ def make_parallel_train_step(model: torch.nn.Module, total_loss,
         raise ValueError("a data-parallel step needs total_loss built with batch_size = the "
                          "GLOBAL batch size")
     if mesh.spatial > 1:
-        check_spatial(model, total_loss)
+        check_spatial(model, total_loss, set(frozen_nets) - {regularize_net})
     params = [p for group in optimizer.param_groups for p in group["params"]]
     timing = {"events": None, "ms": 0.0}
 

@@ -26,6 +26,9 @@ the group. The layers ask this module what to do:
   term divides its band's sum by the global count (:func:`band_mean`); a
   value that every rank holds (a regularizer of the replicated weights)
   counts on the group's first rank only (:func:`first_rank_share`);
+- a loss term at full resolution (the cmb, md2 and md2cmb terms) resizes
+  each scale's band of views through the gathered map (:func:`resize`)
+  and cuts the whole target to its band (:func:`like`);
 - every rank holds the batch's frames whole (:func:`register_frames`):
   each samples the source frames at its band's reprojected pixels.
 
@@ -65,11 +68,13 @@ MIN_BAND_ROWS = 2
 @dataclasses.dataclass
 class BandStats:
     """What the spatial collectives moved and took since the context
-    began: bytes of their all-reduce buffers, and (with ``timed``) host
-    seconds in them after a device synchronize."""
+    began: bytes of their all-reduce buffers (``resize_bytes`` the gathers
+    of :func:`resize`'s bilinear route, ``gather_bytes`` the others), and
+    (with ``timed``) host seconds in them after a device synchronize."""
 
     halo_bytes: int = 0
     gather_bytes: int = 0
+    resize_bytes: int = 0
     sum_bytes: int = 0
     seconds: float = 0.0
     calls: int = 0
@@ -209,18 +214,19 @@ class HaloExchange(torch.autograd.Function):
 
 class GatherRows(torch.autograd.Function):
     """The whole map from its bands along ``dim``; the backward sums the
-    ranks' cotangents of the whole map and keeps this band's rows."""
+    ranks' cotangents of the whole map and keeps this band's rows. Its
+    bytes count as ``kind`` in :class:`BandStats`."""
 
     @staticmethod
-    def forward(ctx, x, dim, band):
-        buf = band.slots(x, "gather").to(x.dtype)
-        ctx.dim, ctx.band, ctx.rows = dim, band, x.shape[dim]
+    def forward(ctx, x, dim, band, kind):
+        buf = band.slots(x, kind).to(x.dtype)
+        ctx.dim, ctx.band, ctx.rows, ctx.kind = dim, band, x.shape[dim], kind
         return torch.cat(buf.unbind(0), dim)
 
     @staticmethod
     def backward(ctx, grad):
-        total = _summed(grad, ctx.band, "gather")
-        return total.narrow(ctx.dim, ctx.band.index * ctx.rows, ctx.rows), None, None
+        total = _summed(grad, ctx.band, ctx.kind)
+        return total.narrow(ctx.dim, ctx.band.index * ctx.rows, ctx.rows), None, None, None
 
 
 class SumOverGroup(torch.autograd.Function):
@@ -303,16 +309,16 @@ def to_band(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
     return register(x, rows, dim)
 
 
-def whole(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+def whole(x: torch.Tensor, dim: int = -2, kind: str = "gather") -> torch.Tensor:
     """The whole map of a band (registered); ``x`` itself otherwise."""
     known = state(x, dim)
     if known is None or not known[1]:
         return x
     if not x.requires_grad:
         with torch.no_grad():
-            out = GatherRows.apply(x, dim % x.dim(), _band)
+            out = GatherRows.apply(x, dim % x.dim(), _band, kind)
     else:
-        out = GatherRows.apply(x, dim % x.dim(), _band)
+        out = GatherRows.apply(x, dim % x.dim(), _band, kind)
     return register(out, known[0], dim)
 
 
@@ -419,13 +425,14 @@ def resize(x: torch.Tensor, height: int, width: int, method: str, plain):
     context, ``height`` the global rows; the output is a band where its
     height allows. Nearest 2x on a band reads only its own rows; a
     bilinear resize of a band gathers the map (1 to 3 channels where the
-    nets resize), resizes it whole and cuts it."""
+    nets resize; the synthesized and flow-warped views of the cmb, md2 and
+    md2cmb terms), resizes it whole and cuts it."""
     band = _band
     known = state(x)
     if known is not None and known[1]:
         if method == "nearest" and height == 2 * known[0] and band.bandable(height):
             return register(plain(x, 2 * x.shape[-2], width, method), height)
-        x = whole(x)
+        x = whole(x, kind="resize")
     out = plain(x, height, width, method)
     return cut(out) if band.bandable(height) else register(out, height)
 

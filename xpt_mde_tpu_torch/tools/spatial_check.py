@@ -21,6 +21,8 @@ import torch.distributed as dist
 
 # (name, H) of each case's input; W = 12, batch 2
 _HEIGHTS = {"odd": 10, "even": 16}
+# a loss case's frame that two bands do not divide: every rank holds it whole
+_WHOLE_HEIGHTS = {"nine": 9}
 WIDTH = 12
 # the bands' result against the whole map's, the largest difference over
 # the largest value: float32, the same sums grouped by band; bfloat16 (the
@@ -179,9 +181,16 @@ MAP_CASES = {
     "feature warp even": (_fn(_feature_warp, 6), "even"),
     "flow coords even": (_fn(_flow_coords, 2), "even"),
 }
-# the loss terms, per sample: name -> H
+# the loss terms, per sample: name -> H; the joint step's full-resolution
+# terms (their views at full and half size, the flow-warped views at half
+# size: bands at 16 rows, the half-size maps whole at 10, every map whole
+# at 9)
 LOSS_CASES = {"ssim even": "even", "ssim odd": "odd", "smoothness even": "even",
-              "smoothness odd": "odd", "flowL2 even": "even", "flow_reg even": "even"}
+              "smoothness odd": "odd", "flowL2 even": "even", "flow_reg even": "even",
+              **{f"{kind}{method} even": "even" for kind in ("cmb", "md2", "md2cmb")
+                 for method in ("L1", "SSIM")},
+              "cmbSSIM odd": "odd", "md2cmbL1 odd": "odd", "md2cmbL1 nine": "nine",
+              "md2SSIM nine": "nine"}
 
 
 def _whole(t: torch.Tensor, mesh, dim: int) -> np.ndarray:
@@ -254,15 +263,17 @@ def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
     frames reach the losses in float32). ``dims``: the rows' axes of the
     differentiated input and of the other one, each cut to bands, or None
     for one that every rank holds whole (its gradient then summed over the
-    ranks)."""
+    ranks). The bands run inside ``reducing_over`` the group, as a step
+    does (md2cmb's kept-pixel count over the mesh)."""
     from xpt_mde_tpu_torch.losses.photometric import (photometric_loss_l2,
                                                       photometric_loss_ssim)
-    from xpt_mde_tpu_torch.losses.total import L2Regularizer, SmoothenessLossMultiScale
+    from xpt_mde_tpu_torch.losses import total
     from xpt_mde_tpu_torch.ops.flow_warp import flow_warp_multi_scale
     from xpt_mde_tpu_torch.parallel import spatial
-    from xpt_mde_tpu_torch.utils.image import multi_scale_like
+    from xpt_mde_tpu_torch.parallel.multihost import reducing_over
+    from xpt_mde_tpu_torch.utils.image import multi_scale_like, resize_image
 
-    rows = _HEIGHTS[LOSS_CASES[name]]
+    rows = (_HEIGHTS | _WHOLE_HEIGHTS)[LOSS_CASES[name]]
     rng = np.random.RandomState(seed)
     if name.startswith("flowL2"):
         # the flow [B, N, H, W, 2] (pixels of order 1) warps the whole
@@ -282,7 +293,29 @@ def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
         dims = (None, None)
 
         def fn(p, o):
-            return L2Regularizer()({"image5d": o}, {"regularize_weights": [p]}, {})
+            return total.L2Regularizer()({"image5d": o}, {"regularize_weights": [p]}, {})
+    elif name.startswith(("cmb", "md2")):
+        # the synthesized views [B, N, H, W, 3] (10% black, invalid; whole
+        # on every rank at 9 rows), and from them the half-size scale; the
+        # frames whole on every rank: the target and the flow-warped views,
+        # at half size (a band where its height allows)
+        term = name.split()[0]
+        method = "SSIM" if term.endswith("SSIM") else "L1"
+        loss = {"cmb": total.CombinedLossMultiScale, "md2": total.MonoDepth2LossMultiScale,
+                "md2cmb": total.MD2CombLossMultiScale}[term[:-len(method)]](method, [1.0, 0.5])
+        pred = rng.uniform(-1, 1, (2, 2, rows, WIDTH, 3)).astype(np.float32)
+        pred[rng.rand(2, 2, rows, WIDTH) < 0.1] = 0.0
+        other = rng.uniform(-1, 1, (2, 3, rows, WIDTH, 3)).astype(np.float32)
+        dims = (None if LOSS_CASES[name] in _WHOLE_HEIGHTS else 2, None)
+
+        def fn(p, o):
+            spatial.register(o, rows, 2)
+            size = (rows // 2, WIDTH // 2)
+            with spatial.suspended():
+                warped = resize_image(o[:, :2], *size)
+            return loss(None, None, {"synth_target_ms": [p, resize_image(p, *size)],
+                                     "warped_target_ms": [spatial.to_band(warped, 2)],
+                                     "target": o[:, -1]})
     elif name.startswith("ssim"):
         pred = rng.uniform(-1, 1, (2, 2, rows, WIDTH, 3)).astype(np.float32)
         pred[:, :, :2, :3] = 0.0  # black (invalid) pixels
@@ -295,7 +328,7 @@ def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
         pred = rng.uniform(0.1, 2.0, (2, rows, WIDTH, 1)).astype(np.float32)
         other = rng.uniform(-1, 1, (2, rows, WIDTH, 3)).astype(np.float32)
         dims = (1, 1)
-        smooth = SmoothenessLossMultiScale([1.0])
+        smooth = total.SmoothenessLossMultiScale([1.0])
 
         def fn(p, o):
             return smooth.smootheness_loss(p, o)
@@ -309,7 +342,7 @@ def _loss_case(mesh, name: str, seed: int, dtype: torch.dtype) -> dict:
 
     pb = (pred.clone() if dims[0] is None else _band(pred, mesh, dims[0])).requires_grad_()
     ob = other if dims[1] is None else _band(other, mesh, dims[1])
-    with spatial.banded(mesh):
+    with reducing_over(mesh.group), spatial.banded(mesh):
         for t, dim in zip((pb, ob), dims):
             if dim is not None:
                 spatial.register(t, rows, dim)

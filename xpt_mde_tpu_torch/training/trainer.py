@@ -27,10 +27,10 @@ the step is ``parallel.make_parallel_train_step`` (BatchNorm statistics,
 md2cmb's count, gradients and metrics over the global batch), and the
 validation metrics are reduced over the ranks too, so every rank logs the
 values a single process would. On a mesh with a ``spatial`` axis
-(``{"data": D, "spatial": S}``, the rigid path and the flow stage) the S
-ranks of one data index read the same rows, and the train and eval steps
-run on their bands of the image rows (``parallel.spatial``); a joint or
-stereo row raises. Only the main process writes the config
+(``{"data": D, "spatial": S}``: the rigid path, the flow stage and the
+joint step, its flownet frozen) the S ranks of one data index read the
+same rows, and the train and eval steps run on their bands of the image
+rows (``parallel.spatial``); a stereo row raises. Only the main process writes the config
 snapshot, the checkpoints and ``history.csv``; every rank reads them at a
 resume, each after a barrier that follows the writes.
 ``grad_accum_steps > 1`` splits each batch into that many microbatches
